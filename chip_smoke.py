@@ -1,0 +1,622 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py                 # phases 1-7
+    python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
+
+Phases:
+  1. the card's name and power limit; TF32 must be off;
+  2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes and at the JAX package's ragged kernel-test shapes;
+  4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
+     x 128 fp32), index built on the card, 64 queries through the fused
+     IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
+  5. CPU<->GPU parity of the engine on a 20,000 x 128 index;
+  6. the unfused, unfused predictive and plain IVF+PQ forms at the JAX
+     serving CLI's defaults (100,000 x 96, k=5000, 316 clusters);
+  7. each kernel's time at the main path's shapes beside its bound, its
+     plain version's and (where one exists) one PyTorch call's;
+  8. (only when asked for) torch.profiler over main-path batches: device
+     time by operator and the device's idle share.
+
+Kernel launch counts are zeroed before phases 4 and 6 and read after each;
+comparison and timing launches do not count.  Any failed check raises and
+the script exits non-zero without the last line.  Without CUDA it exits 2
+before doing anything.  The second-to-last lines are the launch counts,
+the card's ``nvidia-smi`` name and power limit, and a JSON list of kernels;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+SEED = 0
+
+KERNELS = {
+    "fused_scan_batch": ("src/repro_torch/kernels/csrc/fused_scan.cu",
+                         "src/repro/kernels/fused_scan.py:284"),
+    "pq_adc_batch": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+                     "src/repro/kernels/pq_adc.py:105"),
+    "l2_exact_batch": ("src/repro_torch/kernels/csrc/l2_rerank.cu",
+                       "src/repro/kernels/l2_rerank.py:61"),
+    "bucket_hist_batch": ("src/repro_torch/kernels/csrc/bucket_hist.cu",
+                          "src/repro/kernels/bucket_hist.py:131"),
+}
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=30).stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def max_abs(a, b) -> float:
+    """Largest |a - b| over lanes finite in both; +inf lanes must match."""
+    import torch
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    check(torch.equal(fa, fb), "finite lanes differ")
+    if not bool(fa.any()):
+        return 0.0
+    return float((a[fa] - b[fa]).abs().max().item())
+
+
+def close(a, b, tol: float, name: str) -> float:
+    import torch
+    err = max_abs(a, b)
+    fa = torch.isfinite(a)
+    ok = torch.allclose(a[fa], b[fa], rtol=tol, atol=tol)
+    check(ok, f"{name}: max abs err {err} beyond rtol=atol={tol}")
+    return err
+
+
+def kernel_inputs(rng, b, n, m_sub, d, k_codes=16, m=128, density=0.0625):
+    """Random kernel inputs and per-query codebooks built from the plain
+    ADC estimate (as the searcher builds them from its sample)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    codes = torch.from_numpy(rng.integers(0, k_codes, (n, m_sub),
+                                          dtype=np.uint8)).to(dev)
+    vectors = torch.from_numpy(
+        rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    qs = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((b, n)) < density).to(dev)
+    luts = torch.from_numpy(
+        (rng.random((b, m_sub, k_codes)) * 2).astype(np.float32)).to(dev)
+    est = torch.sqrt(ref.pq_adc_batch(codes, luts))
+    est = torch.where(valid, est, float("inf"))
+    cb = rb.build_codebook(est, k=min(n // 4, 40000), m=m)
+    tau = torch.from_numpy(rng.integers(0, m, b).astype(np.int32)).to(dev)
+    return dict(codes=codes, vectors=vectors, valid=valid, luts=luts, qs=qs,
+                d_min=cb.d_min, delta=cb.delta, ew_maps=cb.ew_map, m=m,
+                tau_pred=tau)
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def check_kernels(inp, errs: dict, tag: str) -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    a = inp
+    est, bucket, hist, early, nmiss = ops.fused_scan_batch(
+        a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"], a["d_min"],
+        a["delta"], a["ew_maps"], a["m"], a["tau_pred"])
+    torch.cuda.synchronize()
+    p_est, p_bucket, p_hist, p_early, p_nmiss = ref.fused_scan_batch(
+        a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"], a["d_min"],
+        a["delta"], a["ew_maps"], a["m"], a["tau_pred"])
+    e1 = close(est, p_est, 1e-5, f"{tag} fused est")
+    # integer outputs: equal to the plain version run on the kernel's est
+    r_bucket, r_hist = ref.bucket_hist_batch(est, a["valid"], a["d_min"],
+                                             a["delta"], a["ew_maps"], a["m"])
+    pred = a["valid"] & (r_bucket <= a["tau_pred"][:, None])
+    r_nmiss = (a["valid"] & ~pred).sum(1).to(torch.int32)
+    # early against the exact distances of the same predicted lanes
+    p_early = torch.where(pred, ref.l2_exact_batch(a["vectors"], a["qs"]),
+                          float("inf"))
+    e2 = close(early, p_early, 1e-4, f"{tag} fused early")
+    log(f"[kernels] {tag}: fused est bit-identical to the plain version: "
+        f"{torch.equal(est, p_est)}")
+    check(torch.equal(bucket, r_bucket), f"{tag} fused bucket")
+    check(torch.equal(hist, r_hist), f"{tag} fused hist")
+    check(torch.equal(nmiss, r_nmiss), f"{tag} fused nmiss")
+    check(torch.equal(torch.isfinite(early), pred),
+          f"{tag} early finite exactly where bucket <= tau_pred")
+    errs["fused_scan_batch"] = max(errs.get("fused_scan_batch", 0.0), e1, e2)
+
+    adc = ops.pq_adc_batch(a["codes"], a["luts"])
+    torch.cuda.synchronize()
+    e = close(adc, ref.pq_adc_batch(a["codes"], a["luts"]), 1e-5,
+              f"{tag} pq_adc")
+    errs["pq_adc_batch"] = max(errs.get("pq_adc_batch", 0.0), e)
+
+    l2 = ops.l2_exact_batch(a["vectors"], a["qs"])
+    torch.cuda.synchronize()
+    e = close(l2, ref.l2_exact_batch(a["vectors"], a["qs"]), 2e-4,
+              f"{tag} l2")
+    errs["l2_exact_batch"] = max(errs.get("l2_exact_batch", 0.0), e)
+
+    bkt, h = ops.bucket_hist_batch(est, a["valid"], a["d_min"], a["delta"],
+                                   a["ew_maps"], a["m"])
+    torch.cuda.synchronize()
+    check(torch.equal(bkt, r_bucket), f"{tag} bucket_hist bucket")
+    check(torch.equal(h, r_hist), f"{tag} bucket_hist hist")
+    errs["bucket_hist_batch"] = max(
+        errs.get("bucket_hist_batch", 0.0),
+        float((bkt - r_bucket).abs().max().item()))
+    log(f"[kernels] {tag}: fused est err {e1:.3g} early err {e2:.3g}, "
+        f"pq_adc err {errs['pq_adc_batch']:.3g}, l2 err "
+        f"{errs['l2_exact_batch']:.3g}, bucket/hist/nmiss equal")
+
+
+# --------------------------------------------------------------------------
+# phases 4-6: the engine
+# --------------------------------------------------------------------------
+
+def corpus(n, d, n_q, seed=SEED):
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic
+    rng = np.random.default_rng(seed)
+    x = synthetic.clustered(rng, n, d)
+    qs = synthetic.queries_from(rng, x, n_q)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(qs).cuda()
+
+
+def recall(x, qs, ids, k) -> float:
+    import numpy as np
+    from repro_torch.index import flat
+    _, gt = flat.search_batch(x, qs, k)
+    gt, ids = gt.cpu().numpy(), ids.cpu().numpy()
+    return float(np.mean([len(set(r.tolist()) & set(g.tolist())) / k
+                          for r, g in zip(ids, gt)]))
+
+
+def check_result(res, b, k, name) -> None:
+    import torch
+    check(tuple(res.ids.shape) == (b, k), f"{name}: ids shape {res.ids.shape}")
+    check(bool(torch.isfinite(res.dists).all()), f"{name}: non-finite dists")
+    check(bool((res.ids >= 0).all()), f"{name}: padding ids in a full result")
+    check(bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()),
+          f"{name}: dists not ascending")
+    srt = torch.sort(res.ids, dim=1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{name}: duplicate ids")
+
+
+def timed_batches(fn, batches):
+    """Run ``fn`` over the batches; per-batch ms by CUDA events."""
+    import torch
+    out, ms = [], []
+    for qb in batches:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out.append(fn(qb))
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return out, ms
+
+
+def main_path(summary: dict, card: str):
+    import torch
+    from repro_torch.index import engine, search
+    from repro_torch.kernels import ops
+    n, d, k, b = 1_000_000, 128, 5000, 32
+    t0 = time.monotonic()
+    x, qs = corpus(n, d, 64 + 4 * b)
+    log(f"[main] corpus {n} x {d} in {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    index = search.build_pq_index(x, 1024, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[main] index (1024 clusters, M=32 x 4 bits) built on the card in "
+        f"{time.monotonic() - t0:.1f}s")
+    eng = engine.SearchEngine.build(index, k=k, n_probe=64, device="cuda")
+    check(eng.n_cand == 40000, f"n_cand {eng.n_cand}")
+    eng.warmup((b,), predictive=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    static_q = [qs[i:i + b] for i in range(0, 64, b)]
+    res, ms = timed_batches(eng.search, static_q)
+    state = [eng.predictor_init()]
+
+    def pred(qb):
+        r, state[0] = eng.search(qb, pred_state=state[0])
+        return r
+
+    pred_q = [qs[64 + i * b:64 + (i + 1) * b] for i in range(4)]
+    pres, pms = timed_batches(pred, pred_q)
+    launches = dict(ops.LAUNCHES)
+    check(launches["fused_scan_batch"] > 0, "main path never ran the fused "
+          "kernel")
+    for r in res + pres:
+        check_result(r, b, k, "main path")
+    rec = recall(x, qs[:8], res[0].ids[:8], k)
+    prec = recall(x, pred_q[-1][:8], pres[-1].ids[:8], k)
+    check(rec > 0.5, f"main-path recall {rec}")
+    steady = sorted(ms)[len(ms) // 2]
+    summary["main_path"] = {
+        "corpus": [n, d], "n_clusters": 1024, "n_probe": 64, "k": k,
+        "n_cand": eng.n_cand, "batch": b, "pq": "M=32 x 4 bits", "m": 128,
+        "ms_per_batch": ms, "qps": 1e3 * b / steady,
+        "recall_at_k_8q": rec,
+        "predictive_ms_per_batch": pms,
+        "predictive_recall_at_k_8q": prec,
+        "predictive_second_pass_mean": [
+            float(r.n_second_pass.float().mean().item()) for r in pres],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "card": card}
+    log(f"[main] fused static ms/batch {ms}, QPS {1e3 * b / steady:.1f}, "
+        f"recall@{k} {rec:.4f} (8 queries); predictive ms/batch {pms}, "
+        f"recall {prec:.4f}; launches {launches}; {card}")
+    return eng, qs, launches
+
+
+def parity(summary: dict) -> None:
+    import torch
+    from repro_torch.index import engine, search
+    x, qs = corpus(20_000, 128, 64, seed=SEED + 1)
+    gpu_index = search.build_pq_index(x, 128, seed=SEED, device="cuda")
+    cpu_index = search.index_to(gpu_index, "cpu")
+    out = {}
+    configs = [("bbc_fused", True, True), ("bbc_unfused", True, False),
+               ("ivfpq", False, False)]
+    for name, use_bbc, fused in configs:
+        for predictive in ((False, True) if use_bbc else (False,)):
+            engs = [engine.SearchEngine.build(
+                ix, k=1000, n_probe=16, use_bbc=use_bbc, fused=fused,
+                device=dev) for ix, dev in ((gpu_index, "cuda"),
+                                            (cpu_index, "cpu"))]
+            states = [e.predictor_init() for e in engs]
+            batches = [qs[:32], qs[32:], qs[:32]] if predictive else [qs[:32]]
+            counters_equal = True
+            for qb in batches:
+                rs = []
+                for i, e in enumerate(engs):
+                    if predictive:
+                        r, states[i] = e.search(qb.to(e.device),
+                                                pred_state=states[i])
+                    else:
+                        r = e.search(qb.to(e.device))
+                    rs.append(r)
+                g, c = rs
+                for row in range(qb.shape[0]):
+                    check(set(g.ids[row].tolist()) == set(c.ids[row].tolist()),
+                          f"parity {name} predictive={predictive} query {row}")
+                gd = torch.sort(g.dists.cpu(), 1).values
+                cd = torch.sort(c.dists, 1).values
+                check(torch.allclose(gd, cd, rtol=1e-4, atol=1e-4),
+                      f"parity {name} dists: max abs diff "
+                      f"{(gd - cd).abs().max().item()}")
+                counters_equal &= torch.equal(g.n_reranked.cpu(),
+                                              c.n_reranked)
+            key = name + ("_predictive" if predictive else "")
+            out[key] = {"ids_equal": True, "counters_equal": counters_equal}
+            log(f"[parity] {key}: id sets equal, dists within 1e-4, "
+                f"counters equal {counters_equal}")
+    summary["parity_20k"] = out
+
+
+def other_forms(summary: dict, card: str) -> dict:
+    import torch
+    from repro_torch.index import engine, search
+    from repro_torch.kernels import ops
+    n, d, k, b = 100_000, 96, 5000, 32
+    x, qs = corpus(n, d, 96)
+    index = search.build_pq_index(x, 316, seed=SEED, device="cuda")
+    engs = {
+        "bbc_unfused": engine.SearchEngine.build(index, k=k, n_probe=64,
+                                                 fused=False, device="cuda"),
+        "ivfpq": engine.SearchEngine.build(index, k=k, n_probe=64,
+                                           use_bbc=False, device="cuda"),
+        "bbc_fused": engine.SearchEngine.build(index, k=k, n_probe=64,
+                                               fused=True, device="cuda"),
+    }
+    for e in engs.values():
+        e.warmup((b,), predictive=e.use_bbc)
+    ops.reset_launches()
+    out = {}
+    res_unfused, ms = timed_batches(engs["bbc_unfused"].search, [qs[:b]])
+    out["bbc_unfused"] = {"ms_per_batch": ms}
+    state = [engs["bbc_unfused"].predictor_init()]
+
+    def pred(qb):
+        r, state[0] = engs["bbc_unfused"].search(qb, pred_state=state[0])
+        return r
+
+    pres, pms = timed_batches(pred, [qs[b:2 * b], qs[2 * b:3 * b]])
+    out["bbc_unfused_predictive"] = {"ms_per_batch": pms}
+    base, bms = timed_batches(engs["ivfpq"].search, [qs[:b]])
+    out["ivfpq"] = {"ms_per_batch": bms}
+    launches = dict(ops.LAUNCHES)
+    for name in ("pq_adc_batch", "l2_exact_batch", "bucket_hist_batch"):
+        check(launches[name] > 0, f"the other forms never ran {name}")
+    for r in res_unfused + pres + base:
+        check_result(r, b, k, "other forms")
+    # the fused and unfused BBC forms select the same ids
+    fused = engs["bbc_fused"].search(qs[:b])
+    same = sum(len(set(f.tolist()) & set(u.tolist()))
+               for f, u in zip(fused.ids, res_unfused[0].ids)) / (b * k)
+    check(same >= 0.999, f"fused vs unfused id overlap {same}")
+    out["bbc_unfused"]["recall_at_k_8q"] = recall(x, qs[:8],
+                                                  res_unfused[0].ids[:8], k)
+    out["ivfpq"]["recall_at_k_8q"] = recall(x, qs[:8], base[0].ids[:8], k)
+    out["bbc_unfused_predictive"]["recall_at_k_8q"] = recall(
+        x, qs[2 * b:2 * b + 8], pres[-1].ids[:8], k)
+    out["fused_vs_unfused_overlap"] = same
+    out["launches"] = launches
+    out["card"] = card
+    summary["other_forms_100k"] = out
+    log(f"[forms] {json.dumps(out)}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: timing
+# --------------------------------------------------------------------------
+
+def main_path_kernel_args(eng, qs):
+    """The four kernels' arguments as the main path builds them for one
+    batch (routing, ADC tables, sample codebooks and tau_pred)."""
+    from repro_torch.core import rerank
+    from repro_torch.index import pq as pq_mod
+    from repro_torch.index import search as S
+    ix, lay = eng.index, eng.layout
+    probed, lane_valid, _ = S._routing(ix.ivf, lay, qs, eng.n_probe)
+    codes = ix.codes[lay.order].contiguous()
+    vecs = ix.vectors[lay.order].contiguous()
+    luts = pq_mod.adc_table(ix.pq, qs).contiguous()
+    sample = S._pq_sample_est(lay, probed, codes, luts, 4, ix.ivf.cap)
+    plans = rerank.early_rerank_plan(sample, n_cand=eng.n_cand,
+                                     n_sample=sample.shape[1],
+                                     n_total=eng.n_probe * ix.ivf.cap,
+                                     m=eng.m)
+    return dict(codes=codes, vectors=vecs, valid=lane_valid, luts=luts,
+                qs=qs, d_min=plans.cb.d_min, delta=plans.cb.delta,
+                ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred)
+
+
+def bound(nbytes: float, ops_: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S, ops_ / FP32_FLOP_PER_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def timing(a) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, n = a["valid"].shape
+    m_sub, d = a["codes"].shape[1], a["vectors"].shape[1]
+    k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
+    args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
+            a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
+    est, bucket, _, _, _ = ops.fused_scan_batch(*args)
+    pred = a["valid"] & (bucket <= a["tau_pred"][:, None])
+    lanes_probed = int(a["valid"].any(0).sum().item())
+    rows_pred = int(pred.any(0).sum().item())
+    pairs_valid = int(a["valid"].sum().item())
+    pairs_pred = int(pred.sum().item())
+    params = 4 * b * (m_sub * k_codes + d + n_ew + 3)
+    out = {}
+
+    fused_bytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
+                   + 3 * 4 * b * n + 4 * b * (m + 2) + params)
+    fused_ops = pairs_valid * m_sub + 3 * d * pairs_pred
+    out["fused_scan_batch"] = dict(
+        ms=cuda_ms(lambda: ops.fused_scan_batch(*args), 20),
+        plain_ms=cuda_ms(lambda: ref.fused_scan_batch(*args), 3, warm=1),
+        library_ms=None, work={"lanes_probed": lanes_probed,
+                               "rows_predicted": rows_pred,
+                               "pairs_valid": pairs_valid,
+                               "pairs_predicted": pairs_pred})
+    out["fused_scan_batch"]["bound_ms"], out["fused_scan_batch"]["bound_by"] \
+        = bound(fused_bytes, fused_ops)
+
+    c, lt = a["codes"], a["luts"]
+    out["pq_adc_batch"] = dict(
+        ms=cuda_ms(lambda: ops.pq_adc_batch(c, lt), 20),
+        plain_ms=cuda_ms(lambda: ref.pq_adc_batch(c, lt), 3, warm=1),
+        library_ms=None)
+    out["pq_adc_batch"]["bound_ms"], out["pq_adc_batch"]["bound_by"] = bound(
+        n * m_sub + 4 * b * m_sub * k_codes + 4 * b * n, b * n * m_sub)
+
+    x, q = a["vectors"], a["qs"]
+    out["l2_exact_batch"] = dict(
+        ms=cuda_ms(lambda: ops.l2_exact_batch(x, q), 20),
+        plain_ms=cuda_ms(lambda: ref.l2_exact_batch(x, q), 5, warm=1),
+        library_ms=cuda_ms(lambda: torch.cdist(q, x), 5, warm=1))
+    out["l2_exact_batch"]["bound_ms"], out["l2_exact_batch"]["bound_by"] = \
+        bound(4 * n * d + 4 * b * d + 4 * b * n, 3 * b * n * d)
+
+    bh = (est, a["valid"], a["d_min"], a["delta"], a["ew_maps"], m)
+    out["bucket_hist_batch"] = dict(
+        ms=cuda_ms(lambda: ops.bucket_hist_batch(*bh), 20),
+        plain_ms=cuda_ms(lambda: ref.bucket_hist_batch(*bh), 3, warm=1),
+        library_ms=None)
+    out["bucket_hist_batch"]["bound_ms"], \
+        out["bucket_hist_batch"]["bound_by"] = bound(
+            9 * b * n + 4 * b * (m + 1) + 4 * b * (n_ew + 2), 4 * b * n)
+    for name, t in out.items():
+        log(f"[timing] {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']}")
+    return out
+
+
+def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
+    """torch.profiler over a few warm main-path batches: device time by
+    operator (per batch) and the device's busy share of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    qb = [qs[i * b:(i + 1) * b] for i in range(batches)]
+    eng.search(qb[0])
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for q in qb:
+            eng.search(q)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    cuda_type = torch.autograd.DeviceType.CUDA
+    busy_ms = sum(e.device_time for e in prof.events()
+                  if e.device_type == cuda_type) / 1e3
+    out = {"wall_ms_per_batch": wall_ms / batches,
+           "device_busy_ms_per_batch": busy_ms / batches,
+           "device_idle_share": 1.0 - busy_ms / wall_ms}
+    log(f"[profile] wall {out['wall_ms_per_batch']:.3f} ms/batch, device "
+        f"busy {out['device_busy_ms_per_batch']:.3f} ms/batch, idle share "
+        f"{out['device_idle_share']:.3f}")
+    # device kernels by name, and the PyTorch operators that launched them
+    # (an operator's self device time is the time of its own kernels)
+    for label, keep in (("kernels", lambda ev: ev.device_type == cuda_type),
+                        ("operators", lambda ev: ev.key.startswith("aten::"))):
+        rows = sorted(((ev.key, ev.self_device_time_total / 1e3 / batches,
+                        ev.count / batches) for ev in prof.key_averages()
+                       if keep(ev) and ev.self_device_time_total > 0),
+                      key=lambda r: -r[1])[:15]
+        out[label] = [{"name": k, "device_ms_per_batch": t,
+                       "calls_per_batch": c} for k, t, c in rows]
+        for k, t, c in rows:
+            log(f"[profile] {label[:-1]:8s} {t:9.4f} ms {c:6.1f}x  {k[:90]}")
+    return out
+
+
+# --------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+                    help="comma-separated phases to run (default 1-7; "
+                         "8 = torch.profiler over main-path batches, "
+                         "needs 4)")
+    ap.add_argument("--out", default="",
+                    help="also write the summary JSON to this path")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    import numpy as np
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.platform import tf32_off
+
+    card = smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name}; nvidia-smi: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    check(tf32_off(), "TF32 must be off")
+    summary: dict = {"card": card}
+
+    t0 = time.monotonic()
+    _build.build_all()
+    summary["build_s"] = time.monotonic() - t0
+    log(f"[build] {len(_build.KERNELS)} kernels in {summary['build_s']:.1f}s")
+    for kname, text in _build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {kname}: {line.strip()}")
+
+    errs: dict = {}
+    if 3 in phases:
+        rng = np.random.default_rng(SEED)
+        check_kernels(kernel_inputs(rng, 32, 1_000_064, 32, 128), errs,
+                      "main-path shapes B=32 n=1000064 M=32 d=128")
+        check_kernels(kernel_inputs(rng, 3, 1000, 33, 100, m=64, density=0.9),
+                      errs, "ragged B=3 n=1000 M=33 d=100")
+
+    launches = {k: 0 for k in ops.LAUNCHES}
+    eng = qb = main_queries = None
+    if 4 in phases:
+        eng, main_queries, l4 = main_path(summary, card)
+        qb = main_queries[:32]
+        launches = {k: launches[k] + l4[k] for k in launches}
+    if 5 in phases:
+        parity(summary)
+    if 6 in phases:
+        l6 = other_forms(summary, card)
+        launches = {k: launches[k] + l6[k] for k in launches}
+    times = {}
+    if 7 in phases:
+        check(eng is not None, "phase 7 times the kernels at the main path's "
+              "shapes and needs phase 4")
+        times = timing(main_path_kernel_args(eng, qb))
+        summary["timing"] = times
+    if 8 in phases:
+        check(eng is not None, "phase 8 profiles the main path: needs 4")
+        summary["profile"] = profile(eng, main_queries)
+    if {4, 6} <= phases:
+        for k, v in launches.items():
+            check(v > 0, f"kernel {k} never launched on the main path")
+
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+    rows = []
+    for kname, (src, replaces) in KERNELS.items():
+        t = times.get(kname, {})
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[kname],
+                     "max_abs_err": errs.get(kname),
+                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+                     "bound_ms": t.get("bound_ms"),
+                     "bound_by": t.get("bound_by"),
+                     "library_ms": t.get("library_ms")})
+    print(json.dumps({"kernel_launches": launches}))
+    print(smi())
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Bucket-based result buffer (paper Alg. 1), batched over queries.
+
+The port of the JAX package's ``core/buffer.py``.  Every function takes a
+leading query axis: a codebook holds (B, ...) fields and distances are
+(B, n).  The steps are the reference's:
+
+  1. ``build_codebook``   — per-query equal-depth quantizer over the local
+     top-k of a sample (256 equal-width bins remapped to ``m`` equal-depth
+     buckets, Eq. 6).
+  2. ``bucketize``        — Eq. 6 bucket ids, overflow bucket ``m``.
+  3. ``histogram``        — the (B, m+1) bucket histogram.
+  4. ``threshold_bucket`` — first bucket whose cumulative count reaches k.
+  5. ``compact_mask``     — stream-order positions of the surviving lanes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ref as kref
+
+INF = float("inf")
+
+
+class BucketCodebook(NamedTuple):
+    """Per-query 1-D quantizers: equal-width front end + equal-depth remap.
+
+    ``edges`` (B, m+1) ascending bucket boundaries; ``d_min`` and ``delta``
+    (B,) the equal-width range start and bin width; ``ew_map`` (B, n_ew)
+    int32 equal-width bin -> equal-depth bucket id.
+    """
+
+    edges: torch.Tensor
+    d_min: torch.Tensor
+    delta: torch.Tensor
+    ew_map: torch.Tensor
+
+    @property
+    def m(self) -> int:
+        return self.edges.shape[-1] - 1
+
+    @property
+    def n_ew(self) -> int:
+        return self.ew_map.shape[-1]
+
+
+def build_codebook(sample_dists: torch.Tensor, k: int, m: int,
+                   n_ew: int = 256,
+                   valid: torch.Tensor | None = None) -> BucketCodebook:
+    """Equal-depth codebooks over the local top-k of each query's sample
+    (B, w); ``valid`` masks padding lanes."""
+    if valid is not None:
+        sample_dists = torch.where(valid, sample_dists, INF)
+    k = min(k, sample_dists.shape[-1])
+    topk = torch.topk(sample_dists, k, dim=-1, largest=False,
+                      sorted=True).values
+    return build_codebook_from_topk(topk, m, n_ew)
+
+
+def build_codebook_from_topk(topk: torch.Tensor, m: int,
+                             n_ew: int = 256) -> BucketCodebook:
+    """Codebooks from already-selected ascending local top-k rows (B, k).
+
+    +inf entries (fewer valid lanes than k) are clamped to the row's largest
+    finite value; a row with none falls back to an all-zero range.  The
+    range keeps a 2% margin above d_max and the edges are made strictly
+    increasing, exactly as the reference does."""
+    dev = topk.device
+    finite = torch.isfinite(topk)
+    top_finite = torch.where(finite, topk, -INF).amax(dim=-1)
+    top_finite = torch.where(torch.isfinite(top_finite), top_finite, 0.0)
+    topk = torch.where(finite, topk, top_finite[:, None])
+    d_min = topk[:, 0]
+    d_max = topk[:, -1]
+    k = topk.shape[-1]
+    span = torch.maximum(d_max - d_min, torch.full_like(d_max, 1e-6)) * 1.02
+    delta = span / n_ew
+    # jnp.linspace(0, k-1, m+1) in float32: (k-1) * (i/m), then the endpoint
+    step = torch.arange(m, dtype=torch.float32, device=dev) / m
+    pos = torch.cat([(k - 1.0) * step,
+                     torch.full((1,), k - 1.0, device=dev)])
+    lo = torch.floor(pos).long()
+    hi = torch.clamp(lo + 1, max=k - 1)
+    frac = pos - lo.to(torch.float32)
+    edges = topk[:, lo] + (topk[:, hi] - topk[:, lo]) * frac
+    eps = span * 1e-7
+    edges = edges + eps[:, None] * torch.arange(m + 1, dtype=torch.float32,
+                                                device=dev)
+    centers = d_min[:, None] + (torch.arange(
+        n_ew, dtype=torch.float32, device=dev) + 0.5) * delta[:, None]
+    ew_map = torch.searchsorted(edges.contiguous(), centers.contiguous(),
+                                right=True) - 1
+    ew_map = ew_map.clamp(0, m - 1).to(torch.int32)
+    return BucketCodebook(edges=edges, d_min=d_min, delta=delta,
+                          ew_map=ew_map)
+
+
+def bucketize(cb: BucketCodebook, dists: torch.Tensor) -> torch.Tensor:
+    """Eq. 6 bucket ids (B, n) of (B, n) distances; overflow bucket m."""
+    return kref.bucketize_batch(dists, cb.d_min, cb.delta, cb.ew_map, cb.m)
+
+
+def histogram(bucket_ids: torch.Tensor, m: int,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, m+1) bucket histogram (bucket m = overflow)."""
+    if valid is None:
+        valid = torch.ones_like(bucket_ids, dtype=torch.bool)
+    return kref.histogram_batch(bucket_ids, valid, m)
+
+
+def threshold_bucket(hist: torch.Tensor, k: int):
+    """Alg. 1 Update: per row, the first bucket tau with cumulative count
+    >= k, and the count strictly before it.  Fewer than k candidates gives
+    tau = m (the overflow id)."""
+    m = hist.shape[-1] - 1
+    cum = torch.cumsum(hist[:, :m].long(), dim=-1)
+    tau = torch.sum(cum < k, dim=-1).clamp(max=m)
+    before = torch.gather(cum, 1, (tau - 1).clamp(min=0)[:, None])[:, 0]
+    n_before = torch.where(tau > 0, before, 0)
+    return tau.to(torch.int32), n_before.to(torch.int32)
+
+
+def compact_mask(mask: torch.Tensor, budget: int):
+    """Stream-order positions of the first ``budget`` set lanes of each row
+    of ``mask`` (B, n), sentinel n past the fill.  Returns (positions (B,
+    budget) int64, ok (B, budget))."""
+    b, n = mask.shape
+    lane = torch.arange(n, device=mask.device)
+    key = torch.where(mask, lane, n)
+    out = torch.topk(key, min(budget, n), dim=-1, largest=False,
+                     sorted=True).values
+    if budget > n:
+        out = torch.cat([out, torch.full((b, budget - n), n,
+                                         device=mask.device)], dim=1)
+    return out, out < n
+
+
+def smallest(vals: torch.Tensor, k: int):
+    """The k smallest entries of each row, ascending, ties to the lower
+    position: the semantics of ``jax.lax.top_k(-vals, k)``.  ``torch.topk``
+    promises no order among ties, and PQ estimates tie whenever two vectors
+    share codes, so the port selects with a stable sort.  Returns (values,
+    positions)."""
+    s = torch.sort(vals, dim=-1, stable=True)
+    return s.values[..., :k], s.indices[..., :k]
+
+
+def _collect_budget(k: int, n: int, slack_buckets: int, m: int) -> int:
+    # Expected threshold-bucket occupancy under equal-depth is ~k/m; slack
+    # covers skew.  Clamped to n (can't select more than exists).
+    per_bucket = max(k // max(m, 1), 1)
+    return int(min(n, k + slack_buckets * per_bucket + 64))

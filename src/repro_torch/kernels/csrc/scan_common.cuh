@@ -1,0 +1,102 @@
+// Device functions shared by the four main-path kernels (fused_scan.cu,
+// pq_adc.cu, l2_rerank.cu, bucket_hist.cu).
+//
+// Numerics.  Build without --use_fast_math: the bucket id of an estimate
+// must equal the plain PyTorch version's for the same fp32 value, which
+// holds only with IEEE division, floorf and IEEE sqrtf (nvcc's defaults
+// -prec-div=true -prec-sqrt=true).  The ADC sum adds the sub-quantizer
+// terms in ascending m in fp32, the order kernels/ref.py uses, so estimates
+// are bit-identical to the plain version.
+//
+// The exact legs sum (x - q)^2 directly rather than the norm identity
+// |x|^2 - 2 x.q + |q|^2 that the Pallas kernels and the plain versions
+// compute as a matmul.  On CUDA cores the two cost the same two
+// instructions per coordinate, but a sequential fp32 norm identity cancels:
+// on the clustered corpora (|x|^2 ~ 500, a query's nearest neighbour at
+// distance ~1) it alone uses over half of the 1e-4 bar, while the direct
+// sum stays within a few ulps of the true distance.  What the kernels and
+// the plain versions then differ by is the plain version's own rounding.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace bbc {
+
+constexpr int kThreads = 256;   // one lane per thread within a lane tile
+
+// Eq. 6: ew_map[clamp(floor((e - d_min) / delta), 0, n_ew - 1)], or the
+// overflow bucket m when the bin is past the equal-width range.  +inf
+// estimates (masked lanes) land in m.
+__device__ __forceinline__ int bucket_of(float e, float d_min, float delta,
+                                         const int* ew, int n_ew, int m) {
+  const float bf = floorf((e - d_min) / delta);
+  if (bf >= static_cast<float>(n_ew)) return m;
+  const int bi = bf >= 0.f ? static_cast<int>(bf) : 0;  // NaN maps to 0 too
+  return ew[bi];
+}
+
+// Sum of one shared-memory row of nq histograms into the zeroed global
+// (B, m1) histogram.  Blocks run concurrently and in no order, so each
+// block counts in shared memory and adds its nonzero bins atomically.
+__device__ __forceinline__ void flush_hist(const int* hist_s, int* hist,
+                                           int q0, int nq, int m1) {
+  for (int i = threadIdx.x; i < nq * m1; i += blockDim.x) {
+    const int c = hist_s[i];
+    if (c) atomicAdd(&hist[static_cast<size_t>(q0 + i / m1) * m1 + i % m1], c);
+  }
+}
+
+// Stage nq rows of `width` elements starting at row q0 into shared memory.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int q0,
+                                           int nq, int width) {
+  const T* base = src + static_cast<size_t>(q0) * width;
+  for (int i = threadIdx.x; i < nq * width; i += blockDim.x) dst[i] = base[i];
+}
+
+// acc[j] += |x - q_j|^2 over one vector row for BQ staged queries (q_s:
+// BQ rows of d floats), with 16-byte loads where the row allows them.
+template <int BQ>
+__device__ __forceinline__ void sq_dists(const float* __restrict__ xr,
+                                         const float* q_s, int d,
+                                         float* acc) {
+  if ((d & 3) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    for (int t = 0; t < d / 4; ++t) {
+      const float4 x = __ldg(x4 + t);
+#pragma unroll
+      for (int j = 0; j < BQ; ++j) {
+        const float* q = q_s + j * d + 4 * t;
+        const float a = x.x - q[0], b = x.y - q[1];
+        const float c = x.z - q[2], e = x.w - q[3];
+        acc[j] += a * a;
+        acc[j] += b * b;
+        acc[j] += c * c;
+        acc[j] += e * e;
+      }
+    }
+  } else {
+    for (int t = 0; t < d; ++t) {
+      const float x = __ldg(xr + t);
+#pragma unroll
+      for (int j = 0; j < BQ; ++j) {
+        const float a = x - q_s[j * d + t];
+        acc[j] += a * a;
+      }
+    }
+  }
+}
+
+// Launch helper: opt in to more than 48 KB of dynamic shared memory.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace bbc

@@ -1,0 +1,252 @@
+"""Wrappers of the four main-path kernels, with the JAX package's signatures.
+
+The backend follows the tensors' device: CPU tensors go to the plain
+versions in ``kernels/ref.py``; CUDA tensors go to the hand-written CUDA
+kernels in ``csrc/`` (built at first use by ``kernels/_build.py``).  A mix of
+devices, or a CUDA tensor the kernel does not take (wrong dtype, layout or
+shape), raises; there is no fallback from a CUDA tensor to the plain version.
+
+Layout follows the JAX package's public one: ``valid`` is (B, n) and every
+per-lane output is (B, n).  Codes stay uint8 and the kernels mask their own
+ragged edges, so nothing is padded.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
+count); ``chip_smoke.py`` zeroes it before a run and reads it after.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
+            "bucket_hist_batch": 0}
+
+MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
+MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
+LANE_TILE = 256        # threads per block = lanes per tile
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fused_scan": {
+        "fused_scan_batch_launch": [_P] * 14 + [_I] * 10 + [_P],
+        "fused_scan_smem_bytes": [_I] * 6},
+    "pq_adc": {
+        "pq_adc_batch_launch": [_P] * 3 + [_I] * 7 + [_P],
+        "pq_adc_smem_bytes": [_I] * 3},
+    "l2_rerank": {
+        "l2_exact_batch_launch": [_P] * 3 + [_I] * 6 + [_P],
+        "l2_smem_bytes": [_I] * 2},
+    "bucket_hist": {
+        "bucket_hist_batch_launch": [_P] * 7 + [_I] * 6 + [_P],
+        "bucket_hist_smem_bytes": [_I] * 2},
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_READY: dict[str, ctypes.CDLL] = {}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """Kernel library ``name``, built on first use, with its C signatures
+    declared (every pointer a c_void_p, so ctypes never truncates one)."""
+    lib = _READY.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _READY[name] = lib
+    return lib
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for all-CUDA arguments, False for all-CPU; raises otherwise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"kernel arguments on mixed or unsupported devices: "
+                     f"{sorted(str(t.device) for t in tensors)}")
+
+
+def _need(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple) -> torch.Tensor:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: the CUDA kernel takes a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+            f"contiguous={t.is_contiguous()}")
+    return t
+
+
+def _params(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Small per-query parameters are cast here (B or B*n_ew elements)."""
+    return x.to(dtype).contiguous()
+
+
+def _pick_bq(b: int, smem_bytes) -> tuple[int, int]:
+    """Largest query chunk (8, 4, 2, 1; no wider than the batch needs) whose
+    shared memory fits one block."""
+    bq = 8
+    while bq > 1 and bq // 2 >= b:
+        bq //= 2
+    while bq > 1 and smem_bytes(bq) > MAX_SMEM:
+        bq //= 2
+    smem = smem_bytes(bq)
+    if smem > MAX_SMEM:
+        raise ValueError(f"one query needs {smem} bytes of shared memory, "
+                         f"more than the {MAX_SMEM} a block may use")
+    return bq, smem
+
+
+def _tiles(n: int) -> int:
+    return max(1, min((n + LANE_TILE - 1) // LANE_TILE, MAX_TILES))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """Shared (n, M) uint8 codes x per-query (B, M, K) LUTs -> (B, n) squared
+    estimates."""
+    if not _on_cuda(codes, luts):
+        return _ref.pq_adc_batch(codes, luts)
+    n, m_sub = codes.shape
+    b, _, k_codes = luts.shape
+    _need(codes, "codes", torch.uint8, (n, m_sub))
+    _need(luts, "luts", torch.float32, (b, m_sub, k_codes))
+    out = torch.empty(b, n, dtype=torch.float32, device=codes.device)
+    if b == 0 or n == 0:
+        return out
+    lib = _lib("pq_adc")
+    bq, smem = _pick_bq(b, lambda q: lib.pq_adc_smem_bytes(q, m_sub, k_codes))
+    rc = lib.pq_adc_batch_launch(codes.data_ptr(), luts.data_ptr(),
+                                 out.data_ptr(), n, m_sub, k_codes, b, bq,
+                                 _tiles(n), smem, _stream())
+    _check(rc, "pq_adc_batch")
+    LAUNCHES["pq_adc_batch"] += 1
+    return out
+
+
+def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+    """(n, d) shared vectors x (B, d) queries -> (B, n) exact distances."""
+    if not _on_cuda(x, qs):
+        return _ref.l2_exact_batch(x, qs)
+    n, d = x.shape
+    b = qs.shape[0]
+    _need(x, "x", torch.float32, (n, d))
+    _need(qs, "qs", torch.float32, (b, d))
+    out = torch.empty(b, n, dtype=torch.float32, device=x.device)
+    if b == 0 or n == 0:
+        return out
+    lib = _lib("l2_rerank")
+    bq, smem = _pick_bq(b, lambda q: lib.l2_smem_bytes(q, d))
+    rc = lib.l2_exact_batch_launch(x.data_ptr(), qs.data_ptr(),
+                                   out.data_ptr(), n, d, b, bq, _tiles(n),
+                                   smem, _stream())
+    _check(rc, "l2_exact_batch")
+    LAUNCHES["l2_exact_batch"] += 1
+    return out
+
+
+def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
+                      d_min: torch.Tensor, delta: torch.Tensor,
+                      ew_maps: torch.Tensor, m: int):
+    """(B, n) distances, per-query codebooks -> (bucket (B, n) int32, hist
+    (B, m+1) int32 over the valid lanes)."""
+    if not _on_cuda(dists, valid, d_min, delta, ew_maps):
+        return _ref.bucket_hist_batch(dists, valid, d_min, delta, ew_maps, m)
+    b, n = dists.shape
+    n_ew = ew_maps.shape[1]
+    _need(dists, "dists", torch.float32, (b, n))
+    _need(valid, "valid", torch.bool, (b, n))
+    d_min = _params(d_min, torch.float32)
+    delta = _params(delta, torch.float32)
+    ew_maps = _params(ew_maps, torch.int32)
+    bucket = torch.empty(b, n, dtype=torch.int32, device=dists.device)
+    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dists.device)
+    if b == 0 or n == 0:
+        return bucket, hist
+    lib = _lib("bucket_hist")
+    smem = lib.bucket_hist_smem_bytes(n_ew, m)
+    if smem > MAX_SMEM:
+        raise ValueError(f"bucket_hist_batch: n_ew={n_ew}, m={m} need {smem} "
+                         f"bytes of shared memory")
+    rc = lib.bucket_hist_batch_launch(
+        dists.data_ptr(), valid.data_ptr(), d_min.data_ptr(),
+        delta.data_ptr(), ew_maps.data_ptr(), bucket.data_ptr(),
+        hist.data_ptr(), n, b, n_ew, m, _tiles(n), smem, _stream())
+    _check(rc, "bucket_hist_batch")
+    LAUNCHES["bucket_hist_batch"] += 1
+    return bucket, hist
+
+
+def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
+                     valid: torch.Tensor, luts: torch.Tensor,
+                     qs: torch.Tensor, d_min: torch.Tensor,
+                     delta: torch.Tensor, ew_maps: torch.Tensor, m: int,
+                     tau_pred: torch.Tensor):
+    """Batched fused estimate + bucketize + histogram + early exact over a
+    shared candidate stream.
+
+    ``codes`` (n, M) uint8 and ``vectors`` (n, d) are the stream every query
+    shares; ``valid`` (B, n) masks each query's probed lanes; ``luts``
+    (B, M, K), ``qs`` (B, d), the codebook parameters and ``tau_pred`` (B,)
+    are per query.  Returns (est (B, n), bucket (B, n), hist (B, m+1),
+    early (B, n), nmiss (B,)); nmiss counts the valid lanes with bucket above
+    tau_pred, the lanes left to the second gather."""
+    if not _on_cuda(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
+                    tau_pred):
+        return _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
+                                     delta, ew_maps, m, tau_pred)
+    n, m_sub = codes.shape
+    d = vectors.shape[1]
+    b, _, k_codes = luts.shape
+    n_ew = ew_maps.shape[1]
+    _need(codes, "codes", torch.uint8, (n, m_sub))
+    _need(vectors, "vectors", torch.float32, (n, d))
+    _need(valid, "valid", torch.bool, (b, n))
+    _need(luts, "luts", torch.float32, (b, m_sub, k_codes))
+    _need(qs, "qs", torch.float32, (b, d))
+    d_min = _params(d_min, torch.float32)
+    delta = _params(delta, torch.float32)
+    ew_maps = _params(ew_maps, torch.int32)
+    tau_pred = _params(tau_pred, torch.int32)
+    dev = codes.device
+    est = torch.empty(b, n, dtype=torch.float32, device=dev)
+    bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
+    early = torch.empty(b, n, dtype=torch.float32, device=dev)
+    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
+    nmiss = torch.zeros(b, dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return est, bucket, hist, early, nmiss
+    lib = _lib("fused_scan")
+    bq, smem = _pick_bq(b, lambda q: lib.fused_scan_smem_bytes(
+        q, m_sub, k_codes, d, n_ew, m))
+    rc = lib.fused_scan_batch_launch(
+        codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+        luts.data_ptr(), qs.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
+        ew_maps.data_ptr(), tau_pred.data_ptr(), est.data_ptr(),
+        bucket.data_ptr(), early.data_ptr(), hist.data_ptr(),
+        nmiss.data_ptr(), n, m_sub, k_codes, d, b, n_ew, m, bq, _tiles(n),
+        smem, _stream())
+    _check(rc, "fused_scan_batch")
+    LAUNCHES["fused_scan_batch"] += 1
+    return est, bucket, hist, early, nmiss

@@ -1,0 +1,161 @@
+"""Batched large-k retrieval serving entry point of the port (static mode).
+
+Builds an IVF+PQ index over a seeded synthetic corpus on the device and
+serves fixed-size query batches through ``index.engine.SearchEngine``; the
+last stdout line is one JSON summary with the JAX serving CLI's keys plus
+``"device"``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve              # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --n 12000 --d 64 --k 500 --n-clusters 64 --queries 16 --batch 8
+
+Only ``--mode static`` with ``--method ivfpq | ivfpq_bbc | flat`` is ported;
+the other modes, ``--shards > 1``, ``--batch 1`` and ``--tuned`` raise,
+naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.data import synthetic
+from repro_torch.index import engine, flat, search
+from repro_torch.kernels.platform import resolve_device
+
+METHODS = ("ivfpq", "ivfpq_bbc", "flat")
+RECALL_SAMPLE = 8   # queries with exact ground truth for the recall estimate
+HAND_TUNED = "hand-tuned fallback"
+
+
+def mean_recall(x: torch.Tensor, qs: torch.Tensor, ids: list, k: int) -> float:
+    """Mean recall@k of result id rows against exact ground truth."""
+    _, gt = flat.search_batch(x, qs, k)
+    gt = gt.cpu().numpy()
+    recalls = [len(set(np.asarray(r).tolist()) - {-1} & set(g.tolist())) / k
+               for r, g in zip(ids, gt)]
+    return float(np.mean(recalls)) if recalls else float("nan")
+
+
+def sample_indices(n: int, n_sample: int) -> np.ndarray:
+    """Evenly spaced sample over [0, n) that always includes the last index."""
+    return np.unique(np.linspace(0, max(n - 1, 0),
+                                 min(n_sample, n)).round().astype(int))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_static(args, x: torch.Tensor, qs: torch.Tensor, index,
+               dev: torch.device) -> dict:
+    tau_pred_on = args.tau_pred == "on"
+    if args.method == "flat":
+        if tau_pred_on:
+            raise SystemExit("--tau-pred does not apply to the flat baseline")
+        batch = args.batch
+        searcher = lambda qb: flat.search_batch(x, qb, args.k)[1]  # noqa: E731
+    else:
+        if tau_pred_on and not args.method.endswith("bbc"):
+            raise SystemExit("--tau-pred on requires a *_bbc method")
+        eng = engine.SearchEngine.build(
+            index, k=args.k, n_probe=min(args.n_probe, args.n_clusters),
+            use_bbc=args.method.endswith("bbc"),
+            pred_count=args.pred_count, device=dev)
+        batch = args.batch
+        eng.warmup((batch, (args.queries - 1) % batch + 1),
+                   predictive=tau_pred_on)
+        state = [eng.predictor_init()]
+
+        def searcher(qb):
+            if tau_pred_on:
+                r, state[0] = eng.search(qb, pred_state=state[0])
+                return r.ids
+            return eng.search(qb).ids
+
+    batches = [qs[i:i + batch] for i in range(0, args.queries, batch)]
+    searcher(batches[0])
+    _sync(dev)
+    t0 = time.monotonic()
+    results = [searcher(qb) for qb in batches]
+    _sync(dev)
+    dt = time.monotonic() - t0
+    all_ids = [row for ids in results for row in ids.cpu().numpy()]
+    idx = sample_indices(args.queries, RECALL_SAMPLE)
+    recall = mean_recall(x, qs[torch.as_tensor(idx, device=dev)],
+                         [all_ids[i] for i in idx], args.k)
+    return {
+        "mode": "static", "method": args.method, "k": args.k,
+        "batch": batch, "shards": args.shards, "tau_pred": args.tau_pred,
+        "operating_point": "flat" if args.method == "flat" else HAND_TUNED,
+        "qps": round(args.queries / dt, 2),
+        "ms_per_query": round(1e3 * dt / args.queries, 2),
+        "ms_per_batch": round(1e3 * dt / len(batches), 2),
+        "recall_mean": round(recall, 4),
+        "recall_queries": int(len(idx)),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu")}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--d", type=int, default=96)
+    ap.add_argument("--k", type=int, default=5_000)
+    ap.add_argument("--method", choices=METHODS, default="ivfpq_bbc")
+    ap.add_argument("--n-probe", type=int, default=64)
+    ap.add_argument("--n-clusters", type=int, default=316)
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--mode", choices=("static", "async", "net"),
+                    default="static")
+    ap.add_argument("--batch", type=int, default=32,
+                    help="queries per engine call")
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--tau-pred", choices=("on", "off"), default="off",
+                    help="predictive early-exact re-ranking across batches")
+    ap.add_argument("--pred-count", type=int, default=None,
+                    help="predictive re-rank pool target (default ~2.5k)")
+    ap.add_argument("--tuned", type=str, default="off",
+                    help="tuned operating points (only 'off' is ported)")
+    ap.add_argument("--seed", type=int, default=0, help="corpus RNG seed")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.mode != "static":
+        raise NotImplementedError(
+            f"--mode {args.mode} is not ported yet (ROADMAP.md queue 1, "
+            f"{'item 9' if args.mode == 'async' else 'item 13'})")
+    if args.shards > 1:
+        raise NotImplementedError("--shards > 1 is not ported yet "
+                                  "(ROADMAP.md queue 1, item 14)")
+    if args.batch < 2:
+        raise NotImplementedError("--batch 1 (the single-query searchers) is "
+                                  "not ported yet (ROADMAP.md queue 1, item 8)")
+    if args.tuned != "off":
+        raise NotImplementedError("--tuned is not ported yet (ROADMAP.md "
+                                  "queue 1, item 11); pass --tuned off")
+    dev = resolve_device(args.device)
+
+    rng = np.random.default_rng(args.seed)
+    x_np = synthetic.clustered(rng, args.n, args.d)
+    qs_np = synthetic.queries_from(rng, x_np, args.queries)
+    x = torch.from_numpy(x_np).to(dev)
+    qs = torch.from_numpy(qs_np).to(dev)
+    t0 = time.monotonic()
+    index = None
+    if args.method != "flat":
+        index = search.build_pq_index(x, args.n_clusters, seed=args.seed,
+                                      device=dev)
+        _sync(dev)
+    print(f"[serve] index built in {time.monotonic() - t0:.1f}s", flush=True)
+    print(json.dumps(run_static(args, x, qs, index, dev)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

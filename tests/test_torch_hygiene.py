@@ -1,0 +1,97 @@
+"""Structural rules of the PyTorch port: it imports neither JAX nor the JAX
+package, its entry points refuse to fall back to the CPU when CUDA is
+missing, TF32 is off, and every kernel source carries its note."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402,F401
+from repro_torch.index import engine, search  # noqa: E402
+from repro_torch.kernels import _build, ops, platform  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module.split(".")[0])
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = _imports(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_tf32_is_off():
+    assert platform.tf32_off()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search.build_pq_index(x, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        platform.resolve_device("cuda")
+    idx = search.build_pq_index(x, 4, n_iter=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.SearchEngine.build(idx, k=10, n_probe=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--n", "300", "--d", "16", "--n-clusters", "4"])
+    assert engine.SearchEngine.build(idx, k=10, n_probe=2,
+                                     device="cpu").device.type == "cpu"
+
+
+def test_fused_default_follows_the_device(rng):
+    x = rng.standard_normal((400, 16)).astype(np.float32)
+    idx = search.build_pq_index(x, 4, n_iter=2, device="cpu")
+    eng = engine.SearchEngine.build(idx, k=10, n_probe=2, device="cpu")
+    res = eng.search(x[:3])      # fused=None resolves to the unfused form
+    assert torch.equal(res.n_reranked, res.n_second_pass)
+
+
+def test_kernel_sources_carry_their_notes():
+    for name in _build.KERNELS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces: src/repro/kernels/" in src, name
+        assert "What bounds it on an H100" in src, name
+        assert "What the design does about it" in src, name
+        assert 'extern "C"' in src, name
+    assert "--use_fast_math" not in _build.FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+
+
+def test_build_dir_is_gitignored():
+    rel = _build.build_root().relative_to(ROOT)
+    assert rel.parts[0] + "/" in (ROOT / ".gitignore").read_text().split()
+    assert len(_build.source_hash()) == 16
+
+
+def test_launch_counters_cover_the_four_kernels():
+    assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
+                                 "l2_exact_batch", "bucket_hist_batch"}
+    ops.LAUNCHES["pq_adc_batch"] = 3
+    ops.reset_launches()
+    assert set(ops.LAUNCHES.values()) == {0}

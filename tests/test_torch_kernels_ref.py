@@ -1,0 +1,178 @@
+"""The port's kernel mirrors (repro_torch.kernels.ref) against the JAX
+package's oracles (repro.kernels.ref) on the JAX kernel tests' shapes, the
+wrappers' device routing, and (on a card) each CUDA kernel against its
+plain version.
+
+Float bars are the JAX kernel tests': rtol=atol=1e-5 for the ADC and fused
+estimates, 1e-4 for the early exact distances, 2e-4 for l2.  Integer
+outputs are held equal where both sides bucketize the same estimate.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import buffer as jrb  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _codebooks(est_rows, k, m):
+    cbs = [jrb.build_codebook(jnp.asarray(e), k=k, m=m) for e in est_rows]
+    return (np.stack([np.asarray(c.d_min) for c in cbs]),
+            np.stack([np.asarray(c.delta) for c in cbs]),
+            np.stack([np.asarray(c.ew_map) for c in cbs]))
+
+
+@pytest.mark.parametrize("b", [1, 5, 8])
+@pytest.mark.parametrize("n,m_sub", [(512, 16), (1000, 33)])
+def test_pq_adc_batch_mirror(rng, b, n, m_sub):
+    codes = rng.integers(0, 16, (n, m_sub)).astype(np.uint8)
+    luts = rng.random((b, m_sub, 16)).astype(np.float32)
+    want = np.asarray(jref.pq_adc_batch(jnp.asarray(codes), jnp.asarray(luts)))
+    got = ref.pq_adc_batch(_t(codes), _t(luts)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the wrapper routes CPU tensors to the plain version
+    np.testing.assert_array_equal(ops.pq_adc_batch(_t(codes), _t(luts)).numpy(),
+                                  got)
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 11])
+@pytest.mark.parametrize("n", [512, 1000])
+def test_bucket_hist_batch_mirror(rng, b, n):
+    m = 64
+    valid = rng.random((b, n)) < 0.9
+    dists = np.where(valid, rng.random((b, n)) * 10 + 1, np.inf)
+    dists = dists.astype(np.float32)
+    d_min, delta, ew = _codebooks(dists, k=min(n // 2, 400), m=m)
+    want_b, want_h = jref.bucket_hist_batch(
+        jnp.asarray(dists), jnp.asarray(valid), jnp.asarray(d_min),
+        jnp.asarray(delta), jnp.asarray(ew), m)
+    got_b, got_h = ops.bucket_hist_batch(_t(dists), _t(valid), _t(d_min),
+                                         _t(delta), _t(ew), m)
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+
+
+@pytest.mark.parametrize("b,n,d,m_sub", [(4, 512, 64, 16), (8, 768, 96, 24),
+                                         (3, 512, 128, 32),
+                                         (3, 1000, 100, 33)])
+def test_fused_scan_batch_mirror(rng, b, n, d, m_sub):
+    m = 64
+    codes = rng.integers(0, 16, (n, m_sub)).astype(np.uint8)
+    vectors = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((b, d)).astype(np.float32)
+    valid = rng.random((b, n)) < 0.95
+    luts = (rng.random((b, m_sub, 16)) * 2).astype(np.float32)
+    est_rows = np.where(valid, np.sqrt(np.asarray(jref.pq_adc_batch(
+        jnp.asarray(codes), jnp.asarray(luts)))), np.inf)
+    d_min, delta, ew = _codebooks(est_rows, k=n // 2, m=m)
+    tau = rng.integers(0, m, b).astype(np.int32)
+    args = (codes, vectors, valid, luts, qs, d_min, delta, ew)
+    want = jref.fused_scan_batch(*(jnp.asarray(a) for a in args), m,
+                                 jnp.asarray(tau))
+    got = ops.fused_scan_batch(*(_t(a) for a in args), m, _t(tau))
+    w_est, w_bucket, w_hist, w_early, w_nmiss = (np.asarray(x) for x in want)
+    est, bucket, hist, early, nmiss = (x.numpy() for x in got)
+
+    np.testing.assert_allclose(est, w_est, rtol=1e-5, atol=1e-5)
+    # bucketizing the JAX estimate gives the JAX integers exactly
+    jb, jh = ref.bucket_hist_batch(_t(w_est), _t(valid), _t(d_min), _t(delta),
+                                   _t(ew), m)
+    np.testing.assert_array_equal(jb.numpy(), w_bucket)
+    np.testing.assert_array_equal(jh.numpy(), w_hist)
+    # and the mirror's own integers are those of its own estimate
+    ob, oh = ref.bucket_hist_batch(_t(est), _t(valid), _t(d_min), _t(delta),
+                                   _t(ew), m)
+    np.testing.assert_array_equal(bucket, ob.numpy())
+    np.testing.assert_array_equal(hist, oh.numpy())
+    pred = valid & (bucket <= tau[:, None])
+    np.testing.assert_array_equal(np.isfinite(early), pred)
+    np.testing.assert_array_equal(nmiss, (valid & ~pred).sum(1))
+    same = bucket == w_bucket
+    np.testing.assert_array_equal(np.isfinite(early)[same],
+                                  np.isfinite(w_early)[same])
+    both = np.isfinite(early) & np.isfinite(w_early)
+    np.testing.assert_allclose(early[both], w_early[both], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,d", [(4, 512, 64), (9, 999, 96), (1, 256, 128)])
+def test_l2_exact_batch_mirror(rng, b, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((b, d)).astype(np.float32)
+    want = np.asarray(jref.l2_exact_batch(jnp.asarray(x), jnp.asarray(qs)))
+    got = ops.l2_exact_batch(_t(x), _t(qs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_cpu_calls_count_no_launches(rng):
+    ops.reset_launches()
+    codes = _t(rng.integers(0, 16, (64, 8)).astype(np.uint8))
+    luts = _t(rng.random((2, 8, 16)).astype(np.float32))
+    ops.pq_adc_batch(codes, luts)
+    ops.l2_exact_batch(torch.ones(64, 4), torch.ones(2, 4))
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+def test_mixed_devices_raise():
+    with pytest.raises(ValueError, match="mixed or unsupported devices"):
+        ops.l2_exact_batch(torch.ones(8, 4), torch.ones(2, 4, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,m_sub", [(32, 20000, 128, 32),
+                                         (3, 1000, 100, 33)])
+def test_cuda_kernels_match_plain(rng, cuda, b, n, d, m_sub):
+    """Each CUDA kernel against its plain version on the same card tensors:
+    estimates bit-identical, exact distances within the JAX bars, integer
+    outputs equal to the plain version run on the kernel's estimate."""
+    m = 64
+    codes = _t(rng.integers(0, 16, (n, m_sub)).astype(np.uint8)).to(cuda)
+    vectors = _t(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    qs = _t(rng.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    valid = _t(rng.random((b, n)) < 0.5).to(cuda)
+    luts = _t((rng.random((b, m_sub, 16)) * 2).astype(np.float32)).to(cuda)
+    from repro_torch.core import buffer as rb
+    est0 = torch.where(valid, torch.sqrt(ref.pq_adc_batch(codes, luts)),
+                       float("inf"))
+    cb = rb.build_codebook(est0, k=n // 4, m=m)
+    tau = _t(rng.integers(0, m, b).astype(np.int32)).to(cuda)
+    ops.reset_launches()
+    est, bucket, hist, early, nmiss = ops.fused_scan_batch(
+        codes, vectors, valid, luts, qs, cb.d_min, cb.delta, cb.ew_map, m,
+        tau)
+    adc = ops.pq_adc_batch(codes, luts)
+    l2 = ops.l2_exact_batch(vectors, qs)
+    bkt, h = ops.bucket_hist_batch(est, valid, cb.d_min, cb.delta, cb.ew_map,
+                                   m)
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in ops.LAUNCHES.values())
+    assert torch.equal(est, est0)
+    assert torch.equal(adc, ref.pq_adc_batch(codes, luts))
+    plain_l2 = ref.l2_exact_batch(vectors, qs)
+    torch.testing.assert_close(l2, plain_l2, rtol=2e-4, atol=2e-4)
+    rb_, rh = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
+                                    cb.ew_map, m)
+    assert torch.equal(bucket, rb_) and torch.equal(bkt, rb_)
+    assert torch.equal(hist, rh) and torch.equal(h, rh)
+    pred = valid & (rb_ <= tau[:, None])
+    assert torch.equal(torch.isfinite(early), pred)
+    assert torch.equal(nmiss, (valid & ~pred).sum(1).to(torch.int32))
+    torch.testing.assert_close(early[pred], plain_l2[pred], rtol=1e-4,
+                               atol=1e-4)

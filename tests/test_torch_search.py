@@ -1,0 +1,172 @@
+"""The slice end to end: the port's batched IVF+PQ searchers and engine on
+the CPU against the JAX package's ``ivf_pq_search_batch(backend="ref")``,
+on the reference's own index carried across with ``convert``.
+
+Config: the verify recipe's (n=12000, d=64, k=500, 64 clusters, B=8).  Id
+sets must be equal for every query and sorted distances within
+rtol=atol=1e-4; the work counters are compared too.
+"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import rerank as jrr  # noqa: E402
+from repro.data import synthetic  # noqa: E402
+from repro.index import ivf as jivf  # noqa: E402
+from repro.index import search as jsearch  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import rerank as rr  # noqa: E402
+from repro_torch.index import engine, search  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+torch.set_num_threads(2)
+
+N, D, K, C, B, N_PROBE = 12000, 64, 500, 64, 8, 16
+N_CAND = 8 * K
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(0)
+    x = synthetic.clustered(rng, N, D)
+    qs = synthetic.queries_from(rng, x, 3 * B)
+    ji = jsearch.build_pq_index(jax.random.key(0), jnp.asarray(x), C)
+    arrays = {
+        "ivf_centroids": ji.ivf.centroids, "member_ids": ji.ivf.member_ids,
+        "member_valid": ji.ivf.member_valid,
+        "cluster_sizes": ji.ivf.cluster_sizes,
+        "pq_centroids": ji.pq.centroids, "codes": ji.codes,
+        "vectors": ji.vectors}
+    ti, tl = convert.pq_index_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()}, device="cpu")
+    return ji, jivf.flat_layout(ji.ivf), ti, tl, qs
+
+
+def _assert_same(jr, tr, counters=True):
+    jids, tids = np.asarray(jr.ids), tr.ids.numpy()
+    for b in range(jids.shape[0]):
+        assert set(jids[b].tolist()) == set(tids[b].tolist()), b
+    np.testing.assert_allclose(np.sort(tr.dists.numpy(), 1),
+                               np.sort(np.asarray(jr.dists), 1),
+                               rtol=1e-4, atol=1e-4)
+    if counters:
+        np.testing.assert_array_equal(tr.n_reranked.numpy(),
+                                      np.asarray(jr.n_reranked))
+        np.testing.assert_array_equal(tr.n_second_pass.numpy(),
+                                      np.asarray(jr.n_second_pass))
+
+
+@pytest.mark.parametrize("n_probe", [N_PROBE, C])
+@pytest.mark.parametrize("use_bbc,fused", [(False, False), (True, False),
+                                           (True, True)])
+def test_static_matches_reference(setup, n_probe, use_bbc, fused):
+    ji, jl, ti, tl, qs = setup
+    q = qs[:B]
+    jr = jsearch.ivf_pq_search_batch(
+        ji, jnp.asarray(q), jl, k=K, n_probe=n_probe, n_cand=N_CAND,
+        use_bbc=use_bbc, fused=fused, backend="ref")
+    tr = search.ivf_pq_search_batch(
+        ti, torch.from_numpy(q), tl, k=K, n_probe=n_probe, n_cand=N_CAND,
+        use_bbc=use_bbc, fused=fused)
+    _assert_same(jr, tr)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_predictive_sequence_matches_reference(setup, fused):
+    ji, jl, ti, tl, qs = setup
+    js, ts = jrr.predictor_init(128), rr.predictor_init(128)
+    for i in range(3):
+        q = qs[i * B:(i + 1) * B]
+        jr, js = jsearch.ivf_pq_search_batch(
+            ji, jnp.asarray(q), jl, k=K, n_probe=N_PROBE, n_cand=N_CAND,
+            use_bbc=True, fused=fused, backend="ref", pred_state=js)
+        tr, ts = search.ivf_pq_search_batch(
+            ti, torch.from_numpy(q), tl, k=K, n_probe=N_PROBE,
+            n_cand=N_CAND, use_bbc=True, fused=fused, pred_state=ts)
+        _assert_same(jr, tr)
+        assert rr.predict_tau(ts, 1250) == int(jrr.predict_tau(js, 1250))
+
+
+def test_engine_serves_the_searcher(setup):
+    _, _, ti, tl, qs = setup
+    eng = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE, device="cpu")
+    assert eng.n_cand == N_CAND and eng.fused is None
+    direct = search.ivf_pq_search_batch(
+        ti, torch.from_numpy(qs[:B]), tl, k=K, n_probe=N_PROBE,
+        n_cand=N_CAND, use_bbc=True)
+    res = eng.warmup((B,), predictive=True).search(qs[:B])
+    assert torch.equal(res.ids, direct.ids)
+    res2, state = eng.search(qs[:B], pred_state=eng.predictor_init())
+    assert res2.ids.shape == (B, K) and float(state.weight) > 0
+
+
+def test_engine_clamps_knobs(setup):
+    _, _, ti, _, _ = setup
+    eng = engine.SearchEngine.build(ti, k=K, n_probe=10 * C,
+                                    n_cand=10 * N, device="cpu")
+    assert eng.n_probe == C and eng.n_cand == N
+    assert eng.pred_count <= eng.n_cand
+
+
+@pytest.mark.parametrize("call", ["single", "mesh", "tuned", "live", "ivf"])
+def test_engine_unported_paths_raise(setup, call):
+    _, _, ti, _, qs = setup
+    if call == "ivf":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            engine.SearchEngine.build(ti.ivf, k=K, n_probe=4, device="cpu")
+        return
+    if call in ("mesh", "tuned"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu",
+                                      **{call: object()})
+        return
+    eng = engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if call == "single":
+            eng.search(qs[0])
+        else:
+            eng.with_live(np.ones(N, bool))
+
+
+def test_serve_cli_cpu(capsys):
+    assert serve.main(["--device", "cpu", "--n", "3000", "--d", "32",
+                       "--k", "100", "--n-clusters", "16", "--n-probe", "8",
+                       "--queries", "12", "--batch", "8",
+                       "--tau-pred", "on"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["batch"] == 8
+    assert out["recall_mean"] > 0.5
+    for key in ("qps", "ms_per_query", "ms_per_batch", "recall_queries",
+                "operating_point", "tau_pred", "mode", "method", "k"):
+        assert key in out
+
+
+@pytest.mark.parametrize("flag", [["--mode", "async"], ["--shards", "2"],
+                                  ["--batch", "1"], ["--tuned", "auto"]])
+def test_serve_cli_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--device", "cpu", *flag])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_matches_cpu(setup):
+    """On a card: the engine's fused and unfused paths (CUDA kernels) give
+    the CPU run's id sets on the same index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    _, _, ti, _, qs = setup
+    for use_bbc, fused in ((True, True), (True, False), (False, False)):
+        cpu = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE,
+                                        use_bbc=use_bbc, fused=fused,
+                                        device="cpu").search(qs[:B])
+        gpu = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE,
+                                        use_bbc=use_bbc, fused=fused,
+                                        device="cuda").search(qs[:B])
+        for b in range(B):
+            assert set(cpu.ids[b].tolist()) == set(gpu.ids[b].tolist())
