@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7
+    python3 chip_smoke.py                 # phases 1-7 and 9
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases:
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
-  2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes and at the JAX package's ragged kernel-test shapes;
+     path's shapes and at the JAX package's ragged kernel-test shapes (the
+     RaBitQ scan: est/lb/ub bitwise, every integer output equal);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card, 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
-  5. CPU<->GPU parity of the engine on a 20,000 x 128 index;
-  6. the unfused, unfused predictive and plain IVF+PQ forms at the JAX
-     serving CLI's defaults (100,000 x 96, k=5000, 316 clusters);
-  7. each kernel's time at the main path's shapes beside its bound, its
-     plain version's and (where one exists) one PyTorch call's;
-  8. (only when asked for) torch.profiler over main-path batches: device
-     time by operator and the device's idle share.
+  9. the IVF+RaBitQ path at the same size (1024 clusters, n_probe=64,
+     k=5000, B=32, m=128, eps0=3.0): 64 queries through the bound-fused
+     engine, 4 predictive batches, the two-phase form and the threshold
+     baseline; recall@k, which must reach 0.95 on the BBC forms;
+  5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
+     form) on a 20,000 x 128 index: id sets, distances, counters;
+  6. the unfused, unfused predictive and plain IVF+PQ forms and the IVF
+     forms at the JAX serving CLI's defaults (100,000 x 96, k=5000, 316
+     clusters);
+  7. each kernel's time at its path's full-width shapes beside its bound,
+     its plain version's and (where one exists) one PyTorch call's;
+  8. (only when asked for) torch.profiler over main-path and RaBitQ-path
+     batches: device time by operator and the device's idle share;
+ 10. (only when asked for, after 9) the band anatomy of one RaBitQ batch:
+     the band threshold, the static and warm predictive gates, and where
+     the band lanes' lower-bound buckets lie.
 
-Kernel launch counts are zeroed before phases 4 and 6 and read after each;
-comparison and timing launches do not count.  Any failed check raises and
+Kernel launch counts are zeroed before phases 4, 9 and 6 and read after
+each; comparison and timing launches do not count.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
 before doing anything.  The second-to-last lines are the launch counts,
 the card's ``nvidia-smi`` name and power limit, and a JSON list of kernels;
@@ -52,7 +62,11 @@ KERNELS = {
                        "src/repro/kernels/l2_rerank.py:61"),
     "bucket_hist_batch": ("src/repro_torch/kernels/csrc/bucket_hist.cu",
                           "src/repro/kernels/bucket_hist.py:131"),
+    "fused_rabitq_scan_batch": (
+        "src/repro_torch/kernels/csrc/rabitq_fused.cu",
+        "src/repro/kernels/rabitq_fused.py:138"),
 }
+RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
 
 def check(cond, msg: str) -> None:
@@ -159,8 +173,9 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
     p_early = torch.where(pred, ref.l2_exact_batch(a["vectors"], a["qs"]),
                           float("inf"))
     e2 = close(early, p_early, 1e-4, f"{tag} fused early")
+    check(torch.equal(early, p_early), f"{tag} fused early not bitwise equal")
     log(f"[kernels] {tag}: fused est bit-identical to the plain version: "
-        f"{torch.equal(est, p_est)}")
+        f"{torch.equal(est, p_est)}; early bit-identical")
     check(torch.equal(bucket, r_bucket), f"{tag} fused bucket")
     check(torch.equal(hist, r_hist), f"{tag} fused hist")
     check(torch.equal(nmiss, r_nmiss), f"{tag} fused nmiss")
@@ -176,8 +191,9 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
 
     l2 = ops.l2_exact_batch(a["vectors"], a["qs"])
     torch.cuda.synchronize()
-    e = close(l2, ref.l2_exact_batch(a["vectors"], a["qs"]), 2e-4,
-              f"{tag} l2")
+    p_l2 = ref.l2_exact_batch(a["vectors"], a["qs"])
+    e = close(l2, p_l2, 2e-4, f"{tag} l2")
+    check(torch.equal(l2, p_l2), f"{tag} l2 not bitwise equal")
     errs["l2_exact_batch"] = max(errs.get("l2_exact_batch", 0.0), e)
 
     bkt, h = ops.bucket_hist_batch(est, a["valid"], a["d_min"], a["delta"],
@@ -190,11 +206,85 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
         float((bkt - r_bucket).abs().max().item()))
     log(f"[kernels] {tag}: fused est err {e1:.3g} early err {e2:.3g}, "
         f"pq_adc err {errs['pq_adc_batch']:.3g}, l2 err "
-        f"{errs['l2_exact_batch']:.3g}, bucket/hist/nmiss equal")
+        f"{errs['l2_exact_batch']:.3g} (bitwise), bucket/hist/nmiss equal")
+
+
+def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625):
+    """Random inputs of the RaBitQ scan: a cluster-major stream of +-1 int8
+    codes over ``c`` clusters, per-query probe masks (each cluster probed
+    with probability ``density``), and per-query codebooks over the upper
+    bounds of a sample of the probed lanes (every 16th), as the searcher
+    builds them from its sample."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.core import numerics as nm
+    from repro_torch.index import rabitq
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    cl = torch.sort(torch.randint(0, c, (n,), generator=g, device=dev)
+                    ).values.to(torch.int32)
+    codes = (torch.randint(0, 2, (n, d), generator=g, device=dev) * 2 - 1
+             ).to(torch.int8)
+    cent = torch.randn(c, d, generator=g, device=dev) * 2
+    vectors = cent[cl.long()] + 0.5 * torch.randn(n, d, generator=g,
+                                                  device=dev)
+    qs = vectors[torch.randint(0, n, (b,), generator=g, device=dev)] + 0.1
+    rot = rabitq.random_rotation(torch.Generator().manual_seed(seed),
+                                 d).to(dev)
+    norm_o = 0.5 + rand(n)
+    f_o = 0.7 + 0.15 * rand(n)
+    hit = rand(b, c) < density
+    hit[torch.arange(b, device=dev), torch.randint(0, c, (b,), generator=g,
+                                                   device=dev)] = True
+    valid = hit[:, cl.long()]
+    diff = cent[None] - qs[:, None]
+    d2 = nm.ordered_sum(diff * diff)
+    s2 = nm.rabitq_s2(codes, nm.rotate(cent, rot), cl)
+    _, _, ub = nm.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, rot, qs,
+                                       d2, valid, RQ_EPS0)
+    lane = torch.arange(n, device=dev)
+    sample = torch.where(valid & (lane % 16 == 0)[None], ub, float("inf"))
+    cb = rb.build_codebook(sample, k=min(RQ_K, max(n // 32, 1)), m=m)
+    tau = torch.randint(-1, m, (b,), generator=g, device=dev).to(torch.int32)
+    return dict(codes=codes, vectors=vectors, s2=s2, norm_o=norm_o, f_o=f_o,
+                cl=cl, rot=rot, qs=qs, d2=d2, valid=valid, d_min=cb.d_min,
+                delta=cb.delta, ew_maps=cb.ew_map, m=m, tau_inline=tau)
+
+
+RQ_ARGS = ("codes", "vectors", "s2", "norm_o", "f_o", "cl", "rot", "qs",
+           "d2", "valid", "d_min", "delta", "ew_maps", "m", "tau_inline")
+RQ_OUT = ("est", "lb", "ub", "bucket_lb", "bucket_ub", "hist_lb", "hist_ub",
+          "exact", "certified", "nmiss")
+
+
+def check_rabitq_kernel(a, errs: dict, tag: str) -> None:
+    """The RaBitQ scan against its plain version on the same inputs: every
+    output bitwise equal (est/lb/ub/exact with their inf patterns, every
+    integer output)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = [a[k] for k in RQ_ARGS]
+    got = ops.fused_rabitq_scan_batch(*args, eps0=RQ_EPS0)
+    torch.cuda.synchronize()
+    want = ref.fused_rabitq_scan_batch(*args, eps0=RQ_EPS0)
+    e = max(max_abs(got[i], want[i]) for i in (0, 1, 2, 7))
+    for i, name in enumerate(RQ_OUT):
+        check(torch.equal(got[i], want[i]),
+              f"{tag} rabitq {name} differs from the plain version")
+    errs["fused_rabitq_scan_batch"] = max(
+        errs.get("fused_rabitq_scan_batch", 0.0), e)
+    n_cert = int(got[8].sum().item())
+    log(f"[kernels] {tag}: rabitq est/lb/ub/exact bitwise equal to the "
+        f"plain version, buckets/hists/certified/nmiss equal; "
+        f"{n_cert} certified (query, lane) pairs")
 
 
 # --------------------------------------------------------------------------
-# phases 4-6: the engine
+# phases 4-6 and 9: the engines
 # --------------------------------------------------------------------------
 
 def corpus(n, d, n_q, seed=SEED):
@@ -216,12 +306,15 @@ def recall(x, qs, ids, k) -> float:
                           for r, g in zip(ids, gt)]))
 
 
-def check_result(res, b, k, name) -> None:
+def check_result(res, b, k, name, ascending: bool = True) -> None:
+    """Shape, finite distances, no padding or duplicate ids, and (except
+    for RaBitQ+BBC, whose certain-in rows come first and report their
+    estimate) ascending distances."""
     import torch
     check(tuple(res.ids.shape) == (b, k), f"{name}: ids shape {res.ids.shape}")
     check(bool(torch.isfinite(res.dists).all()), f"{name}: non-finite dists")
     check(bool((res.ids >= 0).all()), f"{name}: padding ids in a full result")
-    check(bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()),
+    check(not ascending or bool((res.dists[:, 1:] >= res.dists[:, :-1]).all()),
           f"{name}: dists not ascending")
     srt = torch.sort(res.ids, dim=1).values
     check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{name}: duplicate ids")
@@ -240,6 +333,12 @@ def timed_batches(fn, batches):
         torch.cuda.synchronize()
         ms.append(t0.elapsed_time(t1))
     return out, ms
+
+
+def overlap(a, b) -> float:
+    """Mean share of equal ids between two (B, k) results."""
+    return sum(len(set(x.tolist()) & set(y.tolist()))
+               for x, y in zip(a.ids, b.ids)) / a.ids.numel()
 
 
 def main_path(summary: dict, card: str):
@@ -294,27 +393,161 @@ def main_path(summary: dict, card: str):
     log(f"[main] fused static ms/batch {ms}, QPS {1e3 * b / steady:.1f}, "
         f"recall@{k} {rec:.4f} (8 queries); predictive ms/batch {pms}, "
         f"recall {prec:.4f}; launches {launches}; {card}")
-    return eng, qs, launches
+    return eng, qs, launches, x
+
+
+def band_anatomy(eng, qb, state) -> dict:
+    """Phase 10, a diagnostic off by default: why band lanes are or are not
+    certified inline, on one batch of phase 9's fused engine after its
+    predictive batches (outside the launch counts): the band threshold,
+    the static and the warm predictive gates, and where the band lanes' lb
+    buckets lie."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.core import rerank
+    from repro_torch.kernels import ops
+    a = rabitq_kernel_args(eng, qb)
+    out = ops.fused_rabitq_scan_batch(*[a[k] for k in RQ_ARGS],
+                                      eps0=RQ_EPS0)
+    m, k, valid = eng.m, eng.k, a["valid"]
+    blb, bub = out[3], out[4]
+    tau_ub = rb.threshold_bucket(out[6], k)[0]
+    tau_lb = rb.threshold_bucket(out[5], k)[0]
+    band = valid & (blb <= tau_ub[:, None]) & ~(bub < tau_lb[:, None])
+    gate = rerank.predict_tau(state, -(-k // 8), margin=3)
+    n_band = band.sum(1).float()
+
+    def mean(t):
+        return float(t.float().mean().item())
+
+    return {"tau_ub_mean": mean(tau_ub), "tau_ub_overflow_share":
+            mean(tau_ub == m), "tau_lb_mean": mean(tau_lb),
+            "static_gate_mean": mean(a["tau_inline"]),
+            "predictive_gate": gate, "valid_mean": mean(valid.sum(1)),
+            "band_mean": mean(n_band),
+            "band_lb_overflow_share": mean((band & (blb == m)).sum(1) / n_band),
+            "band_lb_over_predictive_gate_share":
+                mean((band & (blb > gate)).sum(1) / n_band)}
+
+
+def rabitq_path(summary: dict, card: str, x=None, qs=None):
+    """Phase 9: IVF+RaBitQ at SIFT1M's widths through the engine."""
+    import torch
+    from repro_torch.index import engine, search
+    from repro_torch.kernels import ops
+    n, d, b, k = 1_000_000, 128, 32, RQ_K
+    if x is None:
+        x, qs = corpus(n, d, 64 + 4 * b)
+    t0 = time.monotonic()
+    index = search.build_rabitq_index(x, 1024, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[rabitq] index (1024 clusters, 1-bit codes) built on the card in "
+        f"{time.monotonic() - t0:.1f}s")
+    kw = dict(k=k, n_probe=RQ_PROBE, device="cuda")
+    engs = {"fused": engine.SearchEngine.build(index, **kw),
+            "two_phase": engine.SearchEngine.build(index, fused=False, **kw),
+            "baseline": engine.SearchEngine.build(index, use_bbc=False,
+                                                  **kw)}
+    for name, e in engs.items():
+        e.warmup((b,), predictive=name == "fused")
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    res, ms = timed_batches(engs["fused"].search,
+                            [qs[i:i + b] for i in range(0, 64, b)])
+    state = [engs["fused"].predictor_init()]
+
+    def pred(qb):
+        r, state[0] = engs["fused"].search(qb, pred_state=state[0])
+        return r
+
+    pred_q = [qs[64 + i * b:64 + (i + 1) * b] for i in range(4)]
+    pres, pms = timed_batches(pred, pred_q)
+    two, tms = timed_batches(engs["two_phase"].search, [qs[:b]])
+    base, bms = timed_batches(engs["baseline"].search, [qs[:b]])
+    launches = dict(ops.LAUNCHES)
+    check(launches["fused_rabitq_scan_batch"] > 0,
+          "the RaBitQ path never ran the bound-fused kernel")
+    for r in res + pres + two:
+        check_result(r, b, k, "rabitq bbc", ascending=False)
+    check_result(base[0], b, k, "rabitq baseline")
+    rec = recall(x, qs[:8], res[0].ids[:8], k)
+    prec = recall(x, pred_q[-1][:8], pres[-1].ids[:8], k)
+    trec = recall(x, qs[:8], two[0].ids[:8], k)
+    brec = recall(x, qs[:8], base[0].ids[:8], k)
+    same = overlap(res[0], two[0])
+    for name, r in (("fused", rec), ("fused predictive", prec),
+                    ("two-phase", trec)):
+        check(r >= 0.95, f"rabitq {name} recall@{k} {r} below 0.95")
+    check(same >= 0.999, f"rabitq fused vs two-phase id overlap {same}")
+    steady = sorted(ms)[len(ms) // 2]
+
+    def mean(t):
+        return float(t.float().mean().item())
+
+    summary["rabitq_path"] = {
+        "corpus": [n, d], "n_clusters": 1024, "n_probe": RQ_PROBE, "k": k,
+        "batch": b, "m": engs["fused"].m, "eps0": RQ_EPS0,
+        "fused_ms_per_batch": ms, "fused_qps": 1e3 * b / steady,
+        "fused_recall_at_k_8q": rec,
+        "fused_band_mean": mean(res[0].n_reranked),
+        "fused_second_pass_mean": mean(res[0].n_second_pass),
+        "predictive_ms_per_batch": pms, "predictive_recall_at_k_8q": prec,
+        "predictive_second_pass_mean": [mean(r.n_second_pass) for r in pres],
+        "two_phase_ms_per_batch": tms, "two_phase_recall_at_k_8q": trec,
+        "baseline_ms_per_batch": bms, "baseline_recall_at_k_8q": brec,
+        "baseline_reranked_mean": mean(base[0].n_reranked),
+        "fused_vs_two_phase_overlap": same,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "card": card}
+    log(f"[rabitq] {json.dumps(summary['rabitq_path'])}")
+    return engs["fused"], qs, launches, state[0]
+
+
+def id_diff(g, c, row, x, qb) -> str:
+    """The ids one side has and the other lacks, with their exact distances
+    in fp64 and each side's largest reported distance."""
+    import torch
+    a, b = set(g.ids[row].tolist()), set(c.ids[row].tolist())
+    q = qb[row].double().cpu()
+
+    def dist(ids):
+        return {i: float(torch.linalg.vector_norm(x[i].double().cpu() - q))
+                for i in sorted(ids)[:5]}
+
+    return (f"card only {dist(a - b)}, cpu only {dist(b - a)}, max "
+            f"reported card {float(g.dists[row].max())} cpu "
+            f"{float(c.dists[row].max())}")
 
 
 def parity(summary: dict) -> None:
+    """Phase 5: each engine form on the card and on the CPU (the plain
+    versions) over the same index: equal id sets, sorted distances within
+    1e-4, equal work counters; the predictive forms over 3 batches."""
     import torch
     from repro_torch.index import engine, search
     x, qs = corpus(20_000, 128, 64, seed=SEED + 1)
-    gpu_index = search.build_pq_index(x, 128, seed=SEED, device="cuda")
-    cpu_index = search.index_to(gpu_index, "cpu")
+    pq_index = search.build_pq_index(x, 128, seed=SEED, device="cuda")
+    rq_index = search.build_rabitq_index(x, 128, seed=SEED, device="cuda")
+    ivf_kw = dict(vectors=x)
+    forms = [("bbc_fused", pq_index, dict(use_bbc=True, fused=True), True),
+             ("bbc_unfused", pq_index, dict(use_bbc=True, fused=False), True),
+             ("ivfpq", pq_index, dict(use_bbc=False, fused=False), False),
+             ("rabitq_fused", rq_index, dict(use_bbc=True), True),
+             ("rabitq_two_phase", rq_index, dict(use_bbc=True, fused=False),
+              True),
+             ("rabitq_baseline", rq_index, dict(use_bbc=False), False),
+             ("ivf_bbc", pq_index.ivf, dict(use_bbc=True, **ivf_kw), True),
+             ("ivf", pq_index.ivf, dict(use_bbc=False, **ivf_kw), False)]
     out = {}
-    configs = [("bbc_fused", True, True), ("bbc_unfused", True, False),
-               ("ivfpq", False, False)]
-    for name, use_bbc, fused in configs:
-        for predictive in ((False, True) if use_bbc else (False,)):
-            engs = [engine.SearchEngine.build(
-                ix, k=1000, n_probe=16, use_bbc=use_bbc, fused=fused,
-                device=dev) for ix, dev in ((gpu_index, "cuda"),
-                                            (cpu_index, "cpu"))]
+    for name, index, kw, can_predict in forms:
+        engs = [engine.SearchEngine.build(
+            ix, k=1000, n_probe=16, device=dev, **kw)
+            for ix, dev in ((index, "cuda"),
+                            (search.index_to(index, "cpu"), "cpu"))]
+        for predictive in ((False, True) if can_predict else (False,)):
             states = [e.predictor_init() for e in engs]
             batches = [qs[:32], qs[32:], qs[:32]] if predictive else [qs[:32]]
-            counters_equal = True
             for qb in batches:
                 rs = []
                 for i, e in enumerate(engs):
@@ -325,20 +558,23 @@ def parity(summary: dict) -> None:
                         r = e.search(qb.to(e.device))
                     rs.append(r)
                 g, c = rs
+                key = name + ("_predictive" if predictive else "")
                 for row in range(qb.shape[0]):
                     check(set(g.ids[row].tolist()) == set(c.ids[row].tolist()),
-                          f"parity {name} predictive={predictive} query {row}")
+                          f"parity {key} query {row}: "
+                          f"{id_diff(g, c, row, x, qb)}")
                 gd = torch.sort(g.dists.cpu(), 1).values
                 cd = torch.sort(c.dists, 1).values
                 check(torch.allclose(gd, cd, rtol=1e-4, atol=1e-4),
-                      f"parity {name} dists: max abs diff "
+                      f"parity {key} dists: max abs diff "
                       f"{(gd - cd).abs().max().item()}")
-                counters_equal &= torch.equal(g.n_reranked.cpu(),
-                                              c.n_reranked)
-            key = name + ("_predictive" if predictive else "")
-            out[key] = {"ids_equal": True, "counters_equal": counters_equal}
+                for field in ("n_reranked", "n_second_pass"):
+                    check(torch.equal(getattr(g, field).cpu(),
+                                      getattr(c, field)),
+                          f"parity {key} {field} differs")
+            out[key] = {"ids_equal": True, "counters_equal": True}
             log(f"[parity] {key}: id sets equal, dists within 1e-4, "
-                f"counters equal {counters_equal}")
+                f"counters equal")
     summary["parity_20k"] = out
 
 
@@ -356,6 +592,11 @@ def other_forms(summary: dict, card: str) -> dict:
                                            use_bbc=False, device="cuda"),
         "bbc_fused": engine.SearchEngine.build(index, k=k, n_probe=64,
                                                fused=True, device="cuda"),
+        "ivf_bbc": engine.SearchEngine.build(index.ivf, k=k, n_probe=64,
+                                             vectors=x, device="cuda"),
+        "ivf": engine.SearchEngine.build(index.ivf, k=k, n_probe=64,
+                                         use_bbc=False, vectors=x,
+                                         device="cuda"),
     }
     for e in engs.values():
         e.warmup((b,), predictive=e.use_bbc)
@@ -373,15 +614,34 @@ def other_forms(summary: dict, card: str) -> dict:
     out["bbc_unfused_predictive"] = {"ms_per_batch": pms}
     base, bms = timed_batches(engs["ivfpq"].search, [qs[:b]])
     out["ivfpq"] = {"ms_per_batch": bms}
+    ivf_res, ims = timed_batches(engs["ivf_bbc"].search, [qs[:b]])
+    out["ivf_bbc"] = {"ms_per_batch": ims}
+    ivf_flat, fms = timed_batches(engs["ivf"].search, [qs[:b]])
+    out["ivf"] = {"ms_per_batch": fms}
+    istate = [engs["ivf_bbc"].predictor_init()]
+
+    def ivf_pred(qb):
+        r, istate[0] = engs["ivf_bbc"].search(qb, pred_state=istate[0])
+        return r
+
+    ivf_pres, ipms = timed_batches(ivf_pred, [qs[b:2 * b], qs[2 * b:3 * b]])
+    out["ivf_predictive"] = {"ms_per_batch": ipms}
     launches = dict(ops.LAUNCHES)
     for name in ("pq_adc_batch", "l2_exact_batch", "bucket_hist_batch"):
         check(launches[name] > 0, f"the other forms never ran {name}")
-    for r in res_unfused + pres + base:
+    for r in res_unfused + pres + base + ivf_res + ivf_flat + ivf_pres:
         check_result(r, b, k, "other forms")
+    # IVF ranks by exact distance: BBC, flat top-k and predictive agree
+    check(overlap(ivf_res[0], ivf_flat[0]) == 1.0, "ivf bbc vs top-k ids")
+    ivf_static = engs["ivf_bbc"].search(qs[2 * b:3 * b])
+    check(overlap(ivf_static, ivf_pres[-1]) == 1.0,
+          "ivf predictive vs static ids")
+    for name, r, q in (("ivf_bbc", ivf_res[0], qs[:8]),
+                       ("ivf", ivf_flat[0], qs[:8]),
+                       ("ivf_predictive", ivf_pres[-1], qs[2 * b:2 * b + 8])):
+        out[name]["recall_at_k_8q"] = recall(x, q, r.ids[:8], k)
     # the fused and unfused BBC forms select the same ids
-    fused = engs["bbc_fused"].search(qs[:b])
-    same = sum(len(set(f.tolist()) & set(u.tolist()))
-               for f, u in zip(fused.ids, res_unfused[0].ids)) / (b * k)
+    same = overlap(engs["bbc_fused"].search(qs[:b]), res_unfused[0])
     check(same >= 0.999, f"fused vs unfused id overlap {same}")
     out["bbc_unfused"]["recall_at_k_8q"] = recall(x, qs[:8],
                                                   res_unfused[0].ids[:8], k)
@@ -421,8 +681,11 @@ def main_path_kernel_args(eng, qs):
                 ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred)
 
 
-def bound(nbytes: float, ops_: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S, ops_ / FP32_FLOP_PER_S
+def bound(nbytes: float, ops32: float) -> tuple[float, str]:
+    """The least time for the work: bytes at the memory rate, or fp32
+    operations at the peak rate, whichever is longer."""
+    tb = nbytes / HBM_BYTES_PER_S
+    to = ops32 / FP32_FLOP_PER_S
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -445,6 +708,7 @@ def timing(a) -> dict:
 
     fused_bytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
                    + 3 * 4 * b * n + 4 * b * (m + 2) + params)
+    # ADC adds; per predicted pair a subtract, multiply and add per coordinate
     fused_ops = pairs_valid * m_sub + 3 * d * pairs_pred
     out["fused_scan_batch"] = dict(
         ms=cuda_ms(lambda: ops.fused_scan_batch(*args), 20),
@@ -485,6 +749,59 @@ def timing(a) -> dict:
             f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']}")
     return out
+
+
+def rabitq_kernel_args(eng, qs) -> dict:
+    """The RaBitQ scan's arguments as the fused static path builds them for
+    one batch (routing, the engine's stream, sample codebooks, gate)."""
+    from repro_torch.index import search as S
+    ix, lay, st = eng.index, eng.layout, eng.stream
+    probed, lane_valid, d2 = S._routing(ix.ivf, lay, qs, eng.n_probe)
+    n_st = min(4, eng.n_probe)
+    sample_ub, _ = S._rabitq_sample_ub(st, ix.rq.rot, lay, probed, qs, d2,
+                                       n_st, ix.ivf.cap, RQ_EPS0)
+    cbs, tau = S._rabitq_sample_plan(sample_ub, eng.k, eng.k, n_st,
+                                     eng.n_probe, eng.m)
+    return dict(codes=st.codes, vectors=st.vectors, s2=st.s2,
+                norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, rot=ix.rq.rot, qs=qs,
+                d2=d2, valid=lane_valid, d_min=cbs.d_min, delta=cbs.delta,
+                ew_maps=cbs.ew_map, m=eng.m, tau_inline=tau)
+
+
+def timing_rabitq(a, errs: dict) -> dict:
+    """The RaBitQ scan at the RaBitQ path's real inputs: checked against
+    its plain version once more, then timed beside its bound."""
+    from repro_torch.kernels import ops, ref
+    check_rabitq_kernel(a, errs, "RaBitQ path inputs B=32 n=1M d=128")
+    args = [a[k] for k in RQ_ARGS]
+    valid = a["valid"]
+    b, n = valid.shape
+    d, c = a["codes"].shape[1], a["d2"].shape[1]
+    n_ew, m = a["ew_maps"].shape[1], a["m"]
+    certified = ops.fused_rabitq_scan_batch(*args, eps0=RQ_EPS0)[8]
+    lanes_probed = int(valid.any(0).sum().item())
+    rows_cert = int(certified.any(0).sum().item())
+    pairs_valid = int(valid.sum().item())
+    pairs_cert = int(certified.sum().item())
+    # codes + 16 B of factors per probed lane, vector rows of certified
+    # lanes, the mask, 25 B of outputs per (query, lane), per-query params
+    nbytes = (lanes_probed * (d + 16) + rows_cert * d * 4 + b * n
+              + 25 * b * n + 4 * b * (2 * (m + 1) + 1)
+              + 4 * b * (2 * d + c + n_ew + 3))
+    nops = pairs_valid * (2 * d + 20) + 3 * d * pairs_cert
+    t = dict(ms=cuda_ms(lambda: ops.fused_rabitq_scan_batch(
+                 *args, eps0=RQ_EPS0), 20),
+             plain_ms=cuda_ms(lambda: ref.fused_rabitq_scan_batch(
+                 *args, eps0=RQ_EPS0), 3, warm=1),
+             library_ms=None,
+             work={"lanes_probed": lanes_probed, "rows_certified": rows_cert,
+                   "pairs_valid": pairs_valid,
+                   "pairs_certified": pairs_cert})
+    t["bound_ms"], t["bound_by"] = bound(nbytes, nops)
+    log(f"[timing] fused_rabitq_scan_batch: {t['ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
+        f"{t['plain_ms']:.4f} ms, library none; work {t['work']}")
+    return {"fused_rabitq_scan_batch": t}
 
 
 def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
@@ -530,10 +847,10 @@ def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
-                    help="comma-separated phases to run (default 1-7; "
-                         "8 = torch.profiler over main-path batches, "
-                         "needs 4)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9",
+                    help="comma-separated phases to run (default 1-7 and "
+                         "9; 8 = torch.profiler over the batches of 4 and "
+                         "9; 10 = phase 9's band anatomy)")
     ap.add_argument("--out", default="",
                     help="also write the summary JSON to this path")
     args = ap.parse_args(argv)
@@ -571,13 +888,23 @@ def main(argv=None) -> int:
                       "main-path shapes B=32 n=1000064 M=32 d=128")
         check_kernels(kernel_inputs(rng, 3, 1000, 33, 100, m=64, density=0.9),
                       errs, "ragged B=3 n=1000 M=33 d=100")
+        check_rabitq_kernel(rabitq_kernel_inputs(SEED, 32, 1_000_064, 128,
+                                                 1024),
+                            errs, "full-width B=32 n=1000064 d=128 C=1024")
+        check_rabitq_kernel(rabitq_kernel_inputs(SEED + 1, 3, 1000, 100, 7,
+                                                 m=64, density=0.9),
+                            errs, "ragged B=3 n=1000 d=100")
 
     launches = {k: 0 for k in ops.LAUNCHES}
-    eng = qb = main_queries = None
+    eng = qb = main_queries = x = rq_eng = rq_queries = rq_state = None
     if 4 in phases:
-        eng, main_queries, l4 = main_path(summary, card)
+        eng, main_queries, l4, x = main_path(summary, card)
         qb = main_queries[:32]
         launches = {k: launches[k] + l4[k] for k in launches}
+    if 9 in phases:
+        rq_eng, rq_queries, l9, rq_state = rabitq_path(summary, card, x,
+                                                       main_queries)
+        launches = {k: launches[k] + l9[k] for k in launches}
     if 5 in phases:
         parity(summary)
     if 6 in phases:
@@ -588,13 +915,26 @@ def main(argv=None) -> int:
         check(eng is not None, "phase 7 times the kernels at the main path's "
               "shapes and needs phase 4")
         times = timing(main_path_kernel_args(eng, qb))
+        if rq_eng is not None:
+            times.update(timing_rabitq(
+                rabitq_kernel_args(rq_eng, rq_queries[:32]), errs))
         summary["timing"] = times
     if 8 in phases:
-        check(eng is not None, "phase 8 profiles the main path: needs 4")
-        summary["profile"] = profile(eng, main_queries)
-    if {4, 6} <= phases:
+        check(eng is not None or rq_eng is not None,
+              "phase 8 profiles the paths of phases 4 and 9: needs one")
+        if eng is not None:
+            summary["profile"] = profile(eng, main_queries)
+        if rq_eng is not None:
+            log("[profile] the IVF+RaBitQ path (phase 9), fused static:")
+            summary["profile_rabitq"] = profile(rq_eng, rq_queries)
+    if 10 in phases:
+        check(rq_eng is not None, "phase 10 reads phase 9's engine")
+        summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
+                                               rq_state)
+        log(f"[band] {json.dumps(summary['band_anatomy'])}")
+    if {4, 6, 9} <= phases:
         for k, v in launches.items():
-            check(v > 0, f"kernel {k} never launched on the main path")
+            check(v > 0, f"kernel {k} never launched on the paths")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

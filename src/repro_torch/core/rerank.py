@@ -1,9 +1,11 @@
-"""Early re-rank planning (paper Alg. 4) and the cross-batch threshold
-predictor, batched over queries.
+"""Re-rank planning, batched over queries: the greedy bounded re-rank
+(paper Alg. 3), the early re-rank plan (Alg. 4) and the cross-batch
+threshold predictor.
 
-The port of ``core/rerank.py:365-497`` of the JAX package.  The predictor
-state stays functional: each search call takes a ``PredictorState`` and
-returns the next one.
+The port of ``core/rerank.py:146-294`` (the batched Alg. 3 planning and
+its finalize) and ``:365-497`` of the JAX package.  The predictor state
+stays functional: each search call takes a ``PredictorState`` and returns
+the next one.
 
 ``predict_tau`` runs on the host.  The state is m+1 floats, and its
 cumulative sum must be the reference's to the bit, because the predicted
@@ -22,6 +24,75 @@ import torch
 from repro_torch.core import buffer as rb
 
 INF = float("inf")
+
+
+class GreedyRerankResult(NamedTuple):
+    """Greedy bounded re-rank (Alg. 3) output with work accounting; every
+    field has a leading query axis."""
+    topk_dists: torch.Tensor
+    topk_ids: torch.Tensor
+    n_reranked: torch.Tensor     # (B,) exact evaluations spent
+
+
+class GreedyRerankPlan(NamedTuple):
+    """Bound-derived re-rank plan: the uncertain band (B, n) plus the
+    certain-in/out masks, the (B,) threshold buckets and both bucket ids."""
+    rerank_mask: torch.Tensor    # uncertain band: exact distances needed
+    certain_in: torch.Tensor     # provably inside the top-k (skipped)
+    certain_out: torch.Tensor    # provably outside (skipped)
+    tau_ub: torch.Tensor
+    tau_lb: torch.Tensor
+    a_lb: torch.Tensor
+    a_ub: torch.Tensor
+
+
+def greedy_rerank_plan_batch(lb: torch.Tensor, ub: torch.Tensor, k: int,
+                             valid: torch.Tensor,
+                             m: int = 128) -> GreedyRerankPlan:
+    """Batched Alg. 3 planning over (B, n) bounds.  Per query: codebooks
+    over the k smallest upper bounds; ``tau_ub`` and ``tau_lb`` are the
+    buckets of the k-th smallest ub and lb (``threshold_bucket`` of either
+    histogram is exactly that order statistic, bucketize being monotone);
+    certain-in lanes have ub bucket below tau_lb, the band is the rest of
+    the lanes whose lb bucket is at most tau_ub.  Only values are
+    selected, so ``torch.topk``'s tie order does not matter here."""
+    kk = min(k, lb.shape[1])
+    lbv = torch.where(valid, lb, INF)
+    ubv = torch.where(valid, ub, INF)
+    ub_topk = torch.topk(ubv, kk, dim=1, largest=False, sorted=True).values
+    kth_lb = torch.topk(lbv, kk, dim=1, largest=False, sorted=True).values
+    cbs = rb.build_codebook_from_topk(ub_topk, m=m)
+    a_lb = rb.bucketize(cbs, lbv)
+    a_ub = rb.bucketize(cbs, ubv)
+    tau_ub = rb.bucketize(cbs, ub_topk[:, -1:])[:, 0]
+    tau_lb = rb.bucketize(cbs, kth_lb[:, -1:])[:, 0]
+    certain_in = valid & (a_ub < tau_lb[:, None])
+    maybe = valid & (a_lb <= tau_ub[:, None])
+    return GreedyRerankPlan(rerank_mask=maybe & ~certain_in,
+                            certain_in=certain_in, certain_out=valid & ~maybe,
+                            tau_ub=tau_ub, tau_lb=tau_lb, a_lb=a_lb,
+                            a_ub=a_ub)
+
+
+def greedy_rerank_finalize(plan: GreedyRerankPlan,
+                           exact_where_reranked: torch.Tensor,
+                           lb: torch.Tensor, ids: torch.Tensor, k: int,
+                           est: torch.Tensor) -> GreedyRerankResult:
+    """The k smallest of the re-ranked band by exact distance, with the
+    certain-in lanes first (keyed ``lb - 1e30``, which is -1e30 in fp32 for
+    every one of them: they tie, and the stable sort keeps stream order
+    as ``lax.top_k`` does).  Certain-in rows report their estimate ``est``,
+    re-ranked rows their exact distance.  ``ids`` (n,) maps stream
+    positions to corpus ids."""
+    resolved = torch.where(plan.rerank_mask, exact_where_reranked, INF)
+    sel_key = torch.where(plan.certain_in, lb - 1e30, resolved)
+    _, idx = rb.smallest(sel_key, k)
+    out_d = torch.where(torch.gather(plan.certain_in, 1, idx),
+                        torch.gather(est, 1, idx),
+                        torch.gather(exact_where_reranked, 1, idx))
+    return GreedyRerankResult(
+        topk_dists=out_d, topk_ids=ids[idx],
+        n_reranked=torch.sum(plan.rerank_mask, dim=1).to(torch.int32))
 
 
 class EarlyRerankPlan(NamedTuple):

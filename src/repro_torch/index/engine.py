@@ -1,21 +1,25 @@
 """Batched search engine: the serving-side entry point of the port.
 
-Wraps a built IVF+PQ index with its ``ivf.FlatLayout`` candidate stream
-and the static search knobs, and serves (B, d) query batches through
-``search.ivf_pq_search_batch``:
+Wraps a built index (IVF, IVF+PQ or IVF+RaBitQ) with its ``ivf.FlatLayout``
+candidate stream and the static search knobs, and serves (B, d) query
+batches through the batched searchers of ``index.search``:
 
     eng = engine.SearchEngine.build(index, k=5000, n_probe=64)
     res = eng.search(qs)                            # (B, d) -> SearchResult
     state = eng.predictor_init()
     res, state = eng.search(qs, pred_state=state)   # predictive serving
 
-Only the IVF+PQ strategy is ported so far.  What the JAX engine also does
-raises ``NotImplementedError`` naming the ROADMAP item that brings it: no
-request is quietly served through another path.
+Each method is a strategy object chosen once, at build, from the index
+type (``IVFIndex`` with ``vectors=``, ``PQIndex``, ``RabitqIndex``).  What
+the JAX engine also does (mesh-sharded serving, tuned operating points,
+tombstones, single-query search) raises ``NotImplementedError`` naming the
+ROADMAP item that brings it: no request is quietly served through another
+path.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -31,20 +35,99 @@ def _not_ported(what: str, item: str):
         f"{item})")
 
 
+class _IvfStrategy:
+    """IVF (no quantization): exact distances in-scan."""
+
+    kind = "ivf"
+
+    def default_n_cand(self, index, k: int) -> int | None:
+        return None
+
+    def default_pred_count(self, k: int, n_cand: int | None) -> int:
+        return k        # distances are exact in-scan: the pool target is k
+
+    def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
+        return search_mod.ivf_search_batch(
+            eng.index, eng.vectors, qs, eng.layout, k=eng.k,
+            n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
+            pred_state=pred_state, pred_count=eng.pred_count)
+
+
+class _IvfPqStrategy:
+    """IVF+PQ: ADC estimate -> n_cand selection -> exact re-rank."""
+
+    kind = "ivfpq"
+
+    def default_n_cand(self, index, k: int) -> int | None:
+        return min(8 * k, int(index.vectors.shape[0]))
+
+    def default_pred_count(self, k: int, n_cand: int | None) -> int:
+        return search_mod._resolve_pred_count(None, k, n_cand)
+
+    def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
+        return search_mod.ivf_pq_search_batch(
+            eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
+            n_cand=eng.n_cand, use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
+            pred_state=pred_state, pred_count=eng.pred_count)
+
+
+class _IvfRabitqStrategy:
+    """IVF+RaBitQ: bounded estimates -> greedy bounded re-rank."""
+
+    kind = "ivfrabitq"
+
+    def default_n_cand(self, index, k: int) -> int | None:
+        return None
+
+    def default_pred_count(self, k: int, n_cand: int | None) -> int:
+        return k        # the band is anchored at the k-th upper bound
+
+    def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
+        return search_mod.ivf_rabitq_search_batch(
+            eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
+            use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
+            stream=eng.stream, pred_state=pred_state,
+            pred_count=eng.pred_count)
+
+
+_STRATEGIES = {s.kind: s for s in
+               (_IvfStrategy(), _IvfPqStrategy(), _IvfRabitqStrategy())}
+
+
+def _resolve_strategy(index, vectors):
+    if isinstance(index, search_mod.PQIndex):
+        return _STRATEGIES["ivfpq"], index.ivf
+    if isinstance(index, search_mod.RabitqIndex):
+        return _STRATEGIES["ivfrabitq"], index.ivf
+    if isinstance(index, ivf_mod.IVFIndex):
+        if vectors is None:
+            raise ValueError("kind 'ivf' needs the corpus vectors")
+        return _STRATEGIES["ivf"], index
+    raise TypeError(f"unsupported index type: {type(index)!r}")
+
+
 @dataclass(frozen=True)
 class SearchEngine:
     """Serving facade: index + layout + static knobs on one device."""
-    index: search_mod.PQIndex
+    index: Any                  # IVFIndex | PQIndex | RabitqIndex
     layout: ivf_mod.FlatLayout
+    kind: str                   # "ivf" | "ivfpq" | "ivfrabitq"
     k: int
     n_probe: int
-    n_cand: int
+    n_cand: int | None = None
     use_bbc: bool = True
     m: int = 128
     pred_count: int | None = None
-    # fused-scan switch (None = the searcher's default: fused on CUDA)
+    # fused-scan switch (None = the searcher's default: fused PQ on CUDA,
+    # bound-fused RaBitQ everywhere)
     fused: bool | None = None
+    vectors: torch.Tensor | None = None   # the corpus, for kind "ivf"
+    stream: Any = None          # the RaBitQ stream, built once here
     device: torch.device = torch.device("cpu")
+
+    @property
+    def strategy(self):
+        return _STRATEGIES[self.kind]
 
     @staticmethod
     def build(index, k: int, n_probe: int | None = None,
@@ -52,34 +135,38 @@ class SearchEngine:
               pred_count: int | None = None, fused: bool | None = None,
               device=None, vectors=None, mesh=None, tuned=None
               ) -> "SearchEngine":
-        """Place ``index`` on ``device`` (the card unless ``device="cpu"``)
-        and resolve the knobs: n_cand defaults to min(8k, N) and pred_count
-        to max(2.5k, k + 1024); then n_probe, n_cand and pred_count are
+        """Place ``index`` (and ``vectors``, for an ``IVFIndex``) on
+        ``device`` (the card unless ``device="cpu"``) and resolve the knobs
+        from the method's defaults; then n_probe, n_cand and pred_count are
         clamped to what this index can give."""
         dev = resolve_device(device)
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "item 14")
         if tuned is not None:
             raise _not_ported("tuned operating points", "item 11")
-        if not isinstance(index, search_mod.PQIndex) or vectors is not None:
-            raise _not_ported(f"the {type(index).__name__} engine strategy "
-                              "(IVF, IVF+RaBitQ)", "items 5 and 6")
         if n_probe is None:
             raise ValueError("n_probe is required")
+        strategy, _ = _resolve_strategy(index, vectors)
         index = search_mod.index_to(index, dev)
-        ivf = index.ivf
-        n_rows = int(ivf.cluster_sizes.sum().item())
+        if vectors is not None:
+            vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
+        ivf = index if strategy.kind == "ivf" else index.ivf
         if n_cand is None:
-            n_cand = min(8 * k, int(index.vectors.shape[0]))
+            n_cand = strategy.default_n_cand(index, k)
         if pred_count is None:
-            pred_count = search_mod._resolve_pred_count(None, k, n_cand)
+            pred_count = strategy.default_pred_count(k, n_cand)
         n_probe = min(n_probe, ivf.n_clusters)
-        n_cand = min(n_cand, n_rows)
-        pred_count = min(pred_count, n_cand)
-        return SearchEngine(index=index, layout=ivf_mod.flat_layout(ivf),
+        if n_cand is not None:
+            n_cand = min(n_cand, int(ivf.cluster_sizes.sum().item()))
+            pred_count = min(pred_count, n_cand)
+        layout = ivf_mod.flat_layout(ivf)
+        stream = (search_mod.rabitq_stream(index, layout)
+                  if strategy.kind == "ivfrabitq" else None)
+        return SearchEngine(index=index, layout=layout, kind=strategy.kind,
                             k=k, n_probe=n_probe, n_cand=n_cand,
                             use_bbc=use_bbc, m=m, pred_count=pred_count,
-                            fused=fused, device=dev)
+                            fused=fused, vectors=vectors, stream=stream,
+                            device=dev)
 
     def predictor_init(self) -> rerank.PredictorState:
         """Cold cross-batch threshold-predictor state for this engine."""
@@ -90,7 +177,8 @@ class SearchEngine:
 
     @property
     def dim(self) -> int:
-        return int(self.index.vectors.shape[1])
+        src = self.vectors if self.kind == "ivf" else self.index.vectors
+        return int(src.shape[1])
 
     def warmup(self, batch_sizes=(1,),
                predictive: bool = False) -> "SearchEngine":
@@ -118,8 +206,4 @@ class SearchEngine:
 
     def search_batch(self, qs, pred_state=None):
         qs = torch.as_tensor(qs, dtype=torch.float32).to(self.device)
-        return search_mod.ivf_pq_search_batch(
-            self.index, qs, self.layout, k=self.k, n_probe=self.n_probe,
-            n_cand=self.n_cand, use_bbc=self.use_bbc, m=self.m,
-            fused=self.fused, pred_state=pred_state,
-            pred_count=self.pred_count)
+        return self.strategy.search_batch(self, qs, pred_state=pred_state)

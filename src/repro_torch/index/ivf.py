@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import buffer as rb
+from repro_torch.core import numerics
 from repro_torch.index import kmeans as km
 
 
@@ -70,8 +71,11 @@ def route_batch_centroids(centroids: torch.Tensor, qs: torch.Tensor,
 
     The broadcast difference, not the norm identity, as in the reference:
     nearest-first order matters, because the codebook sample reads the
-    first probed clusters."""
-    d2 = torch.sum((centroids[None, :, :] - qs[:, None, :]) ** 2, dim=-1)
+    first probed clusters.  The sum over d runs in ``numerics.ordered_sum``'s
+    fixed order, so the CPU and the card route alike and RaBitQ's norm_q
+    (the square root of ``d2``) has the same bits on both."""
+    diff = centroids[None, :, :] - qs[:, None, :]
+    d2 = numerics.ordered_sum(diff * diff)
     return rb.smallest(d2, n_probe)[1], d2
 
 

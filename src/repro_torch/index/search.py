@@ -1,17 +1,29 @@
-"""Batched IVF+PQ searchers, with and without the BBC collector.
+"""Batched IVF / IVF+PQ / IVF+RaBitQ searchers, each with and without the
+BBC collector.
 
-The port of the batched IVF+PQ half of the JAX package's ``index/search.py``:
-one routing pass per batch, one shared gather of the candidate stream in
-``ivf.FlatLayout`` order, per-query lane masks, and the batched estimate /
-bucketize / histogram / re-rank through ``kernels.ops`` (CUDA kernels for
-CUDA tensors, their plain versions on the CPU).
+The port of the batched half of the JAX package's ``index/search.py``: one
+routing pass per batch, one shared candidate stream in ``ivf.FlatLayout``
+order, per-query lane masks, and the batched estimate / bucketize /
+histogram / re-rank through ``kernels.ops`` (CUDA kernels for CUDA
+tensors, their plain versions on the CPU).
 
+  ivf_search_batch(use_bbc=...)                  -> IVF (exact in-scan)
   ivf_pq_search_batch(use_bbc=False)             -> IVF+PQ (top n_cand, re-rank)
   ivf_pq_search_batch(use_bbc=True, fused=True)  -> IVF+PQ+BBC, Alg. 4 early
                                                     re-rank in the fused scan
   ivf_pq_search_batch(use_bbc=True, fused=False) -> IVF+PQ+BBC, two passes
+  ivf_rabitq_search_batch(use_bbc=False)         -> IVF+RaBitQ (threshold
+                                                    re-rank per probed tile)
+  ivf_rabitq_search_batch(use_bbc=True)          -> IVF+RaBitQ+BBC, Alg. 3 in
+                                                    the bound-fused scan
+  ivf_rabitq_search_batch(..., fused=False)      -> IVF+RaBitQ+BBC, two passes
   ... pred_state=state                           -> the cross-batch
                                                     predictive form
+
+Where the reference has a Pallas-kernel branch and a composed CPU branch
+(the RaBitQ fused path, the IVF BBC collection), the port runs the kernel
+branch on both devices, with the plain versions on the CPU: the two
+devices do the same work and the counters mean the same on both.
 
 Every selection breaks ties the reference's way (``buffer.smallest``, and
 (value, global id) in ``_topk_est_id``); ``torch.topk`` is never used where
@@ -25,14 +37,19 @@ import torch
 
 from repro_torch.core import buffer as rb
 from repro_torch.core import collector as col
+from repro_torch.core import numerics
 from repro_torch.core import rerank
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.index import kmeans as km
 from repro_torch.index import pq as pq_mod
+from repro_torch.index import rabitq as rq_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.platform import on_cuda, resolve_device
 
 INF = float("inf")
-EXACT_CHUNK = 1 << 16     # (query, slot) entries per exact-distance gather
+EXACT_CHUNK = 1 << 18     # (query, slot) entries per exact-distance gather
+                          # (128 MB of fp32 rows at d=128; fewer chunks,
+                          # fewer launches of the fixed-order sum)
 
 
 class PQIndex(NamedTuple):
@@ -43,6 +60,29 @@ class PQIndex(NamedTuple):
     vectors: torch.Tensor  # (N, d) fp32
 
 
+class RabitqIndex(NamedTuple):
+    """IVF + RaBitQ index bundle (codes plus fp32 vectors for exact
+    re-rank)."""
+    ivf: ivf_mod.IVFIndex
+    rq: rq_mod.RabitqCodes
+    vectors: torch.Tensor  # (N, d) fp32
+
+
+class RabitqStream(NamedTuple):
+    """The layout-ordered RaBitQ candidate stream, built once per engine.
+
+    Codes stay int8 (the reference keeps an fp32 copy); ``cl`` is each
+    lane's owning cluster clamped to a real one (int32, the kernel's
+    index); ``s2`` is the query-independent centroid correction the
+    reference recomputes on every call."""
+    codes: torch.Tensor    # (n_flat, d) int8 +-1
+    vectors: torch.Tensor  # (n_flat, d) fp32
+    norm_o: torch.Tensor   # (n_flat,)
+    f_o: torch.Tensor      # (n_flat,)
+    cl: torch.Tensor       # (n_flat,) int32
+    s2: torch.Tensor       # (n_flat,)
+
+
 class SearchResult(NamedTuple):
     """Top-k result with per-query (B,) re-rank work counters."""
     dists: torch.Tensor
@@ -51,12 +91,18 @@ class SearchResult(NamedTuple):
     n_second_pass: torch.Tensor  # re-rank gathers not covered inline
 
 
-def index_to(index: PQIndex, device) -> PQIndex:
-    """The same index with every tensor on ``device``."""
-    ivf = index.ivf
+def index_to(index, device):
+    """The same index (``PQIndex``, ``RabitqIndex`` or ``IVFIndex``) with
+    every tensor on ``device``."""
+    if isinstance(index, ivf_mod.IVFIndex):
+        return ivf_mod.IVFIndex(*(t.to(device) for t in index))
+    ivf = index_to(index.ivf, device)
+    if isinstance(index, RabitqIndex):
+        return RabitqIndex(
+            ivf=ivf, rq=rq_mod.RabitqCodes(*(t.to(device) for t in index.rq)),
+            vectors=index.vectors.to(device))
     return PQIndex(
-        ivf=ivf_mod.IVFIndex(*(t.to(device) for t in ivf)),
-        pq=pq_mod.PQCodebook(index.pq.centroids.to(device)),
+        ivf=ivf, pq=pq_mod.PQCodebook(index.pq.centroids.to(device)),
         codes=index.codes.to(device), vectors=index.vectors.to(device))
 
 
@@ -75,6 +121,37 @@ def build_pq_index(x, n_clusters: int, n_sub: int | None = None,
     return PQIndex(ivf=index, pq=cb, codes=pq_mod.encode(cb, x), vectors=x)
 
 
+def build_rabitq_index(x, n_clusters: int, n_iter: int = 10, seed: int = 0,
+                       device=None) -> RabitqIndex:
+    """IVF k-means, then RaBitQ codes against the centroids, on ``device``.
+    As in the reference, the codes' assignment is a separate norm-identity
+    argmin over the final centroids (``kmeans.assign``), not the IVF
+    member table; the rotation is drawn from the same seeded generator."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    index = ivf_mod.build(x, n_clusters, n_iter, generator=gen)
+    assignment = km.assign(x, index.centroids)
+    rot = rq_mod.random_rotation(gen, x.shape[1]).to(dev)
+    rq = rq_mod.encode(x, index.centroids, assignment, rot)
+    return RabitqIndex(ivf=index, rq=rq, vectors=x)
+
+
+def rabitq_stream(index: RabitqIndex,
+                  layout: ivf_mod.FlatLayout) -> RabitqStream:
+    """Gather the codes, vectors and factors into stream order and compute
+    the centroid correction ``s2`` (fixed summation order, so a CPU and a
+    card build give the same bits)."""
+    rq, order = index.rq, layout.order
+    codes = rq.codes[order]
+    cl = torch.clamp(layout.cluster_of, max=index.ivf.n_clusters - 1).to(
+        torch.int32)
+    h = numerics.rotate(index.ivf.centroids, rq.rot)
+    return RabitqStream(codes=codes, vectors=index.vectors[order],
+                        norm_o=rq.norm_o[order], f_o=rq.f_o[order], cl=cl,
+                        s2=numerics.rabitq_s2(codes, h, cl))
+
+
 # --------------------------------------------------------------------------
 # Shared helpers
 # --------------------------------------------------------------------------
@@ -82,10 +159,14 @@ def build_pq_index(x, n_clusters: int, n_sub: int | None = None,
 def _exact_dists(vectors: torch.Tensor, ids: torch.Tensor,
                  q: torch.Tensor) -> torch.Tensor:
     """Exact distances of rows ``ids`` (-1 padding allowed; callers mask) to
-    the matching rows of ``q`` (broadcast), as the direct sum of squared
-    differences (see ``kernels.ref.l2_exact_batch``)."""
+    the matching rows of ``q`` (broadcast).  The squares are added by
+    ``numerics.ordered_sum``: a fixed order, so the CPU and the card give
+    the same bits, in log2(d) launches per chunk where the kernels'
+    ascending order (``numerics.exact_dist``) would take d.  Each lane's
+    distance comes from one source, chosen alike on both devices, so the
+    last-bit difference from a kernel's value never meets it."""
     diff = vectors[ids.clamp(min=0)] - q
-    return torch.sqrt(torch.sum(diff * diff, -1))
+    return torch.sqrt(numerics.ordered_sum(diff * diff))
 
 
 def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
@@ -334,3 +415,285 @@ def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
     res = SearchResult(vals, torch.gather(sel_ids, 1, pick),
                        n_early + second, second)
     return res, rerank.predictor_update(pred_state, hist)
+
+
+# --------------------------------------------------------------------------
+# Batched IVF
+# --------------------------------------------------------------------------
+
+def _sample_codebooks(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
+                      vals: torch.Tensor, st: int, cap: int, k_cb: int,
+                      m: int) -> rb.BucketCodebook:
+    """Per-query codebooks from the nearest ``st`` probed cluster tiles of
+    a (B, n_flat) value matrix."""
+    spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
+    sample = torch.where(sok, torch.gather(vals, 1, spos), INF)
+    return rb.build_codebook(sample, k=min(k_cb, sample.shape[1]), m=m)
+
+
+def ivf_search_batch(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
+                     qs: torch.Tensor, layout: ivf_mod.FlatLayout, k: int,
+                     n_probe: int, use_bbc: bool = False, m: int = 128,
+                     pred_state: rerank.PredictorState | None = None,
+                     pred_count: int | None = None):
+    """Batched IVF: exact distances of the probed lanes in one shared scan
+    (``ops.l2_exact_batch``), then the BBC collection over a sample of the
+    nearest 4 probed tiles (``use_bbc``) or a flat top-k.  With
+    ``pred_state`` the selection is predictive and the call returns
+    ``(SearchResult, new_state)``; distances are exact in-scan, so the
+    result is the static one for any prediction."""
+    if pred_state is not None and not use_bbc:
+        raise ValueError("predictive search requires use_bbc=True")
+    probed, lane_valid, _ = _routing(index, layout, qs, n_probe)
+    order = layout.order
+    dists = ops.l2_exact_batch(vectors[order], qs)
+    dists = torch.where(lane_valid, dists, INF)
+    n = torch.sum(lane_valid, dim=1).to(torch.int32)
+    zeros = torch.zeros_like(n)
+    if not use_bbc:
+        d, i = col.topk_collect_batch(dists, order, lane_valid, k)
+        return SearchResult(d, i, n, zeros)
+    cbs = _sample_codebooks(layout, probed, dists, min(4, n_probe),
+                            index.cap, k, m)
+    bucket, hist = ops.bucket_hist_batch(dists, lane_valid, cbs.d_min,
+                                         cbs.delta, cbs.ew_map, m)
+    if pred_state is None:
+        d, i = col.collect_batch(dists, order, lane_valid, bucket, hist, k, m)
+        return SearchResult(d, i, n, zeros)
+    count = max(pred_count, k) if pred_count is not None else k
+    tau_pred = torch.full((qs.shape[0],),
+                          rerank.predict_tau(pred_state, count),
+                          dtype=torch.int32, device=qs.device)
+    budget = _pred_budget(count, layout.n_flat)
+    sel_d, sel_pos, sel_ok, _ = _predictive_select(
+        dists, bucket, hist, lane_valid, tau_pred, count, budget, order)
+    ids = torch.where(sel_ok, order[sel_pos], -1)
+    res = SearchResult(sel_d[:, :k], ids[:, :k], n, zeros)
+    return res, rerank.predictor_update(pred_state, hist)
+
+
+# --------------------------------------------------------------------------
+# Batched IVF+RaBitQ
+# --------------------------------------------------------------------------
+#
+# The fused path sizes its band from per-query codebooks over a sample of
+# the nearest probed tiles (the paper's nearest-cluster sample), and takes
+# the band threshold tau_ub from the scan's own ub histogram: exact at
+# bucket granularity for any codebook, so the inline gate tau_inline only
+# decides where a band member's exact distance comes from (the scan or the
+# straggler gather), never whether it is evaluated.
+
+_TAU_INLINE_MARGIN = 2   # buckets of slack on the static sample gate
+# The predictor's EMA tracks the ub histogram of every 8th stream lane (an
+# unbiased, roughly cluster-stratified subsample) and is queried at the
+# stride-scaled count; the gate's margin leans high, because an overshoot
+# certifies lanes whose rows the scan reads anyway.
+_PRED_HIST_STRIDE = 8
+_PRED_GATE_MARGIN = 3
+
+
+def _rerank_budget(k: int) -> int:
+    return ((max(8 * k, 2048) + 127) // 128) * 128
+
+
+def _rabitq_inline_rank(k: int, st: int, n_probe: int, k_cb: int) -> int:
+    """Sample rank of the k-th upper bound (Alg. 4 line 4's |sample|/|O|
+    scaling with the static tile ratio st/n_probe)."""
+    return max(1, min(k_cb, round(k * st / max(n_probe, 1))))
+
+
+def _rabitq_sample_plan(sample_ub: torch.Tensor, k: int, count: int,
+                        st: int, n_probe: int, m: int):
+    """Per-query codebooks over the k smallest sampled upper bounds, and
+    the static inline gate: the bucket of the rank-scaled ``count``-th
+    sampled ub, plus ``_TAU_INLINE_MARGIN``.  Returns (codebooks, tau)."""
+    k_cb = min(k, sample_ub.shape[1])
+    topk_s = torch.topk(sample_ub, k_cb, dim=1, largest=False,
+                        sorted=True).values
+    cbs = rb.build_codebook_from_topk(topk_s, m=m)
+    rank = _rabitq_inline_rank(count, st, n_probe, k_cb)
+    tau = rb.bucketize(cbs, topk_s[:, rank - 1:rank])[:, 0]
+    return cbs, torch.clamp(tau + _TAU_INLINE_MARGIN, max=m - 1).to(
+        torch.int32)
+
+
+def _rabitq_sample_ub(stream: RabitqStream, rot: torch.Tensor,
+                      layout: ivf_mod.FlatLayout, probed: torch.Tensor,
+                      qs: torch.Tensor, d2: torch.Tensor, st: int, cap: int,
+                      eps0: float):
+    """Upper bounds (B, st*cap) over each query's nearest ``st`` probed
+    tiles, the codebook sample the fused scan needs before it runs.  One
+    batched gather of the sampled lanes (the reference maps over queries);
+    the code products go through ``ordered_sum``, so the sample has the
+    same bits on both devices."""
+    spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
+    b, w = spos.shape
+    d = stream.codes.shape[1]
+    g = numerics.rotate(qs, rot)
+    s1 = torch.empty(b, w, dtype=torch.float32, device=qs.device)
+    step = max(1, numerics.CHUNK // max(w * d, 1))
+    for i in range(0, b, step):
+        c = stream.codes[spos[i:i + step]].to(torch.float32)
+        s1[i:i + step] = numerics.ordered_sum(c * g[i:i + step, None, :])
+    nq = torch.gather(torch.sqrt(d2), 1, stream.cl.long()[spos])
+    _, _, ub = numerics.rabitq_bounds(s1, stream.s2[spos], nq,
+                                      stream.norm_o[spos], stream.f_o[spos],
+                                      d, eps0)
+    return torch.where(sok, ub, INF), sok
+
+
+def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
+                            layout: ivf_mod.FlatLayout, k: int,
+                            n_probe: int, use_bbc: bool = False,
+                            m: int = 128, eps0: float = 3.0,
+                            fused: bool | None = None,
+                            stream: RabitqStream | None = None,
+                            pred_state: rerank.PredictorState | None = None,
+                            pred_count: int | None = None):
+    """Batched IVF+RaBitQ (with or without BBC) over a (B, d) query batch.
+
+    ``stream`` is the engine's build-time ``RabitqStream`` (built here when
+    None).  The BBC path runs the bound-fused scan (``fused=None`` means
+    fused, as in the reference): bounds, buckets, histograms and the
+    inline exact distance of gate-certified lanes in one pass, then an
+    exact gather of the band's stragglers only.  ``fused=False`` is the
+    two-phase form: bounds, the full-stream Alg. 3 plan, and one dense
+    exact pass.  ``use_bbc=False`` is the per-tile threshold baseline.
+
+    With ``pred_state`` the engine's EMA gates the inline band (-1 while
+    cold: nothing certified) and the call returns ``(SearchResult,
+    new_state)``; the band and the ids do not depend on the gate."""
+    if pred_state is not None and not use_bbc:
+        raise ValueError("predictive search requires use_bbc=True")
+    if fused is None:
+        fused = True
+    if stream is None:
+        stream = rabitq_stream(index, layout)
+    ivf = index.ivf
+    probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe)
+    if use_bbc and fused:
+        return _ivf_rabitq_fused_batch(index, stream, qs, layout, probed,
+                                       lane_valid, d2, k, n_probe, m, eps0,
+                                       pred_state, pred_count)
+    est, lb, ub = numerics.rabitq_bounds_stream(
+        stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
+        index.rq.rot, qs, d2, lane_valid, eps0)
+    if not use_bbc:
+        d, i, n_rr = _rabitq_threshold_baseline(index, layout, probed, lb,
+                                                qs, k)
+        return SearchResult(d, i, n_rr, n_rr)
+
+    # two-phase BBC (Alg. 3, batched): plan from the full-stream ub top-k,
+    # then the whole band from one dense exact pass
+    plan = rerank.greedy_rerank_plan_batch(lb, ub, k, lane_valid, m=m)
+    exact_all = ops.l2_exact_batch(stream.vectors, qs)
+    exact_flat = torch.where(plan.rerank_mask, exact_all, INF)
+    res = rerank.greedy_rerank_finalize(plan, exact_flat, lb, layout.order,
+                                        k, est=est)
+    n_evals = res.n_reranked
+    if pred_state is None:
+        return SearchResult(res.topk_dists, res.topk_ids, n_evals, n_evals)
+    # the band members the cross-batch gate covers would ride the scan;
+    # the second pass is the rest
+    count = max(pred_count, k) if pred_count is not None else k
+    tau_pred = rerank.predict_tau(pred_state, count)
+    n_second = torch.sum(plan.rerank_mask & (plan.a_lb > tau_pred),
+                         dim=1).to(torch.int32)
+    hist_ub = rb.histogram(plan.a_ub, m, lane_valid)
+    return (SearchResult(res.topk_dists, res.topk_ids, n_evals, n_second),
+            rerank.predictor_update(pred_state, hist_ub))
+
+
+def _rabitq_threshold_baseline(index: RabitqIndex, layout, probed, lb, qs,
+                               k: int):
+    """IVF+RaBitQ without BBC: per query, probed tiles nearest first; a
+    tile's lanes whose lower bound is under the current k-th exact distance
+    are re-ranked exactly and merged into a k-wide pool.  The reference's
+    per-query ``lax.scan`` is a loop over the tiles with the batch
+    written out.  Returns (dists (B, k) ascending, ids, re-rank counts)."""
+    b, n_probe = probed.shape
+    cap = index.ivf.cap
+    dev = qs.device
+    tpos, tok = ivf_mod.tile_positions(layout, probed, cap)
+    lb_t = torch.where(tok, torch.gather(lb, 1, tpos), INF).reshape(
+        b, n_probe, cap)
+    ids_t = torch.where(tok, layout.order[tpos], -1).reshape(b, n_probe, cap)
+    ok_t = tok.reshape(b, n_probe, cap)
+    budget = min(cap, _rerank_budget(k))
+    pool_d = torch.full((b, k), INF, device=dev)
+    pool_i = torch.full((b, k), -1, dtype=ids_t.dtype, device=dev)
+    n_rr = torch.zeros(b, dtype=torch.int32, device=dev)
+    for t in range(n_probe):
+        mask = ok_t[:, t] & (lb_t[:, t] < pool_d[:, k - 1:k])
+        pos, okc = rb.compact_mask(mask, budget)
+        r_ids = torch.where(
+            okc, torch.gather(ids_t[:, t], 1, pos.clamp(max=cap - 1)), -1)
+        r_d = _exact_dists_rows(index.vectors, r_ids, qs, mask=okc)
+        pool_d, pick = rb.smallest(torch.cat([pool_d, r_d], dim=1), k)
+        pool_i = torch.gather(torch.cat([pool_i, r_ids], dim=1), 1, pick)
+        n_rr += okc.sum(dim=1).to(torch.int32)
+    return pool_d, pool_i, n_rr
+
+
+def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
+                            d2, k, n_probe, m, eps0, pred_state, pred_count):
+    """Bound-fused RaBitQ batch core: one scan gives bounds, buckets, both
+    histograms and the exact distances of certified lanes; the band comes
+    from the scan's histograms, and only its stragglers (band members the
+    gate did not certify) are gathered a second time."""
+    ivf = index.ivf
+    b = qs.shape[0]
+    n_flat = layout.n_flat
+    st = min(4, n_probe)
+    count = k if pred_count is None else max(pred_count, k)
+    sample_ub, _ = _rabitq_sample_ub(stream, index.rq.rot, layout, probed,
+                                     qs, d2, st, ivf.cap, eps0)
+    cbs, tau_inline = _rabitq_sample_plan(sample_ub, k, count, st, n_probe,
+                                          m)
+    if pred_state is not None:
+        # the EMA gate, -1 while cold (nothing certified inline)
+        count_s = max(1, -(-count // _PRED_HIST_STRIDE))
+        tau_inline = torch.full(
+            (b,), rerank.predict_tau(pred_state, count_s,
+                                     margin=_PRED_GATE_MARGIN),
+            dtype=torch.int32, device=qs.device)
+
+    (est, lb, _, bucket_lb, bucket_ub, hist_lb, hist_ub, exact_c, certified,
+     _) = ops.fused_rabitq_scan_batch(
+        stream.codes, stream.vectors, stream.s2, stream.norm_o, stream.f_o,
+        stream.cl, index.rq.rot, qs, d2, lane_valid, cbs.d_min, cbs.delta,
+        cbs.ew_map, m, tau_inline, eps0=eps0)
+    tau_ub, _ = rb.threshold_bucket(hist_ub, k)
+    tau_lb, _ = rb.threshold_bucket(hist_lb, k)
+    certain_in = lane_valid & (bucket_ub < tau_lb[:, None])
+    band = lane_valid & (bucket_lb <= tau_ub[:, None]) & ~certain_in
+    straggler = band & ~certified
+    n_second = torch.sum(straggler, dim=1).to(torch.int32)
+    n_evals = torch.sum(band, dim=1).to(torch.int32)
+
+    # The reference gathers the stragglers in lb priority into a budget of
+    # round128(max(2k, 2048)) rows and falls back to one dense exact pass
+    # when any query has more; under the budget every straggler is
+    # gathered, so the port gathers them by position (one host sync
+    # decides the branch, like collect_batch's).
+    budget = min(n_flat, ((max(2 * k, 2048) + 127) // 128) * 128)
+    if bool((n_second > budget).any().item()):
+        stragglers = ops.l2_exact_batch(stream.vectors, qs)
+    else:
+        pos = torch.arange(n_flat, device=qs.device).expand(b, n_flat)
+        stragglers = _exact_dists_rows(stream.vectors, pos, qs,
+                                       mask=straggler)
+    exact_band = torch.where(band, torch.where(certified, exact_c,
+                                               stragglers), INF)
+    plan = rerank.GreedyRerankPlan(
+        rerank_mask=band, certain_in=certain_in,
+        certain_out=lane_valid & ~band & ~certain_in, tau_ub=tau_ub,
+        tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
+    res = rerank.greedy_rerank_finalize(plan, exact_band, lb, layout.order,
+                                        k, est=est)
+    out = SearchResult(res.topk_dists, res.topk_ids, n_evals, n_second)
+    if pred_state is None:
+        return out
+    s = _PRED_HIST_STRIDE
+    hist_s = rb.histogram(bucket_ub[:, ::s], m, lane_valid[:, ::s])
+    return out, rerank.predictor_update(pred_state, hist_s)

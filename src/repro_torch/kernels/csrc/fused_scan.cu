@@ -9,10 +9,10 @@
 // What bounds it on an H100: device-memory bytes.  Per batch it reads the
 // uint8 code rows of the lanes some query probes, the fp32 vector rows of
 // the lanes some query predicts, the (B, n) validity mask, and writes three
-// (B, n) 4-byte outputs; the ADC adds and the exact leg's subtract-FMA pairs
-// come to far less than the 67 TFLOP/s fp32 rate needs to keep up with
-// 3.35 TB/s.  The exact leg is the direct sum of (x - q)^2 (see
-// scan_common.cuh).
+// (B, n) 4-byte outputs; the ADC adds and the exact leg's subtract,
+// multiply and add per coordinate come to far less time than the bytes at
+// 3.35 TB/s.  The exact leg is the direct sum of (x - q)^2 in the plain
+// version's order (see scan_common.cuh).
 //
 // What the design does about it.
 //  * The per-query ADC tables and ew_maps sit in shared memory and are

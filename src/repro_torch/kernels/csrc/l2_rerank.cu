@@ -1,15 +1,18 @@
 // Batched exact distances: shared (n, d) fp32 vectors x (B, d) queries ->
 // (B, n) Euclidean distances, the function the Pallas kernel computes as
 // sqrt(max(|x|^2 - 2 x.q + |q|^2, 0)); this kernel sums (x - q)^2
-// directly, which costs the same here and does not cancel (scan_common.cuh).
+// directly, which does not cancel, in the plain version's order and
+// roundings (scan_common.cuh).
 //
 // Replaces: src/repro/kernels/l2_rerank.py::l2_batch_pallas.  Plain
 // version: kernels/ref.py l2_exact_batch.
 //
-// What bounds it on an H100: at the main path's B=32 it is near the ridge.
-// It reads 4*n*d bytes and writes 4*B*n; it does about 3*B*n*d fp32
-// operations (subtract, multiply-add), which at 67 TFLOP/s (no tensor cores:
-// the port keeps fp32) take about as long as the bytes at 3.35 TB/s.
+// What bounds it on an H100: device-memory bytes, at the main path's
+// B=32, n=1M, d=128.  It reads 4*n*d bytes and writes 4*B*n (0.19 ms at
+// 3.35 TB/s); the function needs 3*B*n*d fp32 operations (subtract,
+// multiply, add), 0.18 ms at 67 TFLOP/s, close behind.  Without
+// contraction each coordinate issues three fp32 instructions, not a
+// subtract and an FMA.
 //
 // What the design does about it.  The query chunk (BQ rows) sits in shared
 // memory and every thread of a warp reads the same word of it (a

@@ -1,5 +1,5 @@
-// Device functions shared by the four main-path kernels (fused_scan.cu,
-// pq_adc.cu, l2_rerank.cu, bucket_hist.cu).
+// Device functions shared by the port's kernels (fused_scan.cu, pq_adc.cu,
+// l2_rerank.cu, bucket_hist.cu, rabitq_fused.cu).
 //
 // Numerics.  Build without --use_fast_math: the bucket id of an estimate
 // must equal the plain PyTorch version's for the same fp32 value, which
@@ -9,13 +9,15 @@
 // are bit-identical to the plain version.
 //
 // The exact legs sum (x - q)^2 directly rather than the norm identity
-// |x|^2 - 2 x.q + |q|^2 that the Pallas kernels and the plain versions
-// compute as a matmul.  On CUDA cores the two cost the same two
-// instructions per coordinate, but a sequential fp32 norm identity cancels:
-// on the clustered corpora (|x|^2 ~ 500, a query's nearest neighbour at
-// distance ~1) it alone uses over half of the 1e-4 bar, while the direct
-// sum stays within a few ulps of the true distance.  What the kernels and
-// the plain versions then differ by is the plain version's own rounding.
+// |x|^2 - 2 x.q + |q|^2 that the Pallas kernels compute as a matmul: a
+// sequential fp32 norm identity cancels (on the clustered corpora, |x|^2 ~
+// 500 beside a nearest distance ~1, it alone uses over half of the 1e-4
+// bar).  Each coordinate is a subtract, a multiply and an add, written as
+// __fsub_rn/__fmul_rn/__fadd_rn so that nvcc contracts nothing into an
+// FMA, and the coordinates are added in ascending order from 0: the order
+// and the roundings of core/numerics.py exact_dist.  The exact distances
+// are therefore bit-identical to the plain version's, on the CPU and on the
+// card, and near-ties at the k-th place rank alike on both.
 #pragma once
 
 #include <cstddef>
@@ -57,8 +59,15 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int q0,
   for (int i = threadIdx.x; i < nq * width; i += blockDim.x) dst[i] = base[i];
 }
 
+// acc + (x - q)^2, rounded after each operation.
+__device__ __forceinline__ float add_sq(float acc, float x, float q) {
+  const float a = __fsub_rn(x, q);
+  return __fadd_rn(acc, __fmul_rn(a, a));
+}
+
 // acc[j] += |x - q_j|^2 over one vector row for BQ staged queries (q_s:
-// BQ rows of d floats), with 16-byte loads where the row allows them.
+// BQ rows of d floats), in ascending coordinate order with no contraction
+// (see the note above), with 16-byte loads where the row allows them.
 template <int BQ>
 __device__ __forceinline__ void sq_dists(const float* __restrict__ xr,
                                          const float* q_s, int d,
@@ -70,22 +79,17 @@ __device__ __forceinline__ void sq_dists(const float* __restrict__ xr,
 #pragma unroll
       for (int j = 0; j < BQ; ++j) {
         const float* q = q_s + j * d + 4 * t;
-        const float a = x.x - q[0], b = x.y - q[1];
-        const float c = x.z - q[2], e = x.w - q[3];
-        acc[j] += a * a;
-        acc[j] += b * b;
-        acc[j] += c * c;
-        acc[j] += e * e;
+        acc[j] = add_sq(acc[j], x.x, q[0]);
+        acc[j] = add_sq(acc[j], x.y, q[1]);
+        acc[j] = add_sq(acc[j], x.z, q[2]);
+        acc[j] = add_sq(acc[j], x.w, q[3]);
       }
     }
   } else {
     for (int t = 0; t < d; ++t) {
       const float x = __ldg(xr + t);
 #pragma unroll
-      for (int j = 0; j < BQ; ++j) {
-        const float a = x - q_s[j * d + t];
-        acc[j] += a * a;
-      }
+      for (int j = 0; j < BQ; ++j) acc[j] = add_sq(acc[j], x, q_s[j * d + t]);
     }
   }
 }

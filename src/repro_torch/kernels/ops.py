@@ -1,4 +1,4 @@
-"""Wrappers of the four main-path kernels, with the JAX package's signatures.
+"""Wrappers of the port's CUDA kernels, with the JAX package's signatures.
 
 The backend follows the tensors' device: CPU tensors go to the plain
 versions in ``kernels/ref.py``; CUDA tensors go to the hand-written CUDA
@@ -7,8 +7,8 @@ devices, or a CUDA tensor the kernel does not take (wrong dtype, layout or
 shape), raises; there is no fallback from a CUDA tensor to the plain version.
 
 Layout follows the JAX package's public one: ``valid`` is (B, n) and every
-per-lane output is (B, n).  Codes stay uint8 and the kernels mask their own
-ragged edges, so nothing is padded.
+per-lane output is (B, n).  PQ codes stay uint8, RaBitQ codes int8, and the
+kernels mask their own ragged edges, so nothing is padded.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count); ``chip_smoke.py`` zeroes it before a run and reads it after.
@@ -16,20 +16,22 @@ count); ``chip_smoke.py`` zeroes it before a run and reads it after.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from repro_torch.core import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
-            "bucket_hist_batch": 0}
+            "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
 LANE_TILE = 256        # threads per block = lanes per tile
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_scan": {
         "fused_scan_batch_launch": [_P] * 14 + [_I] * 10 + [_P],
@@ -43,6 +45,10 @@ _SIGNATURES = {
     "bucket_hist": {
         "bucket_hist_batch_launch": [_P] * 7 + [_I] * 6 + [_P],
         "bucket_hist_smem_bytes": [_I] * 2},
+    "rabitq_fused": {
+        "fused_rabitq_scan_batch_launch":
+            [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
+        "rabitq_fused_smem_bytes": [_I] * 4},
 }
 
 
@@ -250,3 +256,75 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     _check(rc, "fused_scan_batch")
     LAUNCHES["fused_scan_batch"] += 1
     return est, bucket, hist, early, nmiss
+
+
+def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
+                            s2: torch.Tensor, norm_o: torch.Tensor,
+                            f_o: torch.Tensor, cl: torch.Tensor,
+                            rot: torch.Tensor, qs: torch.Tensor,
+                            d2: torch.Tensor, valid: torch.Tensor,
+                            d_min: torch.Tensor, delta: torch.Tensor,
+                            ew_maps: torch.Tensor, m: int,
+                            tau_inline: torch.Tensor, eps0: float = 3.0):
+    """Batched bound-fused RaBitQ scan over a shared candidate stream.
+
+    ``codes`` (n, d) int8 +-1, ``vectors`` (n, d), ``s2`` (n,) (the
+    query-independent centroid correction, ``RabitqStream.s2``),
+    ``norm_o``/``f_o`` (n,) and ``cl`` (n,) int32 (each lane's clamped
+    owning cluster) are the stream every query shares; ``qs`` (B, d), the
+    (B, C) squared routing distances ``d2``, ``valid`` (B, n), the codebook
+    parameters and ``tau_inline`` (B,) are per query.  The JAX wrapper's
+    signature with ``centroids`` replaced by the build-time ``s2``.
+    Returns ``(est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
+    certified, nmiss)``; see ``kernels.ref.fused_rabitq_scan_batch``."""
+    if not _on_cuda(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2, valid,
+                    d_min, delta, ew_maps, tau_inline):
+        return _ref.fused_rabitq_scan_batch(
+            codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2, valid, d_min,
+            delta, ew_maps, m, tau_inline, eps0=eps0)
+    n, d = codes.shape
+    b, c = d2.shape
+    n_ew = ew_maps.shape[1]
+    _need(codes, "codes", torch.int8, (n, d))
+    _need(vectors, "vectors", torch.float32, (n, d))
+    _need(norm_o, "norm_o", torch.float32, (n,))
+    _need(f_o, "f_o", torch.float32, (n,))
+    _need(cl, "cl", torch.int32, (n,))
+    _need(qs, "qs", torch.float32, (b, d))
+    _need(valid, "valid", torch.bool, (b, n))
+    _need(s2, "s2", torch.float32, (n,))
+    g = numerics.rotate(qs, rot)
+    nq = _need(torch.sqrt(d2).contiguous(), "d2", torch.float32, (b, c))
+    d_min = _params(d_min, torch.float32)
+    delta = _params(delta, torch.float32)
+    ew_maps = _params(ew_maps, torch.int32)
+    tau_inline = _params(tau_inline, torch.int32)
+    dev = codes.device
+    est, lb, ub, exact = (torch.empty(b, n, dtype=torch.float32, device=dev)
+                          for _ in range(4))
+    bucket_lb, bucket_ub = (torch.empty(b, n, dtype=torch.int32, device=dev)
+                            for _ in range(2))
+    certified = torch.empty(b, n, dtype=torch.bool, device=dev)
+    hist_lb, hist_ub = (torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+    nmiss = torch.zeros(b, dtype=torch.int32, device=dev)
+    outs = (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
+            certified, nmiss)
+    if b == 0 or n == 0:
+        return outs
+    lib = _lib("rabitq_fused")
+    bq, smem = _pick_bq(b, lambda q: lib.rabitq_fused_smem_bytes(q, d, n_ew,
+                                                                 m))
+    rc = lib.fused_rabitq_scan_batch_launch(
+        codes.data_ptr(), vectors.data_ptr(), s2.data_ptr(),
+        norm_o.data_ptr(), f_o.data_ptr(), cl.data_ptr(), valid.data_ptr(),
+        nq.data_ptr(), g.data_ptr(), qs.data_ptr(), d_min.data_ptr(),
+        delta.data_ptr(), ew_maps.data_ptr(), tau_inline.data_ptr(),
+        est.data_ptr(), lb.data_ptr(), ub.data_ptr(), bucket_lb.data_ptr(),
+        bucket_ub.data_ptr(), exact.data_ptr(), certified.data_ptr(),
+        hist_lb.data_ptr(), hist_ub.data_ptr(), nmiss.data_ptr(), n, d, b, c,
+        n_ew, m, math.sqrt(d), eps0, float(d - 1), bq, _tiles(n), smem,
+        _stream())
+    _check(rc, "fused_rabitq_scan_batch")
+    LAUNCHES["fused_rabitq_scan_batch"] += 1
+    return outs

@@ -4,9 +4,11 @@ Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``).  A CUDA request on a host without a card raises: the
 port never drops to the CPU on its own.
 
-TF32 is switched off at import.  The exact-distance legs use the norm
-identity ``|x|^2 - 2 x.q + |q|^2``, whose cancellation TF32's 10-bit
-mantissa turns into visible drift against the fp32 reference.
+TF32 is switched off at import, so that any fp32 matrix product left in
+the port (the RaBitQ encoder's rotation, k-means, exact ground truth)
+stays fp32 as in the reference; TF32's 10-bit mantissa would drift off it.
+The exact-distance legs of the kernels and their plain versions sum
+``(x - q)^2`` directly and use no matrix product.
 """
 from __future__ import annotations
 

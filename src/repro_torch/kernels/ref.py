@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four main-path kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function mirrors the same-named oracle in the JAX package's
 ``kernels/ref.py`` and is the CPU path behind ``kernels.ops``.  On the card
@@ -7,11 +7,15 @@ Each function mirrors the same-named oracle in the JAX package's
 Summation order is part of the contract.  The ADC sum runs over the
 sub-quantizers in ascending order in fp32, exactly as the CUDA kernels add
 it, so a CPU and a CUDA run of the port give bit-identical estimates and
-therefore identical bucket ids, histograms, thresholds and selections.
+therefore identical bucket ids, histograms, thresholds and selections.  The
+exact distances, the RaBitQ code products and bounds come from
+``core/numerics.py``, which fixes their order of operations the same way.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import numerics
 
 INF = float("inf")
 
@@ -57,20 +61,11 @@ def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
 
 
 def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
-    """(n, d) shared vectors, (B, d) queries -> (B, n) exact distances.
-
-    The sum of (x - q)^2, as the CUDA kernels compute it, rather than the
-    JAX oracle's norm-identity matmul: in fp32 the identity cancels on the
-    clustered corpora (|x|^2 ~ 500 beside a nearest distance ~1) by more
-    than the 1e-4 bar, and the direct sum does not.  Lane chunks keep each
-    (B, lanes, d) difference block under 2^24 elements."""
-    b, n = qs.shape[0], x.shape[0]
-    out = torch.empty(b, n, dtype=x.dtype, device=x.device)
-    step = max(1, (1 << 24) // max(b * x.shape[1], 1))
-    for i in range(0, n, step):
-        diff = x[None, i:i + step, :] - qs[:, None, :]
-        out[:, i:i + step] = torch.sqrt(torch.sum(diff * diff, dim=-1))
-    return out
+    """(n, d) shared vectors, (B, d) queries -> (B, n) exact distances: the
+    sum of (x - q)^2 in ascending coordinate order (``numerics.exact_dist``),
+    as the CUDA kernels add it, rather than the JAX oracle's norm-identity
+    matmul."""
+    return numerics.exact_dist(x[None], qs[:, None])
 
 
 def fused_scan_batch(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
@@ -89,3 +84,26 @@ def fused_scan_batch(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
     early = torch.where(pred, l2_exact_batch(vectors, qs), INF)
     nmiss = torch.sum(valid & ~pred, dim=1).to(torch.int32)
     return est, bucket, hist, early, nmiss
+
+
+def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2,
+                            valid, d_min, delta, ew_maps, m: int, tau_inline,
+                            eps0: float = 3.0):
+    """Plain version of the bound-fused RaBitQ scan.
+
+    Returns ``(est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
+    certified, nmiss)``: (B, n) lanes, (B, m+1) histograms over the valid
+    lanes, and (B,) counts of the valid lanes not certified.  ``exact`` is
+    the exact distance on certified lanes (valid, lower-bound bucket at or
+    below ``tau_inline``) and +inf elsewhere."""
+    est, lb, ub = numerics.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl,
+                                                rot, qs, d2, valid, eps0)
+    bucket_lb = bucketize_batch(lb, d_min, delta, ew_maps, m)
+    bucket_ub = bucketize_batch(ub, d_min, delta, ew_maps, m)
+    hist_lb = histogram_batch(bucket_lb, valid, m)
+    hist_ub = histogram_batch(bucket_ub, valid, m)
+    certified = valid & (bucket_lb <= tau_inline[:, None])
+    exact = torch.where(certified, l2_exact_batch(vectors, qs), INF)
+    nmiss = torch.sum(valid & ~certified, dim=1).to(torch.int32)
+    return (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
+            certified, nmiss)

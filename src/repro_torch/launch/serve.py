@@ -1,17 +1,18 @@
 """Batched large-k retrieval serving entry point of the port (static mode).
 
-Builds an IVF+PQ index over a seeded synthetic corpus on the device and
-serves fixed-size query batches through ``index.engine.SearchEngine``; the
-last stdout line is one JSON summary with the JAX serving CLI's keys plus
-``"device"``.
+Builds an IVF+PQ or IVF+RaBitQ index over a seeded synthetic corpus on the
+device and serves fixed-size query batches through
+``index.engine.SearchEngine``; the last stdout line is one JSON summary
+with the JAX serving CLI's keys plus ``"device"``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve              # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --n 12000 --d 64 --k 500 --n-clusters 64 --queries 16 --batch 8
+      --n 12000 --d 64 --k 500 --n-clusters 64 --queries 16 --batch 8 \
+      --method ivfrabitq_bbc
 
-Only ``--mode static`` with ``--method ivfpq | ivfpq_bbc | flat`` is ported;
-the other modes, ``--shards > 1``, ``--batch 1`` and ``--tuned`` raise,
-naming the ROADMAP item that brings them.
+``--mode static`` with every ``--method`` of the JAX CLI is ported; the
+other modes, ``--shards > 1``, ``--batch 1`` and ``--tuned`` raise, naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,9 +28,19 @@ from repro_torch.data import synthetic
 from repro_torch.index import engine, flat, search
 from repro_torch.kernels.platform import resolve_device
 
-METHODS = ("ivfpq", "ivfpq_bbc", "flat")
+METHODS = ("ivfpq", "ivfpq_bbc", "ivfrabitq", "ivfrabitq_bbc", "flat")
 RECALL_SAMPLE = 8   # queries with exact ground truth for the recall estimate
 HAND_TUNED = "hand-tuned fallback"
+
+
+def build_index(method: str, x: torch.Tensor, n_clusters: int, seed: int,
+                dev: torch.device):
+    if method.startswith("ivfpq"):
+        return search.build_pq_index(x, n_clusters, seed=seed, device=dev)
+    if method.startswith("ivfrabitq"):
+        return search.build_rabitq_index(x, n_clusters, seed=seed,
+                                         device=dev)
+    return None
 
 
 def mean_recall(x: torch.Tensor, qs: torch.Tensor, ids: list, k: int) -> float:
@@ -147,11 +158,8 @@ def main(argv=None) -> int:
     x = torch.from_numpy(x_np).to(dev)
     qs = torch.from_numpy(qs_np).to(dev)
     t0 = time.monotonic()
-    index = None
-    if args.method != "flat":
-        index = search.build_pq_index(x, args.n_clusters, seed=args.seed,
-                                      device=dev)
-        _sync(dev)
+    index = build_index(args.method, x, args.n_clusters, args.seed, dev)
+    _sync(dev)
     print(f"[serve] index built in {time.monotonic() - t0:.1f}s", flush=True)
     print(json.dumps(run_static(args, x, qs, index, dev)))
     return 0

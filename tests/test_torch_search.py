@@ -118,8 +118,13 @@ def test_engine_clamps_knobs(setup):
 def test_engine_unported_paths_raise(setup, call):
     _, _, ti, _, qs = setup
     if call == "ivf":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # the IVF strategy is ported; it needs the corpus vectors
+        with pytest.raises(ValueError, match="vectors"):
             engine.SearchEngine.build(ti.ivf, k=K, n_probe=4, device="cpu")
+        eng = engine.SearchEngine.build(ti.ivf, k=K, n_probe=4, device="cpu",
+                                        vectors=ti.vectors)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.search(qs[0])
         return
     if call in ("mesh", "tuned"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
