@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7 and 9
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 7, 8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 11, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
-  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all at once);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and at the JAX package's ragged kernel-test shapes (the
-     RaBitQ scan: est/lb/ub bitwise, every integer output equal);
+     RaBitQ scan: est/lb/ub bitwise, every integer output equal; the shard
+     collector and the compaction: every output bitwise, at cold, full and
+     mixed thresholds and an overflowing budget);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card, 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
@@ -18,20 +21,29 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 7, 8, 10):
      engine, 4 predictive batches, the two-phase form and the threshold
      baseline; recall@k, which must reach 0.95 on the BBC forms;
   5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
-     form) on a 20,000 x 128 index: id sets, distances, counters;
+     form, batched and sharded: the CPU engine on a one-rank gloo mesh, the
+     card's on a one-rank NCCL mesh) on a 20,000 x 128 index: id sets,
+     distances, counters;
   6. the unfused, unfused predictive and plain IVF+PQ forms and the IVF
      forms at the JAX serving CLI's defaults (100,000 x 96, k=5000, 316
      clusters);
   7. each kernel's time at its path's full-width shapes beside its bound,
      its plain version's and (where one exists) one PyTorch call's;
-  8. (only when asked for) torch.profiler over main-path and RaBitQ-path
-     batches: device time by operator and the device's idle share;
+ 11. the mesh-sharded deployment on a one-rank NCCL group (a ``file://``
+     store, no network), on the indexes of phases 4, 9 and 6: IVF+PQ+BBC
+     static, predictive and naive, IVF+RaBitQ+BBC fused static, fused
+     predictive and naive, IVF static, predictive and naive; ms per batch,
+     recall@k, the id-set overlap with the batched engine on the same
+     index, the survivor tier of each batch and the counters;
+  8. (only when asked for) torch.profiler over batches of phases 4, 9 and
+     11 (sharded IVF+PQ): device time by operator and the device's idle
+     share;
  10. (only when asked for, after 9) the band anatomy of one RaBitQ batch:
      the band threshold, the static and warm predictive gates, and where
      the band lanes' lower-bound buckets lie.
 
-Kernel launch counts are zeroed before phases 4, 9 and 6 and read after
-each; comparison and timing launches do not count.  Any failed check raises and
+Kernel launch counts are zeroed before phases 4, 9, 6 and 11 and read
+after each; comparison and timing launches do not count.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
 before doing anything.  The second-to-last lines are the launch counts,
 the card's ``nvidia-smi`` name and power limit, and a JSON list of kernels;
@@ -40,9 +52,12 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 SEED = 0
+DEV = "cuda"
 
 KERNELS = {
     "fused_scan_batch": ("src/repro_torch/kernels/csrc/fused_scan.cu",
@@ -65,6 +81,10 @@ KERNELS = {
     "fused_rabitq_scan_batch": (
         "src/repro_torch/kernels/csrc/rabitq_fused.cu",
         "src/repro/kernels/rabitq_fused.py:138"),
+    "shard_collect_batch": ("src/repro_torch/kernels/csrc/shard_collect.cu",
+                            "src/repro/kernels/shard_collect.py:104"),
+    "spec_compact_batch": ("src/repro_torch/kernels/csrc/shard_collect.cu",
+                           "src/repro/kernels/shard_collect.py:179"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -281,6 +301,59 @@ def check_rabitq_kernel(a, errs: dict, tag: str) -> None:
     log(f"[kernels] {tag}: rabitq est/lb/ub/exact bitwise equal to the "
         f"plain version, buckets/hists/certified/nmiss equal; "
         f"{n_cert} certified (query, lane) pairs")
+
+
+def shard_collect_inputs(seed, b, n, m=128, density=0.0625):
+    """Random inputs of the shard collector: (B, n) distances (+inf off the
+    ``density`` valid lanes) and per-query codebooks over them."""
+    import torch
+    from repro_torch.core import buffer as rb
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dists = torch.rand(b, n, generator=g, device=DEV) * 30 + 1
+    valid = torch.rand(b, n, generator=g, device=DEV) < density
+    dists = torch.where(valid, dists, float("inf"))
+    cb = rb.build_codebook(dists, k=min(max(n // 64, 8), 5000), m=m)
+    return dict(dists=dists, valid=valid, d_min=cb.d_min, delta=cb.delta,
+                ew_maps=cb.ew_map, m=m)
+
+
+def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
+    """Both compaction kernels against their plain versions on the same
+    inputs, bitwise on every output, at tau_spec -1 (nothing), m
+    (everything valid) and mixed, for each budget (one of which overflows
+    at tau_spec = m)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, m = a["valid"].shape[0], a["m"]
+    g = torch.Generator(device=DEV).manual_seed(b)
+    taus = {"cold": torch.full((b,), -1, dtype=torch.int32, device=DEV),
+            "all": torch.full((b,), m, dtype=torch.int32, device=DEV),
+            "mixed": torch.randint(-1, m + 1, (b,), generator=g,
+                                   device=DEV).to(torch.int32)}
+    args = (a["dists"], a["valid"], a["d_min"], a["delta"], a["ew_maps"], m)
+    names = ("bucket", "hist", "pos", "ok", "count")
+    overflow = False
+    for budget in budgets:
+        for tname, tau in taus.items():
+            got = ops.shard_collect_batch(*args, tau, budget)
+            torch.cuda.synchronize()
+            want = ref.shard_collect_batch(*args, tau, budget)
+            for name, x, y in zip(names, got, want):
+                check(torch.equal(x, y), f"{tag} shard_collect {name} differs "
+                      f"(budget {budget}, tau {tname})")
+            got_c = ops.spec_compact_batch(want[0], a["valid"], tau, budget)
+            torch.cuda.synchronize()
+            want_c = ref.spec_compact_batch(want[0], a["valid"], tau, budget)
+            for name, x, y in zip(names[2:], got_c, want_c):
+                check(torch.equal(x, y), f"{tag} spec_compact {name} differs "
+                      f"(budget {budget}, tau {tname})")
+            overflow |= bool((want[4] > budget).any().item())
+    check(overflow, f"{tag}: no budget overflowed")
+    for name in ("shard_collect_batch", "spec_compact_batch"):
+        errs[name] = max(errs.get(name, 0.0), 0.0)
+    log(f"[kernels] {tag}: shard_collect and spec_compact bitwise equal to "
+        f"their plain versions at budgets {budgets}, tau cold/all/mixed "
+        f"(an overflow included)")
 
 
 # --------------------------------------------------------------------------
@@ -522,8 +595,9 @@ def id_diff(g, c, row, x, qb) -> str:
 
 def parity(summary: dict) -> None:
     """Phase 5: each engine form on the card and on the CPU (the plain
-    versions) over the same index: equal id sets, sorted distances within
-    1e-4, equal work counters; the predictive forms over 3 batches."""
+    versions) over the same index, batched and sharded: equal id sets,
+    sorted distances within 1e-4, equal work counters; the predictive forms
+    over 3 batches."""
     import torch
     from repro_torch.index import engine, search
     x, qs = corpus(20_000, 128, 64, seed=SEED + 1)
@@ -539,10 +613,23 @@ def parity(summary: dict) -> None:
              ("rabitq_baseline", rq_index, dict(use_bbc=False), False),
              ("ivf_bbc", pq_index.ivf, dict(use_bbc=True, **ivf_kw), True),
              ("ivf", pq_index.ivf, dict(use_bbc=False, **ivf_kw), False)]
+    # the sharded forms: the CPU engine on a one-rank gloo mesh, the card's
+    # on a one-rank NCCL mesh
+    forms += [("sharded_" + name, index, dict(kw, mesh=True), can_predict)
+              for name, index, kw, can_predict in (
+                  ("ivfpq_bbc", pq_index, {}, True),
+                  ("ivfpq_naive", pq_index, dict(use_bbc=False), False),
+                  ("rabitq_fused", rq_index, {}, True),
+                  ("rabitq_two_phase", rq_index, dict(fused=False), True),
+                  ("rabitq_naive", rq_index, dict(use_bbc=False), False),
+                  ("ivf_bbc", pq_index.ivf, ivf_kw, True),
+                  ("ivf_naive", pq_index.ivf, dict(use_bbc=False, **ivf_kw),
+                   False))]
     out = {}
     for name, index, kw, can_predict in forms:
         engs = [engine.SearchEngine.build(
-            ix, k=1000, n_probe=16, device=dev, **kw)
+            ix, k=1000, n_probe=16, device=dev,
+            **dict(kw, mesh=mesh(dev) if kw.get("mesh") else None))
             for ix, dev in ((index, "cuda"),
                             (search.index_to(index, "cpu"), "cpu"))]
         for predictive in ((False, True) if can_predict else (False,)):
@@ -653,7 +740,168 @@ def other_forms(summary: dict, card: str) -> dict:
     out["card"] = card
     summary["other_forms_100k"] = out
     log(f"[forms] {json.dumps(out)}")
-    return launches
+    return launches, engs["ivf_bbc"], x, qs
+
+
+# --------------------------------------------------------------------------
+# phase 11: the mesh-sharded deployment
+# --------------------------------------------------------------------------
+
+_MESHES: dict = {}
+
+
+def mesh(kind: str):
+    """One-rank meshes over a process group made once in this process: NCCL
+    on the card (the default group) and a gloo group for the CPU, both from
+    a ``file://`` store, with NCCL kept on the loopback interface."""
+    import torch.distributed as tdist
+    from repro_torch.core import distributed as D
+    if not tdist.is_initialized():
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        store = Path(tempfile.mkdtemp(prefix="chip_smoke_")) / "store"
+        tdist.init_process_group("nccl", init_method=f"file://{store}",
+                                 rank=0, world_size=1)
+        atexit.register(tdist.destroy_process_group)
+    if kind not in _MESHES:
+        _MESHES[kind] = D.make_mesh(
+            (1,), ("model",), backend="gloo" if kind == "cpu" else None)
+    return _MESHES[kind]
+
+
+def sharded_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
+                 qs_rq, x_main, x_ivf, qs_ivf):
+    """Phase 11: each sharded form on a one-rank NCCL mesh, built on the
+    index of the batched engine it is held against."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.index import engine
+    from repro_torch.kernels import ops
+    k, b = 5000, 32
+    m1 = mesh("cuda")
+    kw = dict(k=k, n_probe=64, mesh=m1)
+    ivf_x = ivf_eng.vectors
+    # the batched forms each sharded form is held against: the unfused PQ
+    # engine re-ranks by the sharded path's exact-distance sum
+    pq_unfused = engine.SearchEngine.build(pq_eng.index, k=k, n_probe=64,
+                                           fused=False, device="cuda")
+    forms = {
+        "ivfpq_bbc": engine.SearchEngine.build(pq_eng.index, **kw),
+        "ivfpq_naive": engine.SearchEngine.build(pq_eng.index, use_bbc=False,
+                                                 **kw),
+        "ivfrabitq_bbc": engine.SearchEngine.build(rq_eng.index, **kw),
+        # a per-shard budget that holds the whole band (the default,
+        # survivor_budget(k, S, 4.0), truncates a band that outgrows it to
+        # its smallest lower bounds, as the reference does)
+        "ivfrabitq_bbc_fullbudget": engine.SearchEngine.build(
+            rq_eng.index, shard_budget=int(rq_eng.index.vectors.shape[0]),
+            **kw),
+        "ivfrabitq_naive": engine.SearchEngine.build(
+            rq_eng.index, use_bbc=False, **kw),
+        "ivf_bbc": engine.SearchEngine.build(ivf_eng.index, vectors=ivf_x,
+                                             **kw),
+        "ivf_naive": engine.SearchEngine.build(ivf_eng.index, vectors=ivf_x,
+                                               use_bbc=False, **kw)}
+    for name, e in forms.items():
+        e.warmup((b,), predictive=e.use_bbc)
+    pq_unfused.warmup((b,))
+    static_q = {"ivfpq": [qs_main[i:i + b] for i in range(0, 2 * b, b)],
+                "ivfrabitq": [qs_rq[i:i + b] for i in range(0, 2 * b, b)],
+                "ivf": [qs_ivf[i:i + b] for i in range(0, 2 * b, b)]}
+    pred_q = {"ivfpq": [qs_main[64 + i * b:64 + (i + 1) * b]
+                        for i in range(4)],
+              "ivfrabitq": [qs_rq[64 + i * b:64 + (i + 1) * b]
+                            for i in range(4)],
+              "ivf": [qs_ivf[i * b:(i + 1) * b] for i in range(3)]}
+    truth_x = {"ivfpq": x_main, "ivfrabitq": x_main, "ivf": x_ivf}
+    batched = {"ivfpq": pq_unfused, "ivfrabitq": rq_eng, "ivf": ivf_eng}
+
+    ops.reset_launches()
+    runs = {}
+    for name, e in forms.items():
+        method = name.split("_")[0]
+        tiers = []
+
+        def one(qb, e=e, tiers=tiers):
+            D.reset_tiers()
+            r = e.search(qb)
+            tiers.append({t: c for t, c in D.TIERS.items() if c})
+            return r
+
+        qb = static_q[method] if e.use_bbc else static_q[method][:1]
+        runs[name] = (qb, *timed_batches(one, qb), tiers)
+        if e.use_bbc:
+            state, ptiers = [e.predictor_init()], []
+
+            def pred(qb, e=e, state=state, ptiers=ptiers):
+                D.reset_tiers()
+                r, state[0] = e.search(qb, pred_state=state[0])
+                ptiers.append({t: c for t, c in D.TIERS.items() if c})
+                return r
+
+            runs[name + "_predictive"] = (pred_q[method],
+                                          *timed_batches(pred, pred_q[method]),
+                                          ptiers)
+    launches = dict(ops.LAUNCHES)
+    for kname in ("pq_adc_batch", "l2_exact_batch", "fused_rabitq_scan_batch",
+                  "shard_collect_batch", "spec_compact_batch"):
+        check(launches[kname] > 0, f"the sharded path never ran {kname}")
+
+    out = {}
+    pq_pred_state = [pq_eng.predictor_init()]
+    for name, (qb, res, ms, tiers) in runs.items():
+        method = name.split("_")[0]
+        for r in res:
+            check_result(r, b, k, f"sharded {name}")
+        rec = recall(truth_x[method], qb[0][:8], res[0].ids[:8], k)
+        if name == "ivfpq_bbc_predictive":
+            # held against the batched predictive engine run in lock-step
+            # from cold (the JAX package's bar for this pair: 0.99)
+            ref_res = []
+            for q in qb:
+                r, pq_pred_state[0] = pq_eng.search(
+                    q, pred_state=pq_pred_state[0])
+                ref_res.append(r)
+            ov = min(overlap(r, t) for r, t in zip(res, ref_res))
+            check(ov >= 0.99, f"sharded {name}: overlap {ov} with the "
+                  f"batched predictive engine")
+            check(rec >= 0.9, f"sharded {name}: recall@{k} {rec}")
+        else:
+            ov = min(overlap(r, batched[method].search(q))
+                     for r, q in zip(res, qb))
+            # The batched result is the JAX parity property.  The exact
+            # tier keeps each shard's ``budget`` smallest keys: for IVF
+            # (exact distances) and PQ (estimates, re-cut at n_cand <=
+            # budget) that holds the batched selection, but RaBitQ's key is
+            # the lower bound, so a band that overflows the default budget
+            # loses lanes; the full-budget form must not overflow.  The
+            # naive PQ and RaBitQ collectors keep k per shard by estimate
+            # and are reported only.
+            truncated = any("exact" in t for t in tiers)
+            if "fullbudget" in name:
+                check(not truncated, f"sharded {name}: survivors overflowed "
+                      f"the per-shard budget {tiers}")
+            lossy = name.startswith("ivfrabitq_bbc") and truncated
+            if not lossy and (not name.endswith("naive") or method == "ivf"):
+                check(ov == 1.0, f"sharded {name}: id-set overlap {ov} with "
+                      f"the batched engine")
+                check(rec >= 0.95, f"sharded {name}: recall@{k} {rec}")
+
+        def mean(t):
+            return float(t.float().mean().item())
+
+        out[name] = {
+            "ms_per_batch": ms, f"recall_at_{k}_8q": rec,
+            "overlap_with_batched": ov, "tiers": tiers,
+            "n_reranked_mean": [mean(r.n_reranked) for r in res],
+            "n_second_pass_mean": [mean(r.n_second_pass) for r in res]}
+        if name == "ivfpq_bbc":
+            out[name]["overlap_with_batched_fused"] = min(
+                overlap(r, pq_eng.search(q)) for r, q in zip(res, qb))
+        log(f"[sharded] {name}: {json.dumps(out[name])}")
+    out["launches"] = launches
+    out["card"] = card
+    summary["sharded_1rank_nccl"] = out
+    return launches, forms
 
 
 # --------------------------------------------------------------------------
@@ -804,6 +1052,100 @@ def timing_rabitq(a, errs: dict) -> dict:
     return {"fused_rabitq_scan_batch": t}
 
 
+def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
+    """The two compaction kernels' arguments as phase 11's static sharded
+    PQ and RaBitQ paths build them for one batch (routing, the local scan,
+    the gathered sample's codebooks and tau_spec)."""
+    import torch
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.index import pq as pq_mod
+    from repro_torch.index import search as S
+    from repro_torch.kernels import ops
+    e = forms["ivfpq_bbc"]
+    pq_cb, cent, scodes, svecs = e.shard_streams
+    lay, qs = e.shard_layout, qs_main[:32]
+    probed, _ = S._local_routing(cent, qs, e.n_probe)
+    valid = ivf_mod.probe_mask(lay, probed, cent.shape[0])
+    est = S._sqrt_est(ops.pq_adc_batch(scodes, pq_mod.adc_table(pq_cb, qs)),
+                      valid)
+    cbs, sample = S._sharded_codebooks(lay, probed, est, 4, e.cap_shard,
+                                       e.n_cand, e.m, e.mesh)
+    n_probed = valid.sum(dim=1)
+    pq = dict(dists=est, valid=valid, d_min=cbs.d_min, delta=cbs.delta,
+              ew_maps=cbs.ew_map, m=e.m,
+              tau_spec=S._sample_spec_tau(cbs, sample, e.n_cand, n_probed,
+                                          e.m),
+              budget=S._shard_budget(None, e.n_cand, 1, est.shape[1], 2.0))
+    e = forms["ivfrabitq_bbc"]
+    rot, cent, st = e.shard_streams
+    lay, qs = e.shard_layout, qs_rq[:32]
+    probed, d2 = S._local_routing(cent, qs, e.n_probe)
+    valid = ivf_mod.probe_mask(lay, probed, cent.shape[0])
+    sample, _ = S._rabitq_sample_ub(st, rot, lay, probed, qs, d2, 4,
+                                    e.cap_shard, RQ_EPS0)
+    cbs, tau = S._rabitq_sample_plan(sample, e.k, e.k, 4, e.n_probe, e.m)
+    out = ops.fused_rabitq_scan_batch(st.codes, st.vectors, st.s2, st.norm_o,
+                                      st.f_o, st.cl, rot, qs, d2, valid,
+                                      cbs.d_min, cbs.delta, cbs.ew_map, e.m,
+                                      tau, eps0=RQ_EPS0)
+    rq = dict(bucket=out[3], valid=valid, tau_spec=tau,
+              budget=S._shard_budget(None, e.k, 1, valid.shape[1], 4.0))
+    torch.cuda.synchronize()
+    return {"pq": pq, "rq": rq}
+
+
+def timing_shard(a, errs: dict) -> dict:
+    """The two compaction kernels at phase 11's inputs: checked against
+    their plain versions once more, then timed beside their bounds (bytes:
+    each input read once, every output written once)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    p, r = a["pq"], a["rq"]
+    args = (p["dists"], p["valid"], p["d_min"], p["delta"], p["ew_maps"],
+            p["m"], p["tau_spec"], p["budget"])
+    want6 = ref.shard_collect_batch(*args)
+    check(all(torch.equal(x, y) for x, y in
+              zip(ops.shard_collect_batch(*args), want6)),
+          "shard_collect at phase 11's inputs differs from its plain version")
+    cargs = (r["bucket"], r["valid"], r["tau_spec"], r["budget"])
+    want7 = ref.spec_compact_batch(*cargs)
+    check(all(torch.equal(x, y) for x, y in
+              zip(ops.spec_compact_batch(*cargs), want7)),
+          "spec_compact at phase 11's inputs differs from its plain version")
+    b, n = p["valid"].shape
+    m, n_ew, bud = p["m"], p["ew_maps"].shape[1], p["budget"]
+    # dists + valid in, bucket out, hist, the position buffer and counts
+    # out, per-query params in; per lane a subtract, a divide and a floor
+    t6 = dict(ms=cuda_ms(lambda: ops.shard_collect_batch(*args), 20),
+              plain_ms=cuda_ms(lambda: ref.shard_collect_batch(*args), 3,
+                               warm=1),
+              library_ms=None,
+              work={"B": b, "n": n, "budget": bud,
+                    "matches": int(want6[4].sum().item())})
+    t6["bound_ms"], t6["bound_by"] = bound(
+        9 * b * n + 4 * b * (m + 1) + 4 * b * bud + 4 * b
+        + 4 * b * (n_ew + 3), 3 * b * n)
+    b, n = r["valid"].shape
+    bud = r["budget"]
+    # bucket + valid in, the position buffer and counts out, tau_spec in
+    t7 = dict(ms=cuda_ms(lambda: ops.spec_compact_batch(*cargs), 20),
+              plain_ms=cuda_ms(lambda: ref.spec_compact_batch(*cargs), 3,
+                               warm=1),
+              library_ms=None,
+              work={"B": b, "n": n, "budget": bud,
+                    "matches": int(want7[2].sum().item())})
+    t7["bound_ms"], t7["bound_by"] = bound(5 * b * n + 4 * b * bud + 8 * b,
+                                           0)
+    for name in ("shard_collect_batch", "spec_compact_batch"):
+        errs[name] = max(errs.get(name, 0.0), 0.0)
+    out = {"shard_collect_batch": t6, "spec_compact_batch": t7}
+    for name, t in out.items():
+        log(f"[timing] {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
+            f"none; work {t['work']}")
+    return out
+
+
 def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
     """torch.profiler over a few warm main-path batches: device time by
     operator (per batch) and the device's busy share of the window."""
@@ -847,10 +1189,10 @@ def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9",
-                    help="comma-separated phases to run (default 1-7 and "
-                         "9; 8 = torch.profiler over the batches of 4 and "
-                         "9; 10 = phase 9's band anatomy)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11",
+                    help="comma-separated phases to run (default 1-7, 9 "
+                         "and 11; 8 = torch.profiler over the batches of 4 "
+                         "and 9; 10 = phase 9's band anatomy)")
     ap.add_argument("--out", default="",
                     help="also write the summary JSON to this path")
     args = ap.parse_args(argv)
@@ -894,6 +1236,14 @@ def main(argv=None) -> int:
         check_rabitq_kernel(rabitq_kernel_inputs(SEED + 1, 3, 1000, 100, 7,
                                                  m=64, density=0.9),
                             errs, "ragged B=3 n=1000 d=100")
+        for b, n, budgets, dens in ((32, 1_000_064, (80_128, 20_224, 4096),
+                                     0.0625),
+                                    (32, 125_056, (10_112, 2_560, 512),
+                                     0.0625),
+                                    (3, 1000, (1500, 24), 0.9)):
+            check_shard_collect(shard_collect_inputs(SEED + n, b, n,
+                                                     density=dens),
+                                budgets, errs, f"B={b} n={n}")
 
     launches = {k: 0 for k in ops.LAUNCHES}
     eng = qb = main_queries = x = rq_eng = rq_queries = rq_state = None
@@ -907,9 +1257,17 @@ def main(argv=None) -> int:
         launches = {k: launches[k] + l9[k] for k in launches}
     if 5 in phases:
         parity(summary)
+    ivf_eng = ivf_x = ivf_queries = shard_forms = None
     if 6 in phases:
-        l6 = other_forms(summary, card)
+        l6, ivf_eng, ivf_x, ivf_queries = other_forms(summary, card)
         launches = {k: launches[k] + l6[k] for k in launches}
+    if 11 in phases:
+        check(None not in (eng, rq_eng, ivf_eng), "phase 11 shards the "
+              "indexes of phases 4, 9 and 6 and needs them")
+        l11, shard_forms = sharded_path(summary, card, eng, rq_eng, ivf_eng,
+                                        main_queries, rq_queries, x, ivf_x,
+                                        ivf_queries)
+        launches = {k: launches[k] + l11[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
@@ -918,21 +1276,29 @@ def main(argv=None) -> int:
         if rq_eng is not None:
             times.update(timing_rabitq(
                 rabitq_kernel_args(rq_eng, rq_queries[:32]), errs))
+        if shard_forms is not None:
+            times.update(timing_shard(
+                shard_kernel_args(shard_forms, main_queries, rq_queries),
+                errs))
         summary["timing"] = times
     if 8 in phases:
         check(eng is not None or rq_eng is not None,
-              "phase 8 profiles the paths of phases 4 and 9: needs one")
+              "phase 8 profiles the paths of phases 4, 9 and 11: needs one")
         if eng is not None:
             summary["profile"] = profile(eng, main_queries)
         if rq_eng is not None:
             log("[profile] the IVF+RaBitQ path (phase 9), fused static:")
             summary["profile_rabitq"] = profile(rq_eng, rq_queries)
+        if shard_forms is not None:
+            log("[profile] the sharded IVF+PQ path (phase 11), static:")
+            summary["profile_sharded"] = profile(shard_forms["ivfpq_bbc"],
+                                                 main_queries)
     if 10 in phases:
         check(rq_eng is not None, "phase 10 reads phase 9's engine")
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
                                                rq_state)
         log(f"[band] {json.dumps(summary['band_anatomy'])}")
-    if {4, 6, 9} <= phases:
+    if {4, 6, 9, 11} <= phases:
         for k, v in launches.items():
             check(v > 0, f"kernel {k} never launched on the paths")
 

@@ -9,12 +9,23 @@ batches through the batched searchers of ``index.search``:
     state = eng.predictor_init()
     res, state = eng.search(qs, pred_state=state)   # predictive serving
 
+Sharded deployment is a build-time switch, on every rank of a process
+group together:
+
+    mesh = distributed.make_mesh((n_shards,), ("model",))
+    eng = engine.SearchEngine.build(index, k=5000, n_probe=64, mesh=mesh)
+
+The stream is split row-wise over the mesh (``ivf.sharded_layout``, round
+robin within each cluster) and each rank keeps only its own block, on its
+device; every call runs the distributed BBC collector of
+``core.distributed`` through the sharded searchers of ``index.search``, on
+all ranks at once.
+
 Each method is a strategy object chosen once, at build, from the index
 type (``IVFIndex`` with ``vectors=``, ``PQIndex``, ``RabitqIndex``).  What
-the JAX engine also does (mesh-sharded serving, tuned operating points,
-tombstones, single-query search) raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: no request is quietly served through another
-path.
+the JAX engine also does (tuned operating points, tombstones, single-query
+search) raises ``NotImplementedError`` naming the ROADMAP item that brings
+it: no request is quietly served through another path.
 """
 from __future__ import annotations
 
@@ -24,7 +35,9 @@ from typing import Any
 import torch
 
 from repro_torch.core import rerank
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.index import pq as pq_mod
 from repro_torch.index import search as search_mod
 from repro_torch.kernels.platform import resolve_device
 
@@ -52,6 +65,18 @@ class _IvfStrategy:
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             pred_state=pred_state, pred_count=eng.pred_count)
 
+    def shard_streams(self, index, vectors, layout, dev) -> tuple:
+        return (index.centroids.to(dev),
+                vectors[layout.order.to(vectors.device)].to(dev))
+
+    def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
+        cent, svecs = eng.shard_streams
+        return search_mod.ivf_search_sharded(
+            eng.mesh, qs, cent, eng.shard_layout, svecs, k=eng.k,
+            n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
+            cap_shard=eng.cap_shard, budget=eng.shard_budget,
+            pred_state=pred_state, pred_count=eng.pred_count)
+
 
 class _IvfPqStrategy:
     """IVF+PQ: ADC estimate -> n_cand selection -> exact re-rank."""
@@ -70,6 +95,21 @@ class _IvfPqStrategy:
             n_cand=eng.n_cand, use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
             pred_state=pred_state, pred_count=eng.pred_count)
 
+    def shard_streams(self, index, vectors, layout, dev) -> tuple:
+        order = layout.order.to(index.codes.device)
+        return (pq_mod.PQCodebook(index.pq.centroids.to(dev)),
+                index.ivf.centroids.to(dev), index.codes[order].to(dev),
+                index.vectors[order].to(dev))
+
+    def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
+        pq_cb, cent, scodes, svecs = eng.shard_streams
+        return search_mod.ivf_pq_search_sharded(
+            eng.mesh, qs, pq_cb, cent, eng.shard_layout, scodes, svecs,
+            k=eng.k, n_probe=eng.n_probe, n_cand=eng.n_cand,
+            use_bbc=eng.use_bbc, m=eng.m, cap_shard=eng.cap_shard,
+            budget=eng.shard_budget, pred_state=pred_state,
+            pred_count=eng.pred_count)
+
 
 class _IvfRabitqStrategy:
     """IVF+RaBitQ: bounded estimates -> greedy bounded re-rank."""
@@ -87,6 +127,22 @@ class _IvfRabitqStrategy:
             eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
             use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
             stream=eng.stream, pred_state=pred_state,
+            pred_count=eng.pred_count)
+
+    def shard_streams(self, index, vectors, layout, dev) -> tuple:
+        local = ivf_mod.FlatLayout(*(t.to(index.rq.codes.device)
+                                     for t in layout))
+        stream = search_mod.rabitq_stream(index, local)
+        return (index.rq.rot.to(dev), index.ivf.centroids.to(dev),
+                search_mod.RabitqStream(*(t.to(dev) for t in stream)))
+
+    def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
+        rot, cent, stream = eng.shard_streams
+        return search_mod.ivf_rabitq_search_sharded(
+            eng.mesh, qs, rot, cent, eng.shard_layout, stream, k=eng.k,
+            n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
+            cap_shard=eng.cap_shard, budget=eng.shard_budget,
+            fused=eng.fused, pred_state=pred_state,
             pred_count=eng.pred_count)
 
 
@@ -108,9 +164,10 @@ def _resolve_strategy(index, vectors):
 
 @dataclass(frozen=True)
 class SearchEngine:
-    """Serving facade: index + layout + static knobs on one device."""
+    """Serving facade: index + layout + static knobs on one device, or on
+    this rank's shard of a mesh."""
     index: Any                  # IVFIndex | PQIndex | RabitqIndex
-    layout: ivf_mod.FlatLayout
+    layout: ivf_mod.FlatLayout | None
     kind: str                   # "ivf" | "ivfpq" | "ivfrabitq"
     k: int
     n_probe: int
@@ -124,6 +181,15 @@ class SearchEngine:
     vectors: torch.Tensor | None = None   # the corpus, for kind "ivf"
     stream: Any = None          # the RaBitQ stream, built once here
     device: torch.device = torch.device("cpu")
+    # sharded deployment: the mesh, this rank's block of the stream layout,
+    # the replicated small tensors and the block's stream tensors
+    # (``strategy.shard_streams``), the longest shard cluster segment, and
+    # the per-shard survivor budget (None: ``distributed.survivor_budget``)
+    mesh: ShardMesh | None = None
+    shard_layout: ivf_mod.FlatLayout | None = None
+    shard_streams: tuple = ()
+    cap_shard: int = 1
+    shard_budget: int | None = None
 
     @property
     def strategy(self):
@@ -133,23 +199,34 @@ class SearchEngine:
     def build(index, k: int, n_probe: int | None = None,
               n_cand: int | None = None, use_bbc: bool = True, m: int = 128,
               pred_count: int | None = None, fused: bool | None = None,
-              device=None, vectors=None, mesh=None, tuned=None
+              device=None, vectors=None, mesh=None,
+              shard_budget: int | None = None, tuned=None
               ) -> "SearchEngine":
         """Place ``index`` (and ``vectors``, for an ``IVFIndex``) on
         ``device`` (the card unless ``device="cpu"``) and resolve the knobs
         from the method's defaults; then n_probe, n_cand and pred_count are
-        clamped to what this index can give."""
-        dev = resolve_device(device)
+        clamped to what this index can give.
+
+        With ``mesh`` (a ``distributed.ShardMesh``; every rank builds
+        together) the engine keeps only this rank's shard of the stream, on
+        the mesh's device, and serves through the sharded searchers; the
+        index may stay where the caller holds it."""
         if mesh is not None:
-            raise _not_ported("mesh-sharded serving", "item 14")
+            device = mesh.device if device is None else device
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+        dev = resolve_device(device)
         if tuned is not None:
             raise _not_ported("tuned operating points", "item 11")
         if n_probe is None:
             raise ValueError("n_probe is required")
         strategy, _ = _resolve_strategy(index, vectors)
-        index = search_mod.index_to(index, dev)
+        if mesh is None:
+            index = search_mod.index_to(index, dev)
         if vectors is not None:
-            vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
+            vectors = torch.as_tensor(vectors, dtype=torch.float32)
+            vectors = vectors if mesh is not None else vectors.to(dev)
         ivf = index if strategy.kind == "ivf" else index.ivf
         if n_cand is None:
             n_cand = strategy.default_n_cand(index, k)
@@ -159,6 +236,18 @@ class SearchEngine:
         if n_cand is not None:
             n_cand = min(n_cand, int(ivf.cluster_sizes.sum().item()))
             pred_count = min(pred_count, n_cand)
+        if mesh is not None:
+            slayout, cap_shard = ivf_mod.sharded_layout(ivf, mesh.n_shards)
+            local = ivf_mod.FlatLayout(*(t.to(dev) for t in
+                                         slayout.local(mesh.shard_index)))
+            return SearchEngine(
+                index=index, layout=None, kind=strategy.kind, k=k,
+                n_probe=n_probe, n_cand=n_cand, use_bbc=use_bbc, m=m,
+                pred_count=pred_count, fused=fused, vectors=vectors,
+                device=dev, mesh=mesh, shard_layout=local, cap_shard=cap_shard,
+                shard_budget=shard_budget,
+                shard_streams=strategy.shard_streams(index, vectors, local,
+                                                     dev))
         layout = ivf_mod.flat_layout(ivf)
         stream = (search_mod.rabitq_stream(index, layout)
                   if strategy.kind == "ivfrabitq" else None)
@@ -206,4 +295,7 @@ class SearchEngine:
 
     def search_batch(self, qs, pred_state=None):
         qs = torch.as_tensor(qs, dtype=torch.float32).to(self.device)
+        if self.mesh is not None:
+            return self.strategy.search_sharded(self, qs,
+                                                pred_state=pred_state)
         return self.strategy.search_batch(self, qs, pred_state=pred_state)

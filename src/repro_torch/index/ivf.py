@@ -144,3 +144,74 @@ def tile_positions(layout: FlatLayout, clusters: torch.Tensor, cap: int):
     pos = torch.where(ok, pos, 0)
     b, t = clusters.shape
     return pos.reshape(b, t * cap), ok.reshape(b, t * cap)
+
+
+class ShardedLayout(NamedTuple):
+    """Row-sharded partition of the ``FlatLayout`` candidate stream.
+
+    Each cluster's members are dealt round-robin across the S shards, so
+    every shard holds ~1/S of every cluster: the scan work is balanced
+    whichever clusters a query probes, and the global top-k spreads evenly
+    over the shards (which keeps a small fixed per-shard survivor budget
+    safe; see ``core.distributed``).  Every field has a leading shard axis,
+    and ``local(j)`` is shard j's block as a ``FlatLayout`` over global
+    corpus ids:
+
+    ``order``      (S, F) int64 corpus ids, cluster-major per shard.
+    ``cluster_of`` (S, F) int64 owning cluster; n_clusters on the padding.
+    ``offsets``    (S, C + 1) int64 per-shard cluster start offsets.
+    ``valid``      (S, F) bool, False on each shard's padding tail.
+    """
+
+    order: torch.Tensor
+    cluster_of: torch.Tensor
+    offsets: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def n_shards(self) -> int:
+        return self.order.shape[0]
+
+    @property
+    def shard_flat(self) -> int:
+        return self.order.shape[1]
+
+    def local(self, j: int) -> FlatLayout:
+        return FlatLayout(order=self.order[j], cluster_of=self.cluster_of[j],
+                          offsets=self.offsets[j], valid=self.valid[j])
+
+
+def sharded_layout(index: IVFIndex, n_shards: int,
+                   lane: int = 128) -> tuple[ShardedLayout, int]:
+    """Partition the member table into ``n_shards`` stream segments
+    (host-side).  Returns ``(layout, cap_shard)``; ``cap_shard`` is the
+    longest per-shard cluster segment, the static width of
+    ``tile_positions`` on a shard's block.
+
+    Shard j takes members ``j::n_shards`` of every cluster, in the cluster's
+    order, so the shards' segments of a cluster together are exactly its
+    members.  F, the same on every shard, is the longest shard's length
+    rounded up to ``lane``."""
+    ids = index.member_ids.cpu().numpy()
+    sizes = index.cluster_sizes.cpu().numpy().astype(np.int64)
+    n_clusters = ids.shape[0]
+    s = n_shards
+    # members j::s of a cluster of size z: ceil((z - j) / s) of them
+    seg = np.maximum(sizes[None, :] - np.arange(s)[:, None] + s - 1, 0) // s
+    f = max(int(seg.sum(axis=1).max()), 1)
+    f = ((f + lane - 1) // lane) * lane
+    offsets = np.zeros((s, n_clusters + 1), np.int64)
+    offsets[:, 1:] = np.cumsum(seg, axis=1)
+    live = np.arange(ids.shape[1])[None, :] < sizes[:, None]
+    c_of, rank = np.nonzero(live)                   # cluster-major members
+    shard = rank % s
+    at = offsets[shard, c_of] + rank // s
+    order = np.zeros((s, f), np.int64)
+    cluster_of = np.full((s, f), n_clusters, np.int64)
+    order[shard, at] = ids[c_of, rank]
+    cluster_of[shard, at] = c_of
+    valid = np.arange(f)[None, :] < offsets[:, -1:]
+    dev = index.member_ids.device
+    layout = ShardedLayout(*(torch.from_numpy(a).to(dev) for a in
+                             (order, cluster_of, offsets, valid)))
+    return layout, max(int(seg.max()), 1)

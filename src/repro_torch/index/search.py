@@ -19,6 +19,11 @@ tensors, their plain versions on the CPU).
   ivf_rabitq_search_batch(..., fused=False)      -> IVF+RaBitQ+BBC, two passes
   ... pred_state=state                           -> the cross-batch
                                                     predictive form
+  ivf_search_sharded / ivf_pq_search_sharded / ivf_rabitq_search_sharded
+                                                 -> the same methods over a
+                                                    corpus split row-wise
+                                                    across the ranks of a
+                                                    ``distributed.ShardMesh``
 
 Where the reference has a Pallas-kernel branch and a composed CPU branch
 (the RaBitQ fused path, the IVF BBC collection), the port runs the kernel
@@ -37,6 +42,7 @@ import torch
 
 from repro_torch.core import buffer as rb
 from repro_torch.core import collector as col
+from repro_torch.core import distributed as dist
 from repro_torch.core import numerics
 from repro_torch.core import rerank
 from repro_torch.index import ivf as ivf_mod
@@ -697,3 +703,404 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     s = _PRED_HIST_STRIDE
     hist_s = rb.histogram(bucket_ub[:, ::s], m, lane_valid[:, ::s])
     return out, rerank.predictor_update(pred_state, hist_s)
+
+
+# --------------------------------------------------------------------------
+# Mesh-sharded searchers (corpus row-sharded over the ranks of a ShardMesh)
+# --------------------------------------------------------------------------
+#
+# ``ivf.sharded_layout`` deals every cluster's members round-robin over the
+# S shards; each rank holds its own block of the stream (a ``FlatLayout``
+# over global ids, and the stream tensors in that order) and scans only
+# that.  One search step per batch, on every rank:
+#
+#   1. routing, the same on every rank (the single-device routing);
+#   2. the local scan through the same ``ops`` kernels as the batched path,
+#      over a shorter stream;
+#   3. the codebook sample of the nearest probed clusters, gathered across
+#      the shards, and the provisional threshold ``tau_spec`` from it;
+#   4. the shard collector (``ops.shard_collect_batch``, or
+#      ``ops.spec_compact_batch`` over RaBitQ's lb buckets): bucket ids,
+#      histogram and the speculative survivor buffer in one pass;
+#   5. ``distributed.bbc_survivors_batch``: the summed histograms give tau,
+#      and the survivors go into a fixed per-shard budget;
+#   6. the exact re-rank of the survivors on the shard that holds their rows;
+#   7. the survivors alone are gathered, rank-major, and the final selection
+#      (a stable sort: ties to the lower pool position) runs split by rows.
+#
+# ``use_bbc=False`` is the naive distributed collector: a local top-k by
+# estimate on every shard, gathered whole.  ``mesh=None`` is one shard and
+# no collective.  Every rank issues the same collectives in the same order:
+# the data-dependent branches (the survivor tier, the PQ re-cut, the dense
+# straggler pass) hold none.
+
+
+def _n_shards(mesh) -> int:
+    return 1 if mesh is None else mesh.n_shards
+
+
+def _shard_budget(budget: int | None, count: int, n_shards: int,
+                  shard_flat: int, slack: float) -> int:
+    if budget is None:
+        budget = dist.survivor_budget(count, n_shards, slack=slack)
+    return max(8, min(budget, shard_flat))
+
+
+def _local_routing(centroids: torch.Tensor, qs: torch.Tensor, n_probe: int):
+    """The single-device routing, the same on every rank."""
+    return ivf_mod.route_batch_centroids(centroids, qs, n_probe)
+
+
+def _exact_at_positions(svecs: torch.Tensor, qs: torch.Tensor,
+                        pos: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Exact distances (B, w) of the local stream rows ``pos``, +inf off
+    ``ok``: the gathered rows' squares added by ``numerics.ordered_sum``, the
+    batched path's straggler sum, so the CPU and the card give the same
+    bits."""
+    return _exact_dists_rows(svecs, pos, qs, mask=ok)
+
+
+def _sharded_codebooks(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
+                       vals: torch.Tensor, st: int, cap_shard: int,
+                       k_cb: int, m: int, mesh):
+    """Per-query codebooks from the nearest ``st`` probed clusters, gathered
+    across the shards: the union of the shards' slices is those clusters'
+    whole membership, the batched path's sample population.  Returns
+    ``(codebooks, sample)``, the sample sorted ascending (it also seeds
+    ``_sample_spec_tau``); the sort and the build run split by rows."""
+    spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap_shard)
+    s_local = torch.where(sok, torch.gather(vals, 1, spos), INF)
+    (sample,) = dist.gather_survivors(mesh, s_local)
+    k_cb = min(k_cb, sample.shape[1])
+
+    def sort_and_build(s):
+        asc = torch.sort(s, dim=1).values
+        return rb.build_codebook_from_topk(asc[:, :k_cb], m=m), asc
+
+    return dist.shard_rows(mesh, sort_and_build, sample)
+
+
+_SPEC_TAU_MARGIN = 2   # buckets of slack on the speculative threshold
+
+
+def _sample_spec_tau(cbs: rb.BucketCodebook, sample: torch.Tensor,
+                     count: int, n_probed: torch.Tensor, m: int):
+    """Provisional compaction threshold for the shard collector: the bucket
+    of the rank-scaled ``count``-th smallest sample value (rank = count *
+    |sample| / |probed|, Alg. 4 line 4's scaling) plus a margin, leaning
+    high because an overshoot costs a few buffer slots and an undershoot a
+    correction pass.  m (compact everything in range) when the rank runs
+    off the sample, the count >= n_probed regime where tau is m too.
+    ``sample`` is sorted ascending per query."""
+    ns = sample.shape[1]
+    n_valid = torch.isfinite(sample).sum(dim=1)
+    frac = n_valid.to(torch.float32) / torch.clamp(
+        n_probed.to(torch.float32), min=1.0)
+    rank = torch.ceil(count * frac).to(torch.int64)
+    kth = torch.gather(sample, 1, (rank - 1).clamp(0, ns - 1)[:, None])
+    tau = rb.bucketize(cbs, kth)[:, 0]
+    tau = torch.clamp(tau + _SPEC_TAU_MARGIN, max=m).to(torch.int32)
+    return torch.where(rank >= n_valid, m, tau).to(torch.int32)
+
+
+def _kth_value_mask(vals: torch.Tensor, ids: torch.Tensor,
+                    kth: int) -> torch.Tensor:
+    """Mask of each row's ``kth`` smallest (value, global id) pairs.  Global
+    ids are unique, so the kept set depends only on the (value, id)
+    multiset, whatever the pool order: the batched stream order and the
+    gathered sharded pool keep the same set where PQ estimates tie.
+    Padding ids (-1) rank after every real id.  Two stable sorts: by id,
+    then by value."""
+    eid = torch.where(ids < 0, torch.iinfo(torch.int64).max, ids)
+    by_id = torch.argsort(eid, dim=1, stable=True)
+    by_val = torch.argsort(torch.gather(vals, 1, by_id), dim=1, stable=True)
+    keep = torch.gather(by_id, 1, by_val[:, :kth])
+    mask = torch.zeros(vals.shape, dtype=torch.bool, device=vals.device)
+    return mask.scatter_(1, keep, True)
+
+
+def _naive_local_topk(vals: torch.Tensor, layout: ivf_mod.FlatLayout,
+                      k: int):
+    """The naive collector's local half: each shard's full top-k."""
+    sel, pos = rb.smallest(vals, min(k, vals.shape[1]))
+    ok = torch.isfinite(sel)
+    return pos, ok, torch.where(ok, layout.order[pos], -1)
+
+
+def _final_topk(gd: torch.Tensor, gi: torch.Tensor, k: int):
+    """Final selection over the gathered survivors (ties to the lower pool
+    position, as ``lax.top_k``); (+inf, -1) past the pool's width."""
+    d, order = rb.smallest(gd, min(k, gd.shape[1]))
+    i = torch.where(torch.isfinite(d), torch.gather(gi, 1, order), -1)
+    if d.shape[1] < k:
+        pad = k - d.shape[1]
+        d = torch.nn.functional.pad(d, (0, pad), value=INF)
+        i = torch.nn.functional.pad(i, (0, pad), value=-1)
+    return d, i
+
+
+def _tau_full(pred_state, count: int, qs: torch.Tensor) -> torch.Tensor:
+    return torch.full((qs.shape[0],), rerank.predict_tau(pred_state, count),
+                      dtype=torch.int32, device=qs.device)
+
+
+def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
+                       layout: ivf_mod.FlatLayout, svecs: torch.Tensor,
+                       k: int, n_probe: int, use_bbc: bool = True,
+                       m: int = 128, cap_shard: int = 1,
+                       budget: int | None = None,
+                       pred_state: rerank.PredictorState | None = None,
+                       pred_count: int | None = None):
+    """Sharded batched IVF: exact distances in the local scan (the l2
+    kernel), then the shard collector and the survivor collective.
+    ``layout`` and ``svecs`` (F, d) are this rank's block.
+
+    With ``pred_state`` the predicted tau floors the survivor threshold and
+    the summed histogram feeds the EMA; returns ``(SearchResult,
+    new_state)``.  Distances are exact in-scan, so the ids are the static
+    path's."""
+    predictive = pred_state is not None
+    if predictive and not use_bbc:
+        raise ValueError("predictive search requires use_bbc=True")
+    bud = _shard_budget(budget, k, _n_shards(mesh), svecs.shape[0], 2.0)
+    tau_floor = None
+    if predictive:
+        count = max(pred_count, k) if pred_count is not None else k
+        tau_floor = _tau_full(pred_state, count, qs)
+    probed, _ = _local_routing(centroids, qs, n_probe)
+    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    dv = torch.where(lane_valid, ops.l2_exact_batch(svecs, qs), INF)
+    n = dist.hier_psum(lane_valid.sum(dim=1), mesh)
+    if use_bbc:
+        cbs, sample = _sharded_codebooks(layout, probed, dv, min(4, n_probe),
+                                         cap_shard, k, m, mesh)
+        tau_spec = _sample_spec_tau(cbs, sample, k, n, m)
+        if tau_floor is not None:
+            tau_spec = torch.maximum(tau_spec, tau_floor)
+        bucket, hist, spos, sok, scnt = ops.shard_collect_batch(
+            dv, lane_valid, cbs.d_min, cbs.delta, cbs.ew_map, m, tau_spec,
+            bud)
+        pos, ok, _, _, ghist = dist.bbc_survivors_batch(
+            bucket, dv, lane_valid, hist, k, bud, mesh,
+            tau_floor=tau_floor, spec=(spos, sok, scnt, tau_spec))
+        gids = torch.where(ok, layout.order[pos], -1)
+    else:
+        pos, ok, gids = _naive_local_topk(dv, layout, k)
+    sd = torch.where(ok, torch.gather(dv, 1, pos), INF)
+    gd, gi = dist.gather_survivors(mesh, sd, gids)
+    d, i = dist.shard_rows(mesh, lambda a, b_: _final_topk(a, b_, k),
+                           gd, gi)
+    n = n.to(torch.int32)
+    res = SearchResult(d, i, n, torch.zeros_like(n))
+    if predictive:
+        return res, rerank.predictor_update(pred_state, ghist)
+    return res
+
+
+def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
+                          centroids: torch.Tensor,
+                          layout: ivf_mod.FlatLayout, scodes: torch.Tensor,
+                          svecs: torch.Tensor, k: int, n_probe: int,
+                          n_cand: int, use_bbc: bool = True, m: int = 128,
+                          cap_shard: int = 1, budget: int | None = None,
+                          pred_state: rerank.PredictorState | None = None,
+                          pred_count: int | None = None):
+    """Sharded batched IVF+PQ: the ADC kernel over the local codes, the
+    shard collector at ``n_cand`` granularity, the exact re-rank of each
+    shard's survivors on that shard, and after the gather the batched
+    path's top-``n_cand``-by-estimate cut (ties by global id,
+    ``_kth_value_mask``) before the top-k by exact distance.  ``layout``,
+    ``scodes`` (F, M) and ``svecs`` (F, d) are this rank's block.
+
+    Predictive (``pred_state``): the collective runs at ``pred_count``
+    granularity with the predicted tau as a floor, and the pool is cut only
+    to the batched predictive path's width.  Returns ``(SearchResult,
+    new_state)``.  ``use_bbc=False``: the naive collector (each shard's
+    top-k by estimate, re-ranked and gathered)."""
+    predictive = pred_state is not None
+    if predictive and not use_bbc:
+        raise ValueError("predictive search requires use_bbc=True")
+    shard_flat, s = svecs.shape[0], _n_shards(mesh)
+    count = _resolve_pred_count(pred_count, k, n_cand) if predictive \
+        else n_cand
+    bud = _shard_budget(budget, count, s, shard_flat, 2.0)
+    tau_floor = _tau_full(pred_state, count, qs) if predictive else None
+    probed, _ = _local_routing(centroids, qs, n_probe)
+    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    luts = pq_mod.adc_table(pq_cb, qs)
+    est = _sqrt_est(ops.pq_adc_batch(scodes, luts), lane_valid)
+    ghist = None
+    if use_bbc:
+        cbs, sample = _sharded_codebooks(layout, probed, est, min(4, n_probe),
+                                         cap_shard, n_cand, m, mesh)
+        n_probed = dist.hier_psum(lane_valid.sum(dim=1), mesh)
+        tau_spec = _sample_spec_tau(cbs, sample, count, n_probed, m)
+        if tau_floor is not None:
+            tau_spec = torch.maximum(tau_spec, tau_floor)
+        bucket, hist, spos, sok, scnt = ops.shard_collect_batch(
+            est, lane_valid, cbs.d_min, cbs.delta, cbs.ew_map, m, tau_spec,
+            bud)
+        pos, ok, _, _, ghist = dist.bbc_survivors_batch(
+            bucket, est, lane_valid, hist, count, bud, mesh,
+            tau_floor=tau_floor, spec=(spos, sok, scnt, tau_spec))
+    else:
+        pos, ok, _ = _naive_local_topk(est, layout, k)
+    sel_est = torch.where(ok, torch.gather(est, 1, pos), INF)
+    ex = _exact_at_positions(svecs, qs, pos, ok)
+    gids = torch.where(ok, layout.order[pos], -1)
+    n_rr = dist.hier_psum(ok.sum(dim=1), mesh)
+    ge, gx, gi = dist.gather_survivors(mesh, sel_est, ex, gids)
+    if use_bbc:
+        # the batched path's selection, re-applied to the gathered pool:
+        # static, the top n_cand by estimate; predictive, its width.  The
+        # cut bites only when the pool holds more than ncs survivors; n_rr
+        # is summed over the shards, so every rank takes the same branch
+        if predictive:
+            ncs = min(_pred_budget(count, shard_flat * s), n_cand,
+                      ge.shape[1])
+        else:
+            ncs = min(n_cand, ge.shape[1])
+        fit = bool((n_rr <= ncs).all().item())
+
+        def tail(ge, gx, gi):
+            if not fit:
+                keep = _kth_value_mask(ge, gi, ncs)
+                gx = torch.where(keep, gx, INF)
+                gi = torch.where(keep, gi, -1)
+            return _final_topk(gx, gi, k)
+
+        d, i = dist.shard_rows(mesh, tail, ge, gx, gi)
+    else:
+        d, i = dist.shard_rows(mesh, lambda a, b_: _final_topk(a, b_, k),
+                               gx, gi)
+    n_rr = n_rr.to(torch.int32)
+    res = SearchResult(d, i, n_rr, torch.zeros_like(n_rr))
+    if predictive:
+        return res, rerank.predictor_update(pred_state, ghist)
+    return res
+
+
+def _straggler_exact(stream: RabitqStream, qs: torch.Tensor,
+                     pos: torch.Tensor, strag: torch.Tensor, k: int):
+    """Exact distances of the straggler survivors at local positions
+    ``pos``, from the batched fused path's source: one dense l2 pass over
+    the local stream when any query has more stragglers than that path's
+    gather budget, else the gathered rows.  So a lane's exact distance has
+    the same bits in both deployments whenever the two take the same
+    branch, as they do at full width (the band overflows the budget)."""
+    n = stream.vectors.shape[0]
+    budget = min(n, ((max(2 * k, 2048) + 127) // 128) * 128)
+    if bool((strag.sum(dim=1) > budget).any().item()):
+        dense = ops.l2_exact_batch(stream.vectors, qs)
+        return torch.where(strag, torch.gather(dense, 1, pos), INF)
+    return _exact_at_positions(stream.vectors, qs, pos, strag)
+
+
+def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
+                              centroids: torch.Tensor,
+                              layout: ivf_mod.FlatLayout,
+                              stream: RabitqStream, k: int, n_probe: int,
+                              use_bbc: bool = True, m: int = 128,
+                              eps0: float = 3.0, cap_shard: int = 1,
+                              budget: int | None = None,
+                              fused: bool | None = None,
+                              pred_state: rerank.PredictorState | None = None,
+                              pred_count: int | None = None):
+    """Sharded batched IVF+RaBitQ.  ``layout`` and ``stream`` (this rank's
+    ``RabitqStream`` block) are the local shard.
+
+    BBC: codebooks over the sampled upper bounds; the summed ub histogram
+    thresholds at k (tau_ub), and a lane survives iff its lower bound's
+    bucket is at or below tau_ub (Alg. 3's certainly-out test, distributed).
+    Survivors are re-ranked exactly on their shard and the gathered top-k by
+    exact distance is the single-device result set.
+
+    Fused (``fused=None`` means True): the bound-fused kernel certifies the
+    lanes whose lb bucket is at or below the inline gate (the sample's
+    static tau, or the predicted tau on the predictive path) and gives their
+    exact distances; only the straggler survivors are re-ranked after it,
+    and ``n_second_pass`` is their count summed over the shards.
+    ``fused=False`` is the two-phase form: the plain bounds, the bucket_hist
+    kernel over ub, one exact gather of every survivor.
+
+    Predictive: the band does not depend on the prediction, which only
+    gates the inline exact leg; the summed ub histogram feeds the EMA.
+    Returns ``(SearchResult, new_state)`` with the static path's ids.
+    ``use_bbc=False``: the naive collector over the estimates."""
+    predictive = pred_state is not None
+    if predictive and not use_bbc:
+        raise ValueError("predictive search requires use_bbc=True")
+    if fused is None:
+        fused = True
+    b = qs.shape[0]
+    bud = _shard_budget(budget, k, _n_shards(mesh), stream.codes.shape[0],
+                        4.0)
+    count = k if pred_count is None else max(pred_count, k)
+    probed, d2 = _local_routing(centroids, qs, n_probe)
+    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    ghist = None
+    n_second = torch.zeros(b, dtype=torch.int32, device=qs.device)
+
+    def bounds():
+        return numerics.rabitq_bounds_stream(
+            stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
+            rot, qs, d2, lane_valid, eps0)
+
+    if not use_bbc:
+        est, _, _ = bounds()
+        pos, ok, _ = _naive_local_topk(est, layout, k)
+        ex = _exact_at_positions(stream.vectors, qs, pos, ok)
+    else:
+        st = min(4, n_probe)
+        if fused:
+            s_local, _ = _rabitq_sample_ub(stream, rot, layout, probed, qs,
+                                           d2, st, cap_shard, eps0)
+        else:
+            _, lb, ub = bounds()
+            spos, ssok = ivf_mod.tile_positions(layout, probed[:, :st],
+                                                cap_shard)
+            s_local = torch.where(ssok, torch.gather(ub, 1, spos), INF)
+        # the gathered sample is the union of the nearest st clusters' whole
+        # membership, as on every sharded path
+        (sample,) = dist.gather_survivors(mesh, s_local)
+        cbs, tau_spec = dist.shard_rows(
+            mesh, lambda s_: _rabitq_sample_plan(s_, k, count, st, n_probe,
+                                                 m), sample)
+        if fused:
+            tau_inline = _tau_full(pred_state, count, qs) if predictive \
+                else tau_spec
+            tau_spec = torch.maximum(tau_spec, tau_inline)
+            (_, lb, _, bucket_lb, _, _, hist_ub, exact_c, certified,
+             _) = ops.fused_rabitq_scan_batch(
+                stream.codes, stream.vectors, stream.s2, stream.norm_o,
+                stream.f_o, stream.cl, rot, qs, d2, lane_valid, cbs.d_min,
+                cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
+        else:
+            bucket_lb = rb.bucketize(cbs, lb)
+            _, hist_ub = ops.bucket_hist_batch(ub, lane_valid, cbs.d_min,
+                                               cbs.delta, cbs.ew_map, m)
+        # the speculative survivor buffer over the lb buckets: a pass of its
+        # own, since the histogram (ub) and the survivor test (lb) read
+        # different bounds
+        spos, sok, scnt = ops.spec_compact_batch(bucket_lb, lane_valid,
+                                                 tau_spec, bud)
+        pos, ok, _, _, ghist = dist.bbc_survivors_batch(
+            bucket_lb, lb, lane_valid, hist_ub, k, bud, mesh,
+            spec=(spos, sok, scnt, tau_spec))
+        if fused:
+            cert, strag = dist.split_certified_survivors(pos, ok, certified)
+            n_second = dist.hier_psum(strag.sum(dim=1), mesh).to(
+                torch.int32)
+            ex = torch.where(cert, torch.gather(exact_c, 1, pos),
+                             _straggler_exact(stream, qs, pos, strag, k))
+        else:
+            ex = _exact_at_positions(stream.vectors, qs, pos, ok)
+    gids = torch.where(ok, layout.order[pos], -1)
+    n_rr = dist.hier_psum(ok.sum(dim=1), mesh).to(torch.int32)
+    gx, gi = dist.gather_survivors(mesh, ex, gids)
+    d, i = dist.shard_rows(mesh, lambda a, b_: _final_topk(a, b_, k),
+                           gx, gi)
+    res = SearchResult(d, i, n_rr, n_second)
+    if predictive:
+        return res, rerank.predictor_update(pred_state, ghist)
+    return res

@@ -25,7 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
-            "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0}
+            "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0,
+            "shard_collect_batch": 0, "spec_compact_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -49,6 +50,11 @@ _SIGNATURES = {
         "fused_rabitq_scan_batch_launch":
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
         "rabitq_fused_smem_bytes": [_I] * 4},
+    "shard_collect": {
+        "shard_collect_batch_launch": [_P] * 12 + [_I] * 7 + [_P],
+        "spec_compact_batch_launch": [_P] * 7 + [_I] * 4 + [_P],
+        "shard_collect_smem_bytes": [_I] * 2,
+        "shard_collect_chunk": []},
 }
 
 
@@ -328,3 +334,88 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     _check(rc, "fused_rabitq_scan_batch")
     LAUNCHES["fused_rabitq_scan_batch"] += 1
     return outs
+
+
+def _compact_scratch(lib, b: int, n: int, dev):
+    """(B, n_chunks) int32 scratch for the per-chunk counts and offsets."""
+    n_chunks = (n + lib.shard_collect_chunk() - 1) // lib.shard_collect_chunk()
+    return (n_chunks,
+            *(torch.empty(b, n_chunks, dtype=torch.int32, device=dev)
+              for _ in range(2)))
+
+
+def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,
+                        d_min: torch.Tensor, delta: torch.Tensor,
+                        ew_maps: torch.Tensor, m: int, tau_spec: torch.Tensor,
+                        budget: int):
+    """Fused shard collect: (B, n) distances -> (bucket (B, n), hist
+    (B, m+1), spec_pos (B, budget), spec_ok (B, budget), spec_count (B,)).
+
+    One stream pass bucketizes and histograms the valid lanes and counts,
+    per chunk, the lanes at or below the provisional ``tau_spec`` (B,);
+    the positions of the first ``budget`` of them, in stream order, fill
+    ``spec_pos`` (sentinel n past the fill).  ``spec_count`` is the true
+    total, above ``budget`` on overflow (``tau_spec = -1`` compacts
+    nothing).  Feed the buffer to ``distributed.bbc_survivors_batch``."""
+    if not _on_cuda(dists, valid, d_min, delta, ew_maps, tau_spec):
+        return _ref.shard_collect_batch(dists, valid, d_min, delta, ew_maps,
+                                        m, tau_spec, budget)
+    b, n = dists.shape
+    n_ew = ew_maps.shape[1]
+    _need(dists, "dists", torch.float32, (b, n))
+    _need(valid, "valid", torch.bool, (b, n))
+    d_min = _params(d_min, torch.float32)
+    delta = _params(delta, torch.float32)
+    ew_maps = _params(ew_maps, torch.int32)
+    tau_spec = _params(tau_spec, torch.int32)
+    dev = dists.device
+    bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
+    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
+    pos = torch.full((b, budget), n, dtype=torch.int32, device=dev) \
+        if n == 0 else torch.empty(b, budget, dtype=torch.int32, device=dev)
+    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return bucket, hist, pos, pos < n, count
+    lib = _lib("shard_collect")
+    smem = lib.shard_collect_smem_bytes(n_ew, m)
+    if smem > MAX_SMEM:
+        raise ValueError(f"shard_collect_batch: n_ew={n_ew}, m={m} need "
+                         f"{smem} bytes of shared memory")
+    n_chunks, counts, offsets = _compact_scratch(lib, b, n, dev)
+    rc = lib.shard_collect_batch_launch(
+        dists.data_ptr(), valid.data_ptr(), d_min.data_ptr(),
+        delta.data_ptr(), ew_maps.data_ptr(), tau_spec.data_ptr(),
+        bucket.data_ptr(), hist.data_ptr(), pos.data_ptr(), count.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(), n, b, n_ew, m, budget,
+        n_chunks, smem, _stream())
+    _check(rc, "shard_collect_batch")
+    LAUNCHES["shard_collect_batch"] += 1
+    return bucket, hist, pos, pos < n, count
+
+
+def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
+                       tau_spec: torch.Tensor, budget: int):
+    """Compaction-only form of ``shard_collect_batch`` over (B, n) int32
+    bucket ids that already exist (the bound-fused RaBitQ scan emits
+    bucket_lb itself).  Returns (spec_pos, spec_ok, spec_count)."""
+    if not _on_cuda(bucket, valid, tau_spec):
+        return _ref.spec_compact_batch(bucket, valid, tau_spec, budget)
+    b, n = bucket.shape
+    _need(bucket, "bucket", torch.int32, (b, n))
+    _need(valid, "valid", torch.bool, (b, n))
+    tau_spec = _params(tau_spec, torch.int32)
+    dev = bucket.device
+    pos = torch.full((b, budget), n, dtype=torch.int32, device=dev) \
+        if n == 0 else torch.empty(b, budget, dtype=torch.int32, device=dev)
+    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return pos, pos < n, count
+    lib = _lib("shard_collect")
+    n_chunks, counts, offsets = _compact_scratch(lib, b, n, dev)
+    rc = lib.spec_compact_batch_launch(
+        bucket.data_ptr(), valid.data_ptr(), tau_spec.data_ptr(),
+        pos.data_ptr(), count.data_ptr(), counts.data_ptr(),
+        offsets.data_ptr(), n, b, budget, n_chunks, _stream())
+    _check(rc, "spec_compact_batch")
+    LAUNCHES["spec_compact_batch"] += 1
+    return pos, pos < n, count

@@ -107,3 +107,42 @@ def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2,
     nmiss = torch.sum(valid & ~certified, dim=1).to(torch.int32)
     return (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
             certified, nmiss)
+
+
+def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
+                       tau_spec: torch.Tensor, budget: int):
+    """Stream-order compaction of the valid lanes at or below ``tau_spec``
+    (B,) into a ``budget``-wide position buffer (the speculative half of
+    the shard collector; ``tau_spec = -1`` compacts nothing).
+
+    Returns ``(pos (B, budget) int32, ok (B, budget), count (B,) int32)``:
+    ``pos`` holds the stream positions of the FIRST ``budget`` matching
+    lanes in stream order and the sentinel ``n`` past the fill, ``ok`` is
+    ``pos < n``, and ``count`` the true total of matching lanes, above
+    ``budget`` on overflow.  A cumulative-sum scatter in int64, so unlike
+    the JAX oracle's int32 composite sort key it has no limit on n*(m+2)."""
+    b, n = bucket.shape
+    match = valid & (bucket <= tau_spec[:, None])
+    rank = torch.cumsum(match, dim=1) - 1
+    keep = match & (rank < budget)
+    # kept lanes land at their rank; the rest go to a dump column
+    slot = torch.where(keep, rank, budget)
+    lane = torch.arange(n, dtype=torch.int32, device=bucket.device)
+    pos = torch.full((b, budget + 1), n, dtype=torch.int32,
+                     device=bucket.device)
+    pos.scatter_(1, slot, torch.where(keep, lane, n))
+    pos = pos[:, :budget].contiguous()
+    return pos, pos < n, match.sum(dim=1).to(torch.int32)
+
+
+def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,
+                        d_min: torch.Tensor, delta: torch.Tensor,
+                        ew_maps: torch.Tensor, m: int, tau_spec: torch.Tensor,
+                        budget: int):
+    """Plain version of the fused shard collector: Eq. 6 bucketize, the
+    (B, m+1) histogram of the valid lanes, and ``spec_compact_batch`` at
+    the provisional ``tau_spec``.  Returns ``(bucket (B, n), hist (B, m+1),
+    spec_pos (B, budget), spec_ok (B, budget), spec_count (B,))``."""
+    bucket, hist = bucket_hist_batch(dists, valid, d_min, delta, ew_maps, m)
+    pos, ok, count = spec_compact_batch(bucket, valid, tau_spec, budget)
+    return bucket, hist, pos, ok, count

@@ -10,20 +10,31 @@ with the JAX serving CLI's keys plus ``"device"``.
       --n 12000 --d 64 --k 500 --n-clusters 64 --queries 16 --batch 8 \
       --method ivfrabitq_bbc
 
+``--shards N`` serves the mesh-sharded engine over N ranks of a process
+group: under ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` set) each rank
+joins the group ``torchrun`` describes; otherwise the CLI spawns N ranks
+itself (gloo with ``--device cpu``, NCCL on cards 0..N-1 with CUDA) over a
+``file://`` store.  Rank 0 builds the index and broadcasts it; rank 0
+prints the summary.
+
 ``--mode static`` with every ``--method`` of the JAX CLI is ported; the
-other modes, ``--shards > 1``, ``--batch 1`` and ``--tuned`` raise, naming
-the ROADMAP item that brings them.
+other modes, ``--batch 1`` and ``--tuned`` raise, naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
+from repro_torch.core import distributed
 from repro_torch.data import synthetic
 from repro_torch.index import engine, flat, search
 from repro_torch.kernels.platform import resolve_device
@@ -63,8 +74,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_static(args, x: torch.Tensor, qs: torch.Tensor, index,
-               dev: torch.device) -> dict:
+def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
+               dev: torch.device, mesh=None) -> dict:
+    """Serve ``qs`` in fixed batches; with ``mesh``, every rank calls this
+    together and only the rank holding ``x`` (rank 0) measures recall."""
     tau_pred_on = args.tau_pred == "on"
     if args.method == "flat":
         if tau_pred_on:
@@ -77,7 +90,7 @@ def run_static(args, x: torch.Tensor, qs: torch.Tensor, index,
         eng = engine.SearchEngine.build(
             index, k=args.k, n_probe=min(args.n_probe, args.n_clusters),
             use_bbc=args.method.endswith("bbc"),
-            pred_count=args.pred_count, device=dev)
+            pred_count=args.pred_count, device=dev, mesh=mesh)
         batch = args.batch
         eng.warmup((batch, (args.queries - 1) % batch + 1),
                    predictive=tau_pred_on)
@@ -98,8 +111,9 @@ def run_static(args, x: torch.Tensor, qs: torch.Tensor, index,
     dt = time.monotonic() - t0
     all_ids = [row for ids in results for row in ids.cpu().numpy()]
     idx = sample_indices(args.queries, RECALL_SAMPLE)
-    recall = mean_recall(x, qs[torch.as_tensor(idx, device=dev)],
-                         [all_ids[i] for i in idx], args.k)
+    recall = float("nan") if x is None else mean_recall(
+        x, qs[torch.as_tensor(idx, device=dev)], [all_ids[i] for i in idx],
+        args.k)
     return {
         "mode": "static", "method": args.method, "k": args.k,
         "batch": batch, "shards": args.shards, "tau_pred": args.tau_pred,
@@ -113,7 +127,58 @@ def run_static(args, x: torch.Tensor, qs: torch.Tensor, index,
                    else "cpu")}
 
 
-def main(argv=None) -> int:
+def corpus(args, dev: torch.device):
+    rng = np.random.default_rng(args.seed)
+    x_np = synthetic.clustered(rng, args.n, args.d)
+    qs_np = synthetic.queries_from(rng, x_np, args.queries)
+    return torch.from_numpy(x_np).to(dev), torch.from_numpy(qs_np).to(dev)
+
+
+def serve_rank(args, dev: torch.device) -> dict | None:
+    """One rank of the sharded deployment, inside an initialised process
+    group: rank 0 makes the corpus and builds the index, every rank gets
+    the queries and the index from rank 0 (none assumes that its own build
+    would equal rank 0's), and all serve together.  Returns rank 0's
+    summary, None elsewhere."""
+    rank = tdist.get_rank()
+    mesh = distributed.make_mesh((args.shards,), ("model",), device=dev)
+    x = payload = None
+    if rank == 0:
+        x, qs = corpus(args, dev)
+        t0 = time.monotonic()
+        index = build_index(args.method, x, args.n_clusters, args.seed, dev)
+        print(f"[serve] index built in {time.monotonic() - t0:.1f}s",
+              flush=True)
+        payload = (qs.cpu(), search.index_to(index, "cpu"))
+    box = [payload]
+    tdist.broadcast_object_list(box, src=0, device=dev if dev.type == "cuda"
+                                else None)
+    qs, index = box[0]
+    out = run_static(args, x, qs.to(dev), index, dev, mesh=mesh)
+    return out if rank == 0 else None
+
+
+def _spawned(rank: int, argv: list, store: str) -> None:
+    """Entry point of a rank that ``main`` spawned for ``--shards``."""
+    args = parse_args(argv)
+    dev = torch.device("cpu") if args.device == "cpu" else \
+        torch.device("cuda", rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:       # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.shards))
+    tdist.init_process_group("gloo" if dev.type == "cpu" else "nccl",
+                             init_method=f"file://{store}", rank=rank,
+                             world_size=args.shards)
+    try:
+        out = serve_rank(args, dev)
+        if out is not None:
+            print(json.dumps(out), flush=True)
+    finally:
+        tdist.destroy_process_group()
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--d", type=int, default=96)
@@ -126,7 +191,9 @@ def main(argv=None) -> int:
                     default="static")
     ap.add_argument("--batch", type=int, default=32,
                     help="queries per engine call")
-    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="mesh-shard the corpus over this many ranks "
+                         "(torchrun's, or spawned here)")
     ap.add_argument("--tau-pred", choices=("on", "off"), default="off",
                     help="predictive early-exact re-ranking across batches")
     ap.add_argument("--pred-count", type=int, default=None,
@@ -135,15 +202,17 @@ def main(argv=None) -> int:
                     help="tuned operating points (only 'off' is ported)")
     ap.add_argument("--seed", type=int, default=0, help="corpus RNG seed")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
 
     if args.mode != "static":
         raise NotImplementedError(
             f"--mode {args.mode} is not ported yet (ROADMAP.md queue 1, "
             f"{'item 9' if args.mode == 'async' else 'item 13'})")
-    if args.shards > 1:
-        raise NotImplementedError("--shards > 1 is not ported yet "
-                                  "(ROADMAP.md queue 1, item 14)")
     if args.batch < 2:
         raise NotImplementedError("--batch 1 (the single-query searchers) is "
                                   "not ported yet (ROADMAP.md queue 1, item 8)")
@@ -152,11 +221,37 @@ def main(argv=None) -> int:
                                   "queue 1, item 11); pass --tuned off")
     dev = resolve_device(args.device)
 
-    rng = np.random.default_rng(args.seed)
-    x_np = synthetic.clustered(rng, args.n, args.d)
-    qs_np = synthetic.queries_from(rng, x_np, args.queries)
-    x = torch.from_numpy(x_np).to(dev)
-    qs = torch.from_numpy(qs_np).to(dev)
+    if args.shards > 1:
+        if args.method == "flat":
+            raise SystemExit("--shards does not apply to the flat baseline")
+        if "WORLD_SIZE" in os.environ:            # under torchrun
+            if int(os.environ["WORLD_SIZE"]) != args.shards:
+                raise SystemExit(f"--shards {args.shards} under a torchrun "
+                                 f"world of {os.environ['WORLD_SIZE']}")
+            if dev.type == "cuda":
+                dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+                torch.cuda.set_device(dev)
+            tdist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
+            try:
+                out = serve_rank(args, dev)
+                if out is not None:
+                    print(json.dumps(out), flush=True)
+            finally:
+                tdist.destroy_process_group()
+            return 0
+        if dev.type == "cuda" and torch.cuda.device_count() < args.shards:
+            raise RuntimeError(f"--shards {args.shards} needs "
+                               f"{args.shards} cards, this host has "
+                               f"{torch.cuda.device_count()}")
+        import torch.multiprocessing as mp
+
+        from repro_torch.launch import serve as this
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(this._spawned, args=(argv, os.path.join(tmp, "store")),
+                     nprocs=args.shards, join=True)
+        return 0
+
+    x, qs = corpus(args, dev)
     t0 = time.monotonic()
     index = build_index(args.method, x, args.n_clusters, args.seed, dev)
     _sync(dev)

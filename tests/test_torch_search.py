@@ -15,12 +15,14 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch.distributed as tdist  # noqa: E402
 
 from repro.core import rerank as jrr  # noqa: E402
 from repro.data import synthetic  # noqa: E402
 from repro.index import ivf as jivf  # noqa: E402
 from repro.index import search as jsearch  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core import rerank as rr  # noqa: E402
 from repro_torch.index import engine, search  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -115,7 +117,7 @@ def test_engine_clamps_knobs(setup):
 
 
 @pytest.mark.parametrize("call", ["single", "mesh", "tuned", "live", "ivf"])
-def test_engine_unported_paths_raise(setup, call):
+def test_engine_unported_paths_raise(setup, call, tmp_path):
     _, _, ti, _, qs = setup
     if call == "ivf":
         # the IVF strategy is ported; it needs the corpus vectors
@@ -126,10 +128,26 @@ def test_engine_unported_paths_raise(setup, call):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.search(qs[0])
         return
-    if call in ("mesh", "tuned"):
+    if call == "tuned":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu",
-                                      **{call: object()})
+                                      tuned=object())
+        return
+    if call == "mesh":
+        # the sharded engine is ported; what it still refuses is the
+        # single-device engine's unported paths
+        tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                                 rank=0, world_size=1)
+        try:
+            eng = engine.SearchEngine.build(
+                ti, k=K, n_probe=4, mesh=distributed.make_mesh((1,)))
+            assert eng.mesh is not None and eng.layout is None
+            for bad in (lambda: eng.search(qs[0]),
+                        lambda: eng.with_live(np.ones(N, bool))):
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    bad()
+        finally:
+            tdist.destroy_process_group()
         return
     eng = engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -152,7 +170,8 @@ def test_serve_cli_cpu(capsys):
         assert key in out
 
 
-@pytest.mark.parametrize("flag", [["--mode", "async"], ["--shards", "2"],
+@pytest.mark.parametrize("flag", [["--mode", "async"],
+                                  ["--shards", "2", "--mode", "async"],
                                   ["--batch", "1"], ["--tuned", "auto"]])
 def test_serve_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
