@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11
+    python3 chip_smoke.py                 # phases 1-7, 9, 11 and 12
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 11, 7, 8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -12,7 +12,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 11, 7, 8, 10):
      path's shapes and at the JAX package's ragged kernel-test shapes (the
      RaBitQ scan: est/lb/ub bitwise, every integer output equal; the shard
      collector and the compaction: every output bitwise, at cold, full and
-     mixed thresholds and an overflowing budget);
+     mixed thresholds and an overflowing budget; the RaBitQ estimator
+     bitwise at the JAX kernel test's shapes and in its tile form; the
+     single-query forms at B=1 at the JAX single-kernel tests' shapes);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card, 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
@@ -22,13 +24,20 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 11, 7, 8, 10):
      baseline; recall@k, which must reach 0.95 on the BBC forms;
   5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
      form, batched and sharded: the CPU engine on a one-rank gloo mesh, the
-     card's on a one-rank NCCL mesh) on a 20,000 x 128 index: id sets,
-     distances, counters;
+     card's on a one-rank NCCL mesh; each form also on single (d,)
+     queries) on a 20,000 x 128 index: id sets, distances, counters;
   6. the unfused, unfused predictive and plain IVF+PQ forms and the IVF
      forms at the JAX serving CLI's defaults (100,000 x 96, k=5000, 316
      clusters);
   7. each kernel's time at its path's full-width shapes beside its bound,
-     its plain version's and (where one exists) one PyTorch call's;
+     its plain version's and (where one exists) one PyTorch call's (the
+     single-query kernels at phase 12's shapes);
+ 12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
+     IVF+PQ, IVF+PQ+BBC predictive (singleton batches from cold),
+     IVF+RaBitQ+BBC, the IVF+RaBitQ threshold baseline, IVF BBC and IVF
+     top-k, 16 queries each (4 predictive) through ``eng.search(q)``: ms
+     per query, recall@k, id-set overlap with the batched engine, counters
+     and launches;
  11. the mesh-sharded deployment on a one-rank NCCL group (a ``file://``
      store, no network), on the indexes of phases 4, 9 and 6: IVF+PQ+BBC
      static, predictive and naive, IVF+RaBitQ+BBC fused static, fused
@@ -36,14 +45,16 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 11, 7, 8, 10):
      recall@k, the id-set overlap with the batched engine on the same
      index, the survivor tier of each batch and the counters;
   8. (only when asked for) torch.profiler over batches of phases 4, 9 and
-     11 (sharded IVF+PQ): device time by operator and the device's idle
-     share;
+     11 (sharded IVF+PQ) and over single IVF+PQ+BBC queries (phase 12):
+     device time by operator and the device's idle share;
  10. (only when asked for, after 9) the band anatomy of one RaBitQ batch:
      the band threshold, the static and warm predictive gates, and where
      the band lanes' lower-bound buckets lie.
 
-Kernel launch counts are zeroed before phases 4, 9, 6 and 11 and read
-after each; comparison and timing launches do not count.  Any failed check raises and
+Kernel launch counts are zeroed before phases 4, 9, 6, 12 and 11 and read
+after each; comparison and timing launches do not count.  A launch of
+the PQ, l2, bucket or fused kernel at one query counts under its
+single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
 before doing anything.  The second-to-last lines are the launch counts,
 the card's ``nvidia-smi`` name and power limit, and a JSON list of kernels;
@@ -85,6 +96,16 @@ KERNELS = {
                             "src/repro/kernels/shard_collect.py:104"),
     "spec_compact_batch": ("src/repro_torch/kernels/csrc/shard_collect.cu",
                            "src/repro/kernels/shard_collect.py:179"),
+    "rabitq_est": ("src/repro_torch/kernels/csrc/rabitq_est.cu",
+                   "src/repro/kernels/rabitq_est.py:43"),
+    "fused_scan": ("src/repro_torch/kernels/csrc/fused_scan.cu",
+                   "src/repro/kernels/fused_scan.py:114"),
+    "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+               "src/repro/kernels/pq_adc.py:55"),
+    "l2_exact": ("src/repro_torch/kernels/csrc/l2_rerank.cu",
+                 "src/repro/kernels/l2_rerank.py:29"),
+    "bucket_hist": ("src/repro_torch/kernels/csrc/bucket_hist.cu",
+                    "src/repro/kernels/bucket_hist.py:65"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -122,6 +143,24 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time per call of the CUDA kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` warm calls: at one query
+    a kernel can finish before the host has issued the next call, and then
+    ``cuda_ms`` times the wrapper's dispatch, not the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == cuda_type and kernel in e.name) / 1e3 / reps
 
 
 def max_abs(a, b) -> float:
@@ -354,6 +393,142 @@ def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
     log(f"[kernels] {tag}: shard_collect and spec_compact bitwise equal to "
         f"their plain versions at budgets {budgets}, tau cold/all/mixed "
         f"(an overflow included)")
+
+
+RQ_EST_SHAPES = ((256, 64), (300, 96), (1024, 128), (512, 100))
+
+
+def rabitq_est_inputs(seed, t, cap, d, ragged: bool):
+    """Random inputs of the RaBitQ estimator over ``t`` tiles of ``cap``
+    lanes: +-1 int8 codes, factors in the JAX kernel test's ranges, unit
+    v rows, and (``ragged``) each tile's valid lanes a prefix of random
+    length, as the member table pads its clusters."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=DEV)
+
+    codes = (torch.randint(0, 2, (t, cap, d), generator=g, device=DEV) * 2
+             - 1).to(torch.int8)
+    v = torch.randn(t, d, generator=g, device=DEV)
+    v = v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    size = torch.randint(1, cap + 1, (t, 1), generator=g, device=DEV) \
+        if ragged else torch.full((t, 1), cap, device=DEV)
+    valid = torch.arange(cap, device=DEV)[None] < size
+    return dict(codes=codes, norm_o=rand(t, cap) * 5 + 0.5,
+                f_o=rand(t, cap) * 0.3 + 0.6, v=v, norm_q=rand(t) * 3 + 1,
+                valid=valid)
+
+
+RQE_ARGS = ("codes", "norm_o", "f_o", "v", "norm_q", "valid")
+
+
+def check_rabitq_est(a, errs: dict, tag: str) -> None:
+    """Kernel #8's tile form against its plain version: est, lb and ub
+    bitwise (with their +inf lanes)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = [a[k] for k in RQE_ARGS]
+    got = ops.rabitq_est_tiles(*args, eps0=RQ_EPS0)
+    torch.cuda.synchronize()
+    want = ref.rabitq_est_tiles(*args, eps0=RQ_EPS0)
+    for name, x, y in zip(("est", "lb", "ub"), got, want):
+        check(torch.equal(x, y), f"{tag} rabitq_est {name} differs from the "
+              f"plain version")
+    errs["rabitq_est"] = max(errs.get("rabitq_est", 0.0),
+                             max(max_abs(x, y) for x, y in zip(got, want)))
+    log(f"[kernels] {tag}: rabitq_est est/lb/ub bitwise equal to the plain "
+        f"version ({int(a['valid'].sum().item())} valid lanes)")
+
+
+def check_single_kernels(errs: dict) -> None:
+    """Phase 3's single-query half: #8 at the JAX kernel test's shapes
+    (T = 1, through the JAX-signature wrapper) and in its tile form, and
+    the B = 1 forms #9-#12 at the JAX single-kernel tests' shapes
+    (``tests/test_kernels.py``): integers equal, exact legs bitwise, the
+    estimates within 1e-5 (and reported bitwise)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.kernels import ops, ref
+    for i, (n, d) in enumerate(RQ_EST_SHAPES):
+        a = rabitq_est_inputs(SEED + i, 1, n, d, ragged=False)
+        args = (a["codes"][0], a["norm_o"][0], a["f_o"][0], a["v"][0],
+                a["norm_q"][0])
+        got = ops.rabitq_est(*args, eps0=RQ_EPS0)
+        torch.cuda.synchronize()
+        want = ref.rabitq_est(*args, eps0=RQ_EPS0)
+        for name, x, y in zip(("est", "lb", "ub"), got, want):
+            check(torch.equal(x, y), f"rabitq_est n={n} d={d} {name}")
+        errs["rabitq_est"] = max(errs.get("rabitq_est", 0.0),
+                                 max(max_abs(x, y) for x, y in zip(got, want)))
+    log(f"[kernels] rabitq_est (T=1) bitwise at (n, d) in {RQ_EST_SHAPES}")
+    check_rabitq_est(rabitq_est_inputs(SEED, 64, 4096, 128, ragged=True),
+                     errs, "tiles T=64 cap=4096 d=128 (ragged tiles)")
+    check_rabitq_est(rabitq_est_inputs(SEED + 1, 7, 300, 100, ragged=True),
+                     errs, "tiles T=7 cap=300 d=100 (ragged tiles)")
+
+    rng = np.random.default_rng(SEED)
+
+    def cu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+    for n in (256, 1000, 4096):
+        for m_sub in (16, 32, 33):
+            codes = cu(rng.integers(0, 16, (n, m_sub)).astype(np.uint8))
+            lut = cu(rng.random((m_sub, 16)).astype(np.float32))
+            got, want = ops.pq_adc(codes, lut), ref.pq_adc(codes, lut)
+            errs["pq_adc"] = max(errs.get("pq_adc", 0.0),
+                                 close(got, want, 1e-5, f"pq_adc n={n}"))
+            check(torch.equal(got, want), f"pq_adc n={n} M={m_sub} bitwise")
+    for n, d in ((256, 64), (999, 1536), (4096, 96)):
+        x = cu(rng.standard_normal((n, d)).astype(np.float32))
+        q = cu(rng.standard_normal(d).astype(np.float32))
+        got, want = ops.l2_exact(x, q), ref.l2_exact(x, q)
+        check(torch.equal(got, want), f"l2_exact n={n} d={d} not bitwise")
+        errs["l2_exact"] = max(errs.get("l2_exact", 0.0), max_abs(got, want))
+    for n in (512, 2000, 8192):
+        for m in (16, 64, 128):
+            valid = cu(rng.random(n) < 0.9)
+            dists = torch.where(valid, cu((rng.random(n) * 10 + 1).astype(
+                np.float32)), float("inf"))
+            cb = rb.build_codebook(dists[None], k=min(n // 2, 1000), m=m)
+            args = (dists, valid, cb.d_min, cb.delta, cb.ew_map, m)
+            for name, x, y in zip(("bucket", "hist"), ops.bucket_hist(*args),
+                                  ref.bucket_hist(*args)):
+                check(torch.equal(x, y), f"bucket_hist n={n} m={m} {name}")
+            errs["bucket_hist"] = 0.0
+    for n, d, m_sub in ((512, 64, 16), (1000, 128, 32), (256, 96, 24)):
+        m = 64
+        codes = cu(rng.integers(0, 16, (n, m_sub)).astype(np.uint8))
+        vectors = cu(rng.standard_normal((n, d)).astype(np.float32))
+        q = cu(rng.standard_normal(d).astype(np.float32))
+        valid = cu(rng.random(n) < 0.95)
+        lut = cu((rng.random((m_sub, 16)) * 2).astype(np.float32))
+        est0 = torch.where(valid, torch.sqrt(ref.pq_adc(codes, lut)),
+                           float("inf"))
+        cb = rb.build_codebook(est0[None], k=min(n // 2, 500), m=m)
+        args = (codes, vectors, valid, lut, q, cb.d_min, cb.delta, cb.ew_map,
+                m, m // 3)
+        est, bucket, hist, early, nmiss = ops.fused_scan(*args)
+        torch.cuda.synchronize()
+        want = ref.fused_scan(*args)
+        e = close(est, want[0], 1e-5, f"fused_scan n={n} est")
+        r_bucket, r_hist = ref.bucket_hist(est, valid, cb.d_min, cb.delta,
+                                           cb.ew_map, m)
+        pred = valid & (r_bucket <= m // 3)
+        check(torch.equal(bucket, r_bucket) and torch.equal(hist, r_hist),
+              f"fused_scan n={n} bucket/hist")
+        check(int(nmiss) == int((valid & ~pred).sum()), f"fused_scan n={n} "
+              f"nmiss")
+        p_early = torch.where(pred, ref.l2_exact(vectors, q), float("inf"))
+        check(torch.equal(early, p_early), f"fused_scan n={n} early bitwise")
+        errs["fused_scan"] = max(errs.get("fused_scan", 0.0), e)
+    log("[kernels] single-query forms at B=1 (JAX single-kernel test "
+        "shapes): pq_adc bitwise, l2_exact bitwise, bucket_hist equal, "
+        "fused_scan est within 1e-5 with bucket/hist/nmiss equal and the "
+        "early leg bitwise")
 
 
 # --------------------------------------------------------------------------
@@ -662,6 +837,35 @@ def parity(summary: dict) -> None:
             out[key] = {"ids_equal": True, "counters_equal": True}
             log(f"[parity] {key}: id sets equal, dists within 1e-4, "
                 f"counters equal")
+            # the same form on single (d,) queries (the predictive form:
+            # singleton batches from cold)
+            states = [e.predictor_init() for e in engs]
+            for qi in range(3 if predictive else 4):
+                rs = []
+                for i, e in enumerate(engs):
+                    q = qs[qi].to(e.device)
+                    if predictive:
+                        r, states[i] = e.search(q, pred_state=states[i])
+                    else:
+                        r = e.search(q)
+                    rs.append(r)
+                g, c = rs
+                skey = key + "_single"
+                check(g.ids.shape == (1000,), f"parity {skey}: ids shape "
+                      f"{tuple(g.ids.shape)}")
+                check(set(g.ids.tolist()) == set(c.ids.tolist()),
+                      f"parity {skey} query {qi}")
+                gd, cd = torch.sort(g.dists.cpu()).values, \
+                    torch.sort(c.dists).values
+                check(torch.allclose(gd, cd, rtol=1e-4, atol=1e-4),
+                      f"parity {skey} dists: max abs diff "
+                      f"{(gd - cd).abs().max().item()}")
+                for field in ("n_reranked", "n_second_pass"):
+                    check(int(getattr(g, field)) == int(getattr(c, field)),
+                          f"parity {skey} {field} differs")
+            out[skey] = {"ids_equal": True, "counters_equal": True}
+            log(f"[parity] {skey}: id sets equal, dists within 1e-4, "
+                f"counters equal")
     summary["parity_20k"] = out
 
 
@@ -741,6 +945,114 @@ def other_forms(summary: dict, card: str) -> dict:
     summary["other_forms_100k"] = out
     log(f"[forms] {json.dumps(out)}")
     return launches, engs["ivf_bbc"], x, qs
+
+
+# --------------------------------------------------------------------------
+# phase 12: the single-query path
+# --------------------------------------------------------------------------
+
+SINGLE_Q = 16        # queries per single-query form, one at a time
+SINGLE_PRED_Q = 4    # predictive singletons, from cold
+
+
+def single_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
+                qs_rq, x_main, x_ivf, qs_ivf):
+    """Phase 12: the single-query forms on the indexes of phases 4, 9 and 6
+    (nothing is built), each serving ``SINGLE_Q`` queries one at a time
+    through ``eng.search(q)``: ms per query (host clock around the call and
+    a synchronise), recall@k over 8 of them, the id-set overlap with the
+    batched engine on the same queries, the counters and the launches."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    k = pq_eng.k
+
+    def replace(e, **kw):
+        return dataclasses.replace(e, **kw)
+
+    forms = {   # name: (engine, queries, truth corpus, predictive)
+        "ivfpq_bbc": (pq_eng, qs_main, x_main, False),
+        "ivfpq": (replace(pq_eng, use_bbc=False), qs_main, x_main, False),
+        "ivfpq_bbc_predictive": (pq_eng, qs_main, x_main, True),
+        "ivfrabitq_bbc": (rq_eng, qs_rq, x_main, False),
+        "ivfrabitq": (replace(rq_eng, use_bbc=False), qs_rq, x_main, False),
+        "ivf_bbc": (ivf_eng, qs_ivf, x_ivf, False),
+        "ivf": (replace(ivf_eng, use_bbc=False), qs_ivf, x_ivf, False)}
+    for e, qs, _, pred in forms.values():
+        e.warmup((1,), predictive=pred)
+
+    ops.reset_launches()
+    runs = {}
+    for name, (e, qs, _, pred) in forms.items():
+        nq = SINGLE_PRED_Q if pred else SINGLE_Q
+        before = dict(ops.LAUNCHES)
+        state = e.predictor_init()
+        res, ms = [], []
+        for q in qs[:nq]:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if pred:
+                r, state = e.search(q, pred_state=state)
+            else:
+                r = e.search(q)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.monotonic() - t0))
+            res.append(r)
+        runs[name] = (res, ms, {kn: v - before[kn] for kn, v in
+                                ops.LAUNCHES.items() if v - before[kn]})
+    launches = dict(ops.LAUNCHES)
+    for kname in ("rabitq_est", "fused_scan", "pq_adc", "l2_exact",
+                  "bucket_hist"):
+        check(launches[kname] > 0, f"the single-query path never ran "
+              f"{kname}")
+
+    out = {}
+    for name, (res, ms, lch) in runs.items():
+        e, qs, x, pred = forms[name]
+        nq = len(res)
+        for r in res:
+            check(tuple(r.ids.shape) == (k,) and r.n_reranked.ndim == 0,
+                  f"single {name}: shapes {tuple(r.ids.shape)}")
+            check(bool(torch.isfinite(r.dists).all()) and
+                  bool((r.ids >= 0).all()), f"single {name}: padding")
+            check(len(set(r.ids.tolist())) == k, f"single {name}: duplicates")
+        ids = torch.stack([r.ids for r in res])
+        nr = min(8, nq)
+        rec = recall(x, qs[:nr], ids[:nr], k)
+        # the batched engine on the same queries (predictive: the batched
+        # predictive path on the same singleton sequence from cold)
+        if pred:
+            st, ref_ids = e.predictor_init(), []
+            for q in qs[:nq]:
+                r, st = e.search_batch(q[None], pred_state=st)
+                ref_ids.append(r.ids[0])
+            ref_ids = torch.stack(ref_ids)
+        else:
+            ref_ids = e.search_batch(qs[:nq]).ids
+        ov = sum(len(set(a.tolist()) & set(b.tolist()))
+                 for a, b in zip(ids, ref_ids)) / ids.numel()
+        if not name.startswith("ivfrabitq"):
+            # RaBitQ's single and batched estimators differ in their
+            # algebra (P(q - c) against Pq - Pc): reported, no bar
+            check(ov == 1.0, f"single {name}: id-set overlap {ov} with the "
+                  f"batched engine")
+            check(rec >= (0.9 if pred else 0.95),
+                  f"single {name}: recall@{k} {rec}")
+        out[name] = {
+            "queries": nq, "median_ms": statistics.median(ms),
+            "max_ms": max(ms), "ms": ms, f"recall_at_{k}_{nr}q": rec,
+            "overlap_with_batched": ov,
+            "n_reranked_mean": float(torch.stack(
+                [r.n_reranked for r in res]).float().mean().item()),
+            "n_second_pass_mean": float(torch.stack(
+                [r.n_second_pass for r in res]).float().mean().item()),
+            "launches": lch}
+        log(f"[single] {name}: {json.dumps(out[name])}")
+    out["launches"] = launches
+    out["card"] = card
+    summary["single_query"] = out
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1146,12 +1458,158 @@ def timing_shard(a, errs: dict) -> dict:
     return out
 
 
-def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
-    """torch.profiler over a few warm main-path batches: device time by
-    operator (per batch) and the device's busy share of the window."""
+def single_kernel_args(pq_eng, rq_eng, q_pq, q_rq) -> dict:
+    """The single-query kernels' arguments as phase 12's paths build them
+    for one query: #8 over the RaBitQ query's probed tiles, #10 and #12 over
+    the IVF+PQ+BBC query's probed rows, #11 over its early leg (the largest
+    l2 call of that path: n_probe x early_budget rows), #9 as the
+    predictive singleton launches it (the whole stream, one probe mask)."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.index import pq as pq_mod
+    from repro_torch.index import rabitq as rq_mod
+    from repro_torch.kernels import ops
+    ix, rix = pq_eng.index, rq_eng.index
+    # #8: ivf_rabitq_search's estimate
+    probed = ivf_mod.route(rix.ivf, q_rq, rq_eng.n_probe)
+    ids, valid = ivf_mod.gather_candidates(rix.ivf, probed)
+    safe = ids.clamp(min=0)
+    qf = rq_mod.query_factors(rix.rq, q_rq, rix.ivf.centroids[probed])
+    rqe = dict(codes=rix.rq.codes[safe], norm_o=rix.rq.norm_o[safe],
+               f_o=rix.rq.f_o[safe], v=qf.v, norm_q=qf.norm_q, valid=valid)
+    # #10, #12, #11: ivf_pq_search's estimate, buckets and early leg
+    n_probe, n_cand, m = pq_eng.n_probe, pq_eng.n_cand, pq_eng.m
+    probed = ivf_mod.route(ix.ivf, q_pq, n_probe)
+    ids, valid = ivf_mod.gather_candidates(ix.ivf, probed)
+    cap = ids.shape[1]
+    flat_ids, flat_valid = ids.reshape(-1), valid.reshape(-1)
+    codes = ix.codes[flat_ids.clamp(min=0)]
+    lut = pq_mod.adc_table(ix.pq, q_pq)
+    est = torch.sqrt(torch.clamp(torch.where(
+        flat_valid, ops.pq_adc(codes, lut), float("inf")), min=0.0))
+    sample = torch.where(valid[:4], est.reshape(n_probe, cap)[:4],
+                         float("inf")).reshape(1, -1)
+    cb = rb.build_codebook(sample, k=min(n_cand, sample.shape[1]), m=m)
+    early_budget = int(min(cap, max(128, round(n_cand / n_probe * 4.0))))
+    early_budget = min(((early_budget + 127) // 128) * 128, cap)
+    e_ids = ids[:, :early_budget].clamp(min=0)
+    x = ix.vectors[e_ids.reshape(-1)]
+    fused = main_path_kernel_args(pq_eng, q_pq[None])
+    torch.cuda.synchronize()
+    return dict(rqe=rqe, pq=dict(codes=codes, lut=lut),
+                bh=(est, flat_valid, cb.d_min, cb.delta, cb.ew_map, m),
+                l2=(x, q_pq), fused=fused)
+
+
+def timing_single(a, errs: dict) -> dict:
+    """Kernels #8-#12 at phase 12's single-query shapes: checked against
+    their plain versions once more, then timed beside their bounds (each
+    input read once, each output written once; #8 reads only the valid
+    lanes' rows).  ``ms`` times the wrapper call as the path makes it;
+    ``work.device_ms`` is the kernel alone (``device_ms``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    r = a["rqe"]
+    check_rabitq_est(r, errs, "phase 12's RaBitQ query")
+    args = [r[k] for k in RQE_ARGS]
+    t, cap, d = r["codes"].shape
+    n_valid = int(r["valid"].sum().item())
+    out["rabitq_est"] = dict(
+        ms=cuda_ms(lambda: ops.rabitq_est_tiles(*args, eps0=RQ_EPS0), 20),
+        plain_ms=cuda_ms(lambda: ref.rabitq_est_tiles(*args, eps0=RQ_EPS0),
+                         3, warm=1),
+        library_ms=None, work={"T": t, "cap": cap, "d": d,
+                               "valid_lanes": n_valid})
+    out["rabitq_est"]["bound_ms"], out["rabitq_est"]["bound_by"] = bound(
+        n_valid * (d + 8) + t * cap + 4 * t * (d + 1) + 12 * t * cap,
+        n_valid * (2 * d + 20))
+
+    c, lt = a["pq"]["codes"], a["pq"]["lut"]
+    n, m_sub = c.shape
+    k_codes = lt.shape[1]
+    check(torch.equal(ops.pq_adc(c, lt), ref.pq_adc(c, lt)),
+          "pq_adc at phase 12's shapes")
+    out["pq_adc"] = dict(
+        ms=cuda_ms(lambda: ops.pq_adc(c, lt), 20),
+        plain_ms=cuda_ms(lambda: ref.pq_adc(c, lt), 3, warm=1),
+        library_ms=None, work={"n": n, "M": m_sub})
+    out["pq_adc"]["bound_ms"], out["pq_adc"]["bound_by"] = bound(
+        n * m_sub + 4 * m_sub * k_codes + 4 * n, n * m_sub)
+
+    x, q = a["l2"]
+    n, d = x.shape
+    check(torch.equal(ops.l2_exact(x, q), ref.l2_exact(x, q)),
+          "l2_exact at phase 12's shapes")
+    out["l2_exact"] = dict(
+        ms=cuda_ms(lambda: ops.l2_exact(x, q), 20),
+        plain_ms=cuda_ms(lambda: ref.l2_exact(x, q), 5, warm=1),
+        library_ms=cuda_ms(lambda: torch.cdist(q[None], x), 5, warm=1),
+        work={"n": n, "d": d})
+    out["l2_exact"]["bound_ms"], out["l2_exact"]["bound_by"] = bound(
+        4 * n * d + 4 * d + 4 * n, 3 * n * d)
+
+    bh = a["bh"]
+    n, m, n_ew = bh[0].shape[0], bh[5], bh[4].shape[-1]
+    check(all(torch.equal(x_, y_) for x_, y_ in
+              zip(ops.bucket_hist(*bh), ref.bucket_hist(*bh))),
+          "bucket_hist at phase 12's shapes")
+    out["bucket_hist"] = dict(
+        ms=cuda_ms(lambda: ops.bucket_hist(*bh), 20),
+        plain_ms=cuda_ms(lambda: ref.bucket_hist(*bh), 3, warm=1),
+        library_ms=None, work={"n": n, "m": m})
+    out["bucket_hist"]["bound_ms"], out["bucket_hist"]["bound_by"] = bound(
+        9 * n + 4 * (m + 1) + 4 * (n_ew + 2), 4 * n)
+
+    f = a["fused"]
+    fargs = (f["codes"], f["vectors"], f["valid"][0], f["luts"][0],
+             f["qs"][0], f["d_min"], f["delta"], f["ew_maps"], f["m"],
+             f["tau_pred"])
+    got = ops.fused_scan(*fargs)
+    want = ref.fused_scan(*fargs)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[3], want[3]),
+          "fused_scan at phase 12's shapes: est or early differ")
+    n, m_sub = f["codes"].shape
+    d, m = f["vectors"].shape[1], f["m"]
+    k_codes, n_ew = f["luts"].shape[2], f["ew_maps"].shape[1]
+    valid = f["valid"][0]
+    pred = valid & (got[1] <= f["tau_pred"][0])
+    n_valid, n_pred = int(valid.sum().item()), int(pred.sum().item())
+    out["fused_scan"] = dict(
+        ms=cuda_ms(lambda: ops.fused_scan(*fargs), 20),
+        plain_ms=cuda_ms(lambda: ref.fused_scan(*fargs), 3, warm=1),
+        library_ms=None, work={"n": n, "lanes_probed": n_valid,
+                               "lanes_predicted": n_pred})
+    out["fused_scan"]["bound_ms"], out["fused_scan"]["bound_by"] = bound(
+        n_valid * m_sub + n_pred * d * 4 + n + 12 * n + 4 * (m + 2)
+        + 4 * (m_sub * k_codes + d + n_ew + 3), n_valid * m_sub + 3 * d * n_pred)
+    calls = {"rabitq_est": (lambda: ops.rabitq_est_tiles(*args, eps0=RQ_EPS0),
+                            "rabitq_est_kernel"),
+             "pq_adc": (lambda: ops.pq_adc(c, lt), "pq_adc_kernel"),
+             "l2_exact": (lambda: ops.l2_exact(x, q), "l2_kernel"),
+             "bucket_hist": (lambda: ops.bucket_hist(*bh),
+                             "bucket_hist_kernel"),
+             "fused_scan": (lambda: ops.fused_scan(*fargs),
+                            "fused_scan_kernel")}
+    for name, (fn, kernel) in calls.items():
+        out[name]["work"]["device_ms"] = device_ms(fn, kernel)
+    for name, tm in out.items():
+        log(f"[timing] {name}: {tm['ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
+            f"ms by {tm['bound_by']}), plain {tm['plain_ms']:.4f} ms, library "
+            f"{tm['library_ms']}; work {tm['work']}")
+    return out
+
+
+def profile(eng, qs, b: int = 32, batches: int = 3,
+            single: bool = False) -> dict:
+    """torch.profiler over a few warm main-path batches (``single``: one
+    (d,) query per call, ``batches`` of them): device time by operator (per
+    call) and the device's busy share of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
-    qb = [qs[i * b:(i + 1) * b] for i in range(batches)]
+    qb = [qs[i] if single else qs[i * b:(i + 1) * b]
+          for i in range(batches)]
     eng.search(qb[0])
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1189,10 +1647,11 @@ def profile(eng, qs, b: int = 32, batches: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11",
-                    help="comma-separated phases to run (default 1-7, 9 "
-                         "and 11; 8 = torch.profiler over the batches of 4 "
-                         "and 9; 10 = phase 9's band anatomy)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12",
+                    help="comma-separated phases to run (default 1-7, 9, "
+                         "11 and 12; 8 = torch.profiler over the batches of "
+                         "4, 9 and 11 and the queries of 12; 10 = phase 9's "
+                         "band anatomy)")
     ap.add_argument("--out", default="",
                     help="also write the summary JSON to this path")
     args = ap.parse_args(argv)
@@ -1244,6 +1703,7 @@ def main(argv=None) -> int:
             check_shard_collect(shard_collect_inputs(SEED + n, b, n,
                                                      density=dens),
                                 budgets, errs, f"B={b} n={n}")
+        check_single_kernels(errs)
 
     launches = {k: 0 for k in ops.LAUNCHES}
     eng = qb = main_queries = x = rq_eng = rq_queries = rq_state = None
@@ -1261,6 +1721,12 @@ def main(argv=None) -> int:
     if 6 in phases:
         l6, ivf_eng, ivf_x, ivf_queries = other_forms(summary, card)
         launches = {k: launches[k] + l6[k] for k in launches}
+    if 12 in phases:
+        check(None not in (eng, rq_eng, ivf_eng), "phase 12 serves single "
+              "queries on the indexes of phases 4, 9 and 6 and needs them")
+        l12 = single_path(summary, card, eng, rq_eng, ivf_eng, main_queries,
+                          rq_queries, x, ivf_x, ivf_queries)
+        launches = {k: launches[k] + l12[k] for k in launches}
     if 11 in phases:
         check(None not in (eng, rq_eng, ivf_eng), "phase 11 shards the "
               "indexes of phases 4, 9 and 6 and needs them")
@@ -1280,6 +1746,10 @@ def main(argv=None) -> int:
             times.update(timing_shard(
                 shard_kernel_args(shard_forms, main_queries, rq_queries),
                 errs))
+        if rq_eng is not None:
+            times.update(timing_single(
+                single_kernel_args(eng, rq_eng, main_queries[0],
+                                   rq_queries[0]), errs))
         summary["timing"] = times
     if 8 in phases:
         check(eng is not None or rq_eng is not None,
@@ -1293,12 +1763,16 @@ def main(argv=None) -> int:
             log("[profile] the sharded IVF+PQ path (phase 11), static:")
             summary["profile_sharded"] = profile(shard_forms["ivfpq_bbc"],
                                                  main_queries)
+        if eng is not None and 12 in phases:
+            log("[profile] single IVF+PQ+BBC queries (phase 12):")
+            summary["profile_single"] = profile(eng, main_queries,
+                                                batches=8, single=True)
     if 10 in phases:
         check(rq_eng is not None, "phase 10 reads phase 9's engine")
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
                                                rq_state)
         log(f"[band] {json.dumps(summary['band_anatomy'])}")
-    if {4, 6, 9, 11} <= phases:
+    if {4, 6, 9, 11, 12} <= phases:
         for k, v in launches.items():
             check(v > 0, f"kernel {k} never launched on the paths")
 

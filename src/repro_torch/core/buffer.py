@@ -11,6 +11,10 @@ leading query axis: a codebook holds (B, ...) fields and distances are
   3. ``histogram``        — the (B, m+1) bucket histogram.
   4. ``threshold_bucket`` — first bucket whose cumulative count reaches k.
   5. ``compact_mask``     — stream-order positions of the surviving lanes.
+
+``collect`` and ``topk_oracle`` are the single-query forms (1-D distances,
+a codebook of batch 1) the single-query searchers and the Exp-3
+collectors call.
 """
 from __future__ import annotations
 
@@ -43,6 +47,20 @@ class BucketCodebook(NamedTuple):
     @property
     def n_ew(self) -> int:
         return self.ew_map.shape[-1]
+
+
+def default_num_buckets(vmem_bytes: int = 16 * 1024 * 1024,
+                        lut_bytes: int = 0, code_tile_bytes: int = 0,
+                        bytes_per_bucket: int = 2 * 2 * 64,
+                        cap: int = 512) -> int:
+    """The reference's Eq. 3 sizing of m: the fast-memory budget less the
+    LUT and code tile, 256 B reserved per bucket, rounded down to a
+    multiple of 128 within [128, ``cap``].  The reference sizes it for a
+    TPU's VMEM; the defaults are kept so that both packages pick the same
+    m."""
+    m = (vmem_bytes - lut_bytes - code_tile_bytes) // bytes_per_bucket
+    m = max(128, min(int(m), cap))
+    return (m // 128) * 128
 
 
 def build_codebook(sample_dists: torch.Tensor, k: int, m: int,
@@ -121,6 +139,15 @@ def threshold_bucket(hist: torch.Tensor, k: int):
     return tau.to(torch.int32), n_before.to(torch.int32)
 
 
+def relaxed_threshold(cb: BucketCodebook, tau: torch.Tensor) -> torch.Tensor:
+    """Upper edge of each query's threshold bucket (B,), +inf for the
+    overflow bucket: the paper's relaxed threshold."""
+    inf = torch.full_like(cb.edges[:, :1], INF)
+    edges = torch.cat([cb.edges, inf], dim=1)
+    idx = torch.clamp(tau.long() + 1, max=cb.m + 1)
+    return torch.gather(edges, 1, idx[:, None])[:, 0]
+
+
 def compact_mask(mask: torch.Tensor, budget: int):
     """Stream-order positions of the first ``budget`` set lanes of each row
     of ``mask`` (B, n), sentinel n past the fill.  Returns (positions (B,
@@ -151,3 +178,44 @@ def _collect_budget(k: int, n: int, slack_buckets: int, m: int) -> int:
     # covers skew.  Clamped to n (can't select more than exists).
     per_bucket = max(k // max(m, 1), 1)
     return int(min(n, k + slack_buckets * per_bucket + 64))
+
+
+def collect(cb: BucketCodebook, dists: torch.Tensor, ids: torch.Tensor,
+            bucket_ids: torch.Tensor, k: int,
+            valid: torch.Tensor | None = None,
+            hist: torch.Tensor | None = None, slack_buckets: int = 2):
+    """Alg. 1 Collect for one query: (n,) distances, ids, bucket ids and
+    validity, the (m+1,) histogram (built here when None).  Lanes at or
+    below the threshold bucket are compacted into a (k + slack)-wide buffer
+    and the k smallest kept.  The reference's ``lax.cond`` escape hatch (the
+    threshold in the overflow bucket, or more survivors than the buffer
+    holds) is one ``.item()`` host decision: then one full-width
+    selection.  Returns (dists (k,) ascending, ids (k,))."""
+    m = cb.m
+    n = dists.shape[0]
+    if valid is None:
+        valid = torch.ones(dists.shape, dtype=torch.bool, device=dists.device)
+    if hist is None:
+        hist = histogram(bucket_ids[None], m, valid[None])[0]
+    tau = threshold_bucket(hist[None], k)[0][0]
+    survive = valid & (bucket_ids <= tau)
+    budget = _collect_budget(k, n, slack_buckets, m)
+    if bool(((tau >= m) | (survive.sum() > budget)).item()):
+        vals, order = smallest(torch.where(valid, dists, INF), k)
+        return vals, ids[order]
+    idx, in_budget = compact_mask(survive[None], budget)
+    safe = idx[0].clamp(max=n - 1)
+    cd = torch.where(in_budget[0], dists[safe], INF)
+    ci = torch.where(in_budget[0], ids[safe], -1)
+    vals, order = smallest(cd, k)
+    return vals, ci[order]
+
+
+def topk_oracle(dists: torch.Tensor, ids: torch.Tensor, k: int,
+                valid: torch.Tensor | None = None):
+    """Reference collector: the full top-k of one query's lanes (ties to
+    the lower position)."""
+    if valid is not None:
+        dists = torch.where(valid, dists, INF)
+    vals, idx = smallest(dists, k)
+    return vals, ids[idx]

@@ -1,13 +1,18 @@
-"""Batched search engine: the serving-side entry point of the port.
+"""Search engine: the serving-side entry point of the port.
 
 Wraps a built index (IVF, IVF+PQ or IVF+RaBitQ) with its ``ivf.FlatLayout``
 candidate stream and the static search knobs, and serves (B, d) query
-batches through the batched searchers of ``index.search``:
+batches through the batched searchers of ``index.search`` and (d,) single
+queries through its single-query searchers:
 
     eng = engine.SearchEngine.build(index, k=5000, n_probe=64)
     res = eng.search(qs)                            # (B, d) -> SearchResult
+    res = eng.search(qs[0])                         # (d,): (k,) rows
     state = eng.predictor_init()
     res, state = eng.search(qs, pred_state=state)   # predictive serving
+
+A single query with ``pred_state``, or on the sharded engine, is served as
+a singleton batch (both paths are natively batched), as in the reference.
 
 Sharded deployment is a build-time switch, on every rank of a process
 group together:
@@ -23,9 +28,9 @@ all ranks at once.
 
 Each method is a strategy object chosen once, at build, from the index
 type (``IVFIndex`` with ``vectors=``, ``PQIndex``, ``RabitqIndex``).  What
-the JAX engine also does (tuned operating points, tombstones, single-query
-search) raises ``NotImplementedError`` naming the ROADMAP item that brings
-it: no request is quietly served through another path.
+the JAX engine also does (tuned operating points, tombstones) raises
+``NotImplementedError`` naming the ROADMAP item that brings it: no request
+is quietly served through another path.
 """
 from __future__ import annotations
 
@@ -59,6 +64,11 @@ class _IvfStrategy:
     def default_pred_count(self, k: int, n_cand: int | None) -> int:
         return k        # distances are exact in-scan: the pool target is k
 
+    def search_one(self, eng: "SearchEngine", q):
+        return search_mod.ivf_search(
+            eng.index, eng.vectors, q, k=eng.k, n_probe=eng.n_probe,
+            use_bbc=eng.use_bbc, m=eng.m)
+
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_search_batch(
             eng.index, eng.vectors, qs, eng.layout, k=eng.k,
@@ -88,6 +98,11 @@ class _IvfPqStrategy:
 
     def default_pred_count(self, k: int, n_cand: int | None) -> int:
         return search_mod._resolve_pred_count(None, k, n_cand)
+
+    def search_one(self, eng: "SearchEngine", q):
+        return search_mod.ivf_pq_search(
+            eng.index, q, k=eng.k, n_probe=eng.n_probe, n_cand=eng.n_cand,
+            use_bbc=eng.use_bbc, m=eng.m)
 
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_pq_search_batch(
@@ -121,6 +136,11 @@ class _IvfRabitqStrategy:
 
     def default_pred_count(self, k: int, n_cand: int | None) -> int:
         return k        # the band is anchored at the k-th upper bound
+
+    def search_one(self, eng: "SearchEngine", q):
+        return search_mod.ivf_rabitq_search(
+            eng.index, q, k=eng.k, n_probe=eng.n_probe, use_bbc=eng.use_bbc,
+            m=eng.m)
 
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_rabitq_search_batch(
@@ -273,12 +293,16 @@ class SearchEngine:
                predictive: bool = False) -> "SearchEngine":
         """Run one search per batch width (and one predictive search against
         a throwaway cold state), so the kernels are built and loaded before
-        the first timed request."""
+        the first timed request.  Width 1 also runs the single-query
+        searcher on the single-device engine (the sharded engine serves a
+        single query as a singleton batch)."""
         qs = torch.zeros(max(batch_sizes), self.dim, device=self.device)
         for b in sorted(set(int(b) for b in batch_sizes)):
             if b < 1:
                 raise ValueError(f"batch sizes must be >= 1, got {b}")
             self.search_batch(qs[:b])
+            if b == 1 and self.mesh is None:
+                self.search_one(qs[0])
             if predictive:
                 self.search_batch(qs[:b], pred_state=self.predictor_init())
         if self.device.type == "cuda":
@@ -286,12 +310,25 @@ class SearchEngine:
         return self
 
     def search(self, qs, pred_state=None):
-        """(B, d) batch -> SearchResult (or ``(SearchResult, new_state)``
-        with ``pred_state``)."""
+        """(B, d) batch or (d,) single query -> SearchResult (or
+        ``(SearchResult, new_state)`` with ``pred_state``)."""
         if torch.as_tensor(qs).ndim == 1:
-            raise _not_ported("single-query search (the JAX package's "
-                              "dedicated single-query searchers)", "item 8")
+            return self.search_one(qs, pred_state=pred_state)
         return self.search_batch(qs, pred_state=pred_state)
+
+    def search_one(self, q, pred_state=None):
+        """One (d,) query -> SearchResult of (k,) rows and 0-d counters.
+        Predictive search and the sharded engine are natively batched: they
+        serve a singleton batch; otherwise the method's single-query
+        searcher runs."""
+        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
+        if pred_state is not None:
+            res, state = self.search_batch(q[None], pred_state=pred_state)
+            return search_mod.SearchResult(*(x[0] for x in res)), state
+        if self.mesh is not None:
+            res = self.search_batch(q[None])
+            return search_mod.SearchResult(*(x[0] for x in res))
+        return self.strategy.search_one(self, q)
 
     def search_batch(self, qs, pred_state=None):
         qs = torch.as_tensor(qs, dtype=torch.float32).to(self.device)

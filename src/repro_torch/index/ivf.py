@@ -4,7 +4,9 @@
 package (``cap`` is the largest cluster rounded up to 128).  ``FlatLayout``
 re-orders the corpus cluster by cluster with no per-cluster padding: the
 batched searchers gather the candidate stream once per batch in this order
-and give each query a boolean lane mask over it (``probe_mask``).
+and give each query a boolean lane mask over it (``probe_mask``).  The
+single-query searchers read the padded table directly (``route``,
+``gather_candidates``).
 """
 from __future__ import annotations
 
@@ -81,6 +83,19 @@ def route_batch_centroids(centroids: torch.Tensor, qs: torch.Tensor,
 
 def route_batch_d2(index: IVFIndex, qs: torch.Tensor, n_probe: int):
     return route_batch_centroids(index.centroids, qs, n_probe)
+
+
+def route(index: IVFIndex, q: torch.Tensor, n_probe: int) -> torch.Tensor:
+    """Nearest-first (n_probe,) probed clusters of one (d,) query: the
+    batched routing's first row, so the single-query and batched paths
+    probe the same clusters in the same order."""
+    return route_batch_centroids(index.centroids, q[None], n_probe)[0][0]
+
+
+def gather_candidates(index: IVFIndex, probed: torch.Tensor):
+    """(n_probe, cap) candidate ids (-1 padded) and validity of the probed
+    clusters' rows of the member table."""
+    return index.member_ids[probed], index.member_valid[probed]
 
 
 class FlatLayout(NamedTuple):

@@ -51,10 +51,14 @@ def encode(cb: PQCodebook, x: torch.Tensor) -> torch.Tensor:
 
 
 def adc_table(cb: PQCodebook, qs: torch.Tensor) -> torch.Tensor:
-    """(B, M, K) tables of squared sub-distances for a (B, d) query batch.
+    """(B, M, K) tables of squared sub-distances for a (B, d) query batch,
+    or the (M, K) table of one (d,) query.
 
     The sum over a sub-vector's dsub coordinates runs in ascending order
-    with one rounding per add, so a CPU and a CUDA run give the same bits."""
+    with one rounding per add, so a CPU and a CUDA run give the same bits,
+    and one query's table is its batched row to the bit."""
+    if qs.ndim == 1:
+        return adc_table(cb, qs[None])[0]
     diff = qs.reshape(qs.shape[0], cb.n_sub, 1, cb.dsub) - cb.centroids[None]
     sq = diff * diff
     acc = sq[..., 0]

@@ -9,9 +9,17 @@ centroid c:
     code = sign(u) in {-1, +1}^d    (stored int8)
     f_o = (1/sqrt d) sum |u_i|      (stored fp32 factor)
 
-The query-time estimator (est, lb, ub from the code product, the norms and
-eps0) is ``core.numerics.rabitq_bounds_stream``, fused into the CUDA kernel
-``kernels/csrc/rabitq_fused.cu`` on the BBC path.
+At query time, per probed cluster (``query_factors``, ``estimate``):
+
+    q_r = q - c, norm_q = ||q_r||, v = P (q_r / norm_q)
+    ip = (code . v / sqrt d) / f_o,  err = eps0 sqrt((1 - f_o^2) / (f_o^2 (d-1)))
+    est, lb, ub = sqrt(max(norm_q^2 + norm_o^2 - 2 norm_q norm_o (ip, ip + err,
+                                                              ip - err), 0))
+
+the single-query searcher's estimator (the CUDA kernel
+``kernels/csrc/rabitq_est.cu``).  The batched searchers use the P(q - c) =
+Pq - Pc form of the same estimator, ``core.numerics.rabitq_bounds_stream``,
+fused into ``kernels/csrc/rabitq_fused.cu`` on the BBC path.
 """
 from __future__ import annotations
 
@@ -19,6 +27,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import numerics
+from repro_torch.kernels import ops
 
 
 class RabitqCodes(NamedTuple):
@@ -51,3 +62,45 @@ def encode(x: torch.Tensor, centroids: torch.Tensor, assignment: torch.Tensor,
     f_o = torch.sum(torch.abs(u), dim=1) / math.sqrt(d)
     return RabitqCodes(rot=rot, codes=codes, norm_o=norm_o,
                        f_o=torch.clamp(f_o, min=1e-6))
+
+
+class QueryFactors(NamedTuple):
+    """Per-query RaBitQ factors against one centroid (``v`` (d,), ``norm_q``
+    ()) or against T centroids at once (``v`` (T, d), ``norm_q`` (T,))."""
+    v: torch.Tensor        # rotated unit residual(s)
+    norm_q: torch.Tensor   # residual norm(s)
+
+
+def query_factors(rq: RabitqCodes, q: torch.Tensor,
+                  centroid: torch.Tensor) -> QueryFactors:
+    """The factors of the (d,) query ``q`` against a (d,) centroid, or
+    against (T, d) centroids in one pass.  The norm is the square root of
+    the ``numerics.ordered_sum`` of the squared residual and the rotation
+    goes through ``numerics.rotate``: fixed orders, so the CPU and the card
+    give the same bits."""
+    single = centroid.ndim == 1
+    qr = q[None] - (centroid[None] if single else centroid)      # (T, d)
+    norm_q = torch.sqrt(numerics.ordered_sum(qr * qr))
+    v = numerics.rotate(qr / torch.clamp(norm_q, min=1e-12)[:, None], rq.rot)
+    if single:
+        return QueryFactors(v=v[0], norm_q=norm_q[0])
+    return QueryFactors(v=v, norm_q=norm_q)
+
+
+def estimate(codes: torch.Tensor, norm_o: torch.Tensor, f_o: torch.Tensor,
+             qf: QueryFactors, eps0: float = 3.0,
+             valid: torch.Tensor | None = None):
+    """(est, lb, ub): actual distances, the lower bound clamped at 0.
+
+    One cluster's members (codes (c, d), factors (c,), ``qf`` against one
+    centroid) give (c,) outputs; T tiles at once (codes (T, cap, d),
+    factors and ``valid`` (T, cap), ``qf`` against T centroids) give
+    (T, cap) outputs, +inf off ``valid``.  Both run the estimator kernel
+    (``ops.rabitq_est_tiles``) on CUDA tensors."""
+    if codes.ndim == 2:
+        return ops.rabitq_est(codes, norm_o, f_o, qf.v, qf.norm_q, eps0)
+    if valid is None:
+        valid = torch.ones(codes.shape[:2], dtype=torch.bool,
+                           device=codes.device)
+    return ops.rabitq_est_tiles(codes, norm_o, f_o, qf.v, qf.norm_q, valid,
+                                eps0)

@@ -1,11 +1,12 @@
-"""Batched IVF / IVF+PQ / IVF+RaBitQ searchers, each with and without the
-BBC collector.
+"""IVF / IVF+PQ / IVF+RaBitQ searchers, each with and without the BBC
+collector: for one query, batched, and mesh-sharded.
 
-The port of the batched half of the JAX package's ``index/search.py``: one
-routing pass per batch, one shared candidate stream in ``ivf.FlatLayout``
-order, per-query lane masks, and the batched estimate / bucketize /
-histogram / re-rank through ``kernels.ops`` (CUDA kernels for CUDA
-tensors, their plain versions on the CPU).
+The port of the JAX package's ``index/search.py``.  The batched searchers
+run one routing pass per batch, one shared candidate stream in
+``ivf.FlatLayout`` order, per-query lane masks, and the batched estimate /
+bucketize / histogram / re-rank through ``kernels.ops`` (CUDA kernels for
+CUDA tensors, their plain versions on the CPU); the single-query searchers
+run the same kernels at one query.
 
   ivf_search_batch(use_bbc=...)                  -> IVF (exact in-scan)
   ivf_pq_search_batch(use_bbc=False)             -> IVF+PQ (top n_cand, re-rank)
@@ -19,6 +20,9 @@ tensors, their plain versions on the CPU).
   ivf_rabitq_search_batch(..., fused=False)      -> IVF+RaBitQ+BBC, two passes
   ... pred_state=state                           -> the cross-batch
                                                     predictive form
+  ivf_search / ivf_pq_search / ivf_rabitq_search -> the same methods for
+                                                    one (d,) query over the
+                                                    padded member table
   ivf_search_sharded / ivf_pq_search_sharded / ivf_rabitq_search_sharded
                                                  -> the same methods over a
                                                     corpus split row-wise
@@ -255,6 +259,195 @@ def _predictive_select(est, bucket, hist, lane_valid, tau_pred, count: int,
 def _sqrt_est(est2: torch.Tensor, lane_valid: torch.Tensor) -> torch.Tensor:
     return torch.where(lane_valid, torch.sqrt(torch.clamp(est2, min=0.0)),
                        INF)
+
+
+# --------------------------------------------------------------------------
+# Single-query searchers
+# --------------------------------------------------------------------------
+#
+# One (d,) query over the padded (n_probe, cap) member table of its probed
+# clusters, nearest first, as in the reference.  Every kernel runs at one
+# query: the estimate (``ops.pq_adc``, or ``ops.rabitq_est_tiles`` over all
+# probed tiles in one launch), the bucketize + histogram passes
+# (``ops.bucket_hist``) and every exact distance (``ops.l2_exact`` over
+# the gathered rows, so a lane's exact distance has the same bits on the
+# CPU and the card).  Counters are 0-d int32 tensors.
+
+def _i32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.int32)
+
+
+def _exact_rows(vectors: torch.Tensor, ids: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """Exact distances of the rows ``ids`` (any shape, -1 allowed: callers
+    mask) to ``q``, by the l2 kernel over the gathered rows."""
+    rows = vectors[ids.clamp(min=0).reshape(-1)]
+    return ops.l2_exact(rows, q).reshape(ids.shape)
+
+
+def _probe(ivf: ivf_mod.IVFIndex, q: torch.Tensor, n_probe: int):
+    probed = ivf_mod.route(ivf, q, n_probe)
+    ids, valid = ivf_mod.gather_candidates(ivf, probed)
+    return probed, ids, valid
+
+
+def ivf_search(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
+               q: torch.Tensor, k: int, n_probe: int, use_bbc: bool = False,
+               m: int = 128) -> SearchResult:
+    """IVF for one query: the exact distances of the probed rows (the l2
+    kernel), then the BBC collector or a flat top-k."""
+    _, ids, valid = _probe(index, q, n_probe)
+    dists = torch.where(valid, _exact_rows(vectors, ids, q), INF)
+    s = col.StreamInput(dists, ids, valid)
+    d, i = col.bbc_collect(s, k, m=m) if use_bbc else col.topk_collect(s, k)
+    return SearchResult(d, i, _i32(valid.sum()),
+                        torch.zeros((), dtype=torch.int32, device=q.device))
+
+
+def ivf_pq_search(index: PQIndex, q: torch.Tensor, k: int, n_probe: int,
+                  n_cand: int, use_bbc: bool = False, m: int = 128,
+                  early_slack: float = 4.0) -> SearchResult:
+    """IVF+PQ (baseline) and IVF+PQ+BBC (Alg. 4 early re-rank) for one query.
+
+    Baseline: the top n_cand by estimate, then one exact pass over them.
+    BBC: a codebook from the nearest 4 probed tiles; the bucket ids and the
+    histogram of every probed lane from the bucket_hist kernel, and from the
+    histogram the scan threshold tau (the bucket of the n_cand-th
+    estimate).  Per tile, the first ``early_budget`` lanes at or below tau
+    get their exact distance "inline" (the reference's per-cluster early
+    re-rank; the budget keeps its counters); the bucket collector selects
+    the n_cand; the selected lanes the early leg missed are the second
+    pass (``n_second_pass``)."""
+    ivf = index.ivf
+    _, ids, valid = _probe(ivf, q, n_probe)
+    cap = ids.shape[1]
+    lut = pq_mod.adc_table(index.pq, q)
+    flat_ids, flat_valid = ids.reshape(-1), valid.reshape(-1)
+    est = ops.pq_adc(index.codes[flat_ids.clamp(min=0)], lut)   # squared
+    flat_est = torch.sqrt(torch.clamp(torch.where(flat_valid, est, INF),
+                                      min=0.0))
+    est2 = flat_est.reshape(n_probe, cap)
+
+    if not use_bbc:
+        _, ci = col.topk_collect(col.StreamInput(est2, ids, valid), n_cand)
+        ex = torch.where(ci >= 0, _exact_rows(index.vectors, ci, q), INF)
+        vals, order = rb.smallest(ex, k)
+        nc = _i32(n_cand)
+        return SearchResult(vals, ci[order], nc, nc)
+
+    st = min(4, n_probe)
+    sample = torch.where(valid[:st], est2[:st], INF).reshape(1, -1)
+    cb = rb.build_codebook(sample, k=min(n_cand, sample.shape[1]), m=m)
+    bucket, hist = ops.bucket_hist(flat_est, flat_valid, cb.d_min, cb.delta,
+                                   cb.ew_map, m)
+    tau_scan = rb.threshold_bucket(hist[None], n_cand)[0]
+
+    # the early leg: per tile, the first early_budget lanes at or below tau
+    # (the bucket ids are ``rerank.early_rerank_mask``'s, from the kernel)
+    early_budget = int(min(cap, max(128, round(n_cand / n_probe
+                                               * early_slack))))
+    early_budget = min(((early_budget + 127) // 128) * 128, cap)
+    n_total = n_probe * cap
+    pred = (bucket.reshape(n_probe, cap) <= tau_scan[:, None]) & valid
+    pos, ok = rb.compact_mask(pred, early_budget)
+    safe = pos.clamp(max=cap - 1)
+    e_ids = torch.where(ok, torch.gather(ids, 1, safe), -1)
+    e_d = torch.where(ok, _exact_rows(index.vectors, e_ids, q), INF)
+    row0 = torch.arange(n_probe, device=q.device)[:, None] * cap
+    tgt = torch.where(ok, row0 + safe, n_total)       # n_total: dump slot
+    flat_e_d = torch.full((n_total + 1,), INF, device=q.device).scatter(
+        0, tgt.reshape(-1), e_d.reshape(-1))[:n_total]
+    n_early = ok.sum()
+
+    positions = torch.arange(n_total, device=q.device)
+    _, sel_pos = rb.collect(cb, flat_est, positions, bucket, n_cand,
+                            flat_valid, hist=hist)
+    sel_ids = torch.where(sel_pos >= 0, flat_ids[sel_pos.clamp(min=0)], -1)
+    e_at = flat_e_d[sel_pos.clamp(min=0)]
+    have = torch.isfinite(e_at) & (sel_pos >= 0)
+    miss = ~have & (sel_ids >= 0)
+    second = miss.sum()
+    miss_d = _exact_rows(index.vectors, torch.where(miss, sel_ids, 0), q)
+    ex = torch.where(have, e_at, torch.where(miss, miss_d, INF))
+    vals, order = rb.smallest(ex, k)
+    return SearchResult(vals, sel_ids[order], _i32(n_early + second),
+                        _i32(second))
+
+
+def ivf_rabitq_search(index: RabitqIndex, q: torch.Tensor, k: int,
+                      n_probe: int, use_bbc: bool = False, m: int = 128,
+                      eps0: float = 3.0) -> SearchResult:
+    """IVF+RaBitQ for one query: the per-cluster estimator over every probed
+    tile in one launch (``rabitq.estimate``), then the per-tile threshold
+    baseline or Alg. 3's plan with its two exact phases.
+
+    Baseline: tiles nearest first; a tile's lanes whose lower bound is under
+    the running k-th exact distance are re-ranked (at most the re-rank
+    budget of them, in tile order) and merged into a k-wide pool.  A Python
+    loop over the tiles, with no host sync inside.
+
+    BBC: ``rerank.greedy_rerank_plan`` over all probed lanes; phase 1
+    re-ranks the band's likely-in lanes (ub bucket at or below tau_ub),
+    whose exact distances give the tightened threshold of phase 2; phase 2
+    the rest of the band under it.  Each phase takes at most its budget of
+    lanes in estimate order (ties to the lower position)."""
+    ivf = index.ivf
+    rq = index.rq
+    probed, ids, valid = _probe(ivf, q, n_probe)
+    cap = ids.shape[1]
+    safe_ids = ids.clamp(min=0)
+    qf = rq_mod.query_factors(rq, q, ivf.centroids[probed])
+    est, lb, ub = rq_mod.estimate(rq.codes[safe_ids], rq.norm_o[safe_ids],
+                                  rq.f_o[safe_ids], qf, eps0, valid=valid)
+    dev = q.device
+
+    if not use_bbc:
+        budget = min(cap, _rerank_budget(k))
+        pool_d = torch.full((k,), INF, device=dev)
+        pool_i = torch.full((k,), -1, dtype=ids.dtype, device=dev)
+        n_rr = torch.zeros((), dtype=torch.int64, device=dev)
+        for t in range(n_probe):
+            mask = valid[t] & (lb[t] < pool_d[k - 1])
+            pos, okc = rb.compact_mask(mask[None], budget)
+            pos, okc = pos[0], okc[0]
+            r_ids = torch.where(okc, ids[t][pos.clamp(max=cap - 1)], -1)
+            r_d = torch.where(okc, _exact_rows(index.vectors, r_ids, q), INF)
+            pool_d, pick = rb.smallest(torch.cat([pool_d, r_d]), k)
+            pool_i = torch.cat([pool_i, r_ids])[pick]
+            n_rr = n_rr + okc.sum()
+        return SearchResult(pool_d, pool_i, _i32(n_rr), _i32(n_rr))
+
+    flat_lb, flat_ub = lb.reshape(-1), ub.reshape(-1)
+    flat_est = est.reshape(-1)
+    flat_ids, flat_valid = ids.reshape(-1), valid.reshape(-1)
+    n_flat = flat_ids.shape[0]
+    plan = rerank.greedy_rerank_plan(flat_lb, flat_ub, k, flat_valid, m=m)
+
+    def eval_mask(mask, budget, exact_flat):
+        """Exact distances of up to ``budget`` masked lanes, est first."""
+        key = torch.where(mask, flat_est, INF)
+        kv, pos = rb.smallest(key, budget)
+        ok = torch.isfinite(kv)
+        r_ids = torch.where(ok, flat_ids[pos], -1)
+        r_d = torch.where(ok, _exact_rows(index.vectors, r_ids, q), INF)
+        exact_flat = torch.cat([exact_flat, exact_flat.new_full((1,), INF)])
+        exact_flat = exact_flat.scatter(0, torch.where(ok, pos, n_flat),
+                                        r_d)[:n_flat]
+        return exact_flat, r_d, ok.sum()
+
+    exact_flat = torch.full((n_flat,), INF, device=dev)
+    p1 = rerank.phase1_mask(plan)
+    budget1 = min(n_flat, ((k + 1024 + 127) // 128) * 128)
+    exact_flat, p1_d, n1 = eval_mask(p1, budget1, exact_flat)
+    t2 = rerank.phase2_threshold(plan, p1_d, k)
+    p2 = plan.rerank_mask & ~p1 & torch.isinf(exact_flat) & (flat_lb <= t2)
+    budget2 = min(n_flat, _rerank_budget(k))
+    exact_flat, _, n2 = eval_mask(p2, budget2, exact_flat)
+    res = rerank.greedy_rerank_finalize(
+        plan, exact_flat, torch.where(flat_valid, flat_lb, INF), flat_ids, k,
+        est=flat_est)
+    n_evals = _i32(n1 + n2)
+    return SearchResult(res.topk_dists, res.topk_ids, n_evals, n_evals)
 
 
 # --------------------------------------------------------------------------

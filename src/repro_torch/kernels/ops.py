@@ -10,8 +10,15 @@ Layout follows the JAX package's public one: ``valid`` is (B, n) and every
 per-lane output is (B, n).  PQ codes stay uint8, RaBitQ codes int8, and the
 kernels mask their own ragged edges, so nothing is padded.
 
-``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count); ``chip_smoke.py`` zeroes it before a run and reads it after.
+The single-query wrappers (``pq_adc``, ``l2_exact``, ``bucket_hist``,
+``fused_scan``, ``rabitq_est``) keep the JAX package's single-query
+signatures; the first four launch their batched kernel at B = 1.
+
+``LAUNCHES`` counts kernel launches (plain-version calls do not count);
+``chip_smoke.py`` zeroes it before a run and reads it after.  A launch of
+one of the four batched PQ/l2/bucket kernels at B = 1 counts under its
+single-query key, whichever wrapper made it; B > 1 under the ``*_batch``
+key.
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0,
-            "shard_collect_batch": 0, "spec_compact_batch": 0}
+            "shard_collect_batch": 0, "spec_compact_batch": 0,
+            "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
+            "bucket_hist": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -55,6 +64,9 @@ _SIGNATURES = {
         "spec_compact_batch_launch": [_P] * 7 + [_I] * 4 + [_P],
         "shard_collect_smem_bytes": [_I] * 2,
         "shard_collect_chunk": []},
+    "rabitq_est": {
+        "rabitq_est_launch": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
+        "rabitq_est_smem_bytes": [_I]},
 }
 
 
@@ -135,6 +147,12 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+def _count(name: str, b: int) -> None:
+    """One launch of a batched kernel: at B = 1 it is the single-query
+    kernel's launch."""
+    LAUNCHES[name if b == 1 else name + "_batch"] += 1
+
+
 def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """Shared (n, M) uint8 codes x per-query (B, M, K) LUTs -> (B, n) squared
     estimates."""
@@ -153,7 +171,7 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
                                  out.data_ptr(), n, m_sub, k_codes, b, bq,
                                  _tiles(n), smem, _stream())
     _check(rc, "pq_adc_batch")
-    LAUNCHES["pq_adc_batch"] += 1
+    _count("pq_adc", b)
     return out
 
 
@@ -174,7 +192,7 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
                                    out.data_ptr(), n, d, b, bq, _tiles(n),
                                    smem, _stream())
     _check(rc, "l2_exact_batch")
-    LAUNCHES["l2_exact_batch"] += 1
+    _count("l2_exact", b)
     return out
 
 
@@ -206,7 +224,7 @@ def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
         delta.data_ptr(), ew_maps.data_ptr(), bucket.data_ptr(),
         hist.data_ptr(), n, b, n_ew, m, _tiles(n), smem, _stream())
     _check(rc, "bucket_hist_batch")
-    LAUNCHES["bucket_hist_batch"] += 1
+    _count("bucket_hist", b)
     return bucket, hist
 
 
@@ -260,7 +278,7 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
         nmiss.data_ptr(), n, m_sub, k_codes, d, b, n_ew, m, bq, _tiles(n),
         smem, _stream())
     _check(rc, "fused_scan_batch")
-    LAUNCHES["fused_scan_batch"] += 1
+    _count("fused_scan", b)
     return est, bucket, hist, early, nmiss
 
 
@@ -419,3 +437,96 @@ def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
     _check(rc, "spec_compact_batch")
     LAUNCHES["spec_compact_batch"] += 1
     return pos, pos < n, count
+
+
+# --------------------------------------------------------------------------
+# Single-query wrappers (the JAX package's ``ops.pq_adc`` & co.)
+# --------------------------------------------------------------------------
+
+def pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """(n, M) uint8 codes, (M, K) LUT -> (n,) squared ADC estimates."""
+    return pq_adc_batch(codes, lut[None])[0]
+
+
+def l2_exact(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(n, d) vectors, (d,) query -> (n,) exact distances."""
+    return l2_exact_batch(x, q[None])[0]
+
+
+def bucket_hist(dists: torch.Tensor, valid: torch.Tensor,
+                d_min: torch.Tensor, delta: torch.Tensor,
+                ew_map: torch.Tensor, m: int):
+    """(n,) distances and one codebook (``d_min``/``delta`` scalars or
+    (1,), ``ew_map`` (n_ew,) or (1, n_ew)) -> (bucket (n,) int32, hist
+    (m+1,) int32 over the valid lanes)."""
+    bucket, hist = bucket_hist_batch(dists[None], valid[None],
+                                     d_min.reshape(1), delta.reshape(1),
+                                     ew_map.reshape(1, -1), m)
+    return bucket[0], hist[0]
+
+
+def fused_scan(codes: torch.Tensor, vectors: torch.Tensor,
+               valid: torch.Tensor, lut: torch.Tensor, q: torch.Tensor,
+               d_min: torch.Tensor, delta: torch.Tensor, ew_map: torch.Tensor,
+               m: int, tau_pred):
+    """One query's fused estimate + bucketize + histogram + early exact:
+    (est (n,), bucket (n,), hist (m+1,), early (n,), nmiss ())."""
+    tau = torch.as_tensor(tau_pred, dtype=torch.int32,
+                          device=codes.device).reshape(1)
+    out = fused_scan_batch(codes, vectors, valid[None], lut[None], q[None],
+                           d_min.reshape(1), delta.reshape(1),
+                           ew_map.reshape(1, -1), m, tau)
+    return tuple(t[0] for t in out)
+
+
+def rabitq_est_tiles(codes: torch.Tensor, norm_o: torch.Tensor,
+                     f_o: torch.Tensor, v: torch.Tensor,
+                     norm_q: torch.Tensor, valid: torch.Tensor,
+                     eps0: float = 3.0):
+    """RaBitQ est/lb/ub of one query over T probed tiles in one launch:
+    codes (T, cap, d) int8 +-1, norm_o/f_o/valid (T, cap), v (T, d) the
+    tiles' rotated unit query residuals, norm_q (T,).  Returns three
+    (T, cap) fp32 tensors, +inf off ``valid``."""
+    if not _on_cuda(codes, norm_o, f_o, v, norm_q, valid):
+        return _ref.rabitq_est_tiles(codes, norm_o, f_o, v, norm_q, valid,
+                                     eps0)
+    t, cap, d = codes.shape
+    _need(codes, "codes", torch.int8, (t, cap, d))
+    _need(norm_o, "norm_o", torch.float32, (t, cap))
+    _need(f_o, "f_o", torch.float32, (t, cap))
+    _need(v, "v", torch.float32, (t, d))
+    _need(norm_q, "norm_q", torch.float32, (t,))
+    _need(valid, "valid", torch.bool, (t, cap))
+    est, lb, ub = (torch.empty(t, cap, dtype=torch.float32,
+                               device=codes.device) for _ in range(3))
+    if t == 0 or cap == 0:
+        return est, lb, ub
+    if t > 65535:
+        raise ValueError(f"rabitq_est: {t} tiles, more than a grid's "
+                         f"65535 rows")
+    lib = _lib("rabitq_est")
+    smem = lib.rabitq_est_smem_bytes(d)
+    if smem > MAX_SMEM:
+        raise ValueError(f"rabitq_est: d={d} needs {smem} bytes of shared "
+                         f"memory")
+    rc = lib.rabitq_est_launch(
+        codes.data_ptr(), norm_o.data_ptr(), f_o.data_ptr(), v.data_ptr(),
+        norm_q.data_ptr(), valid.data_ptr(), est.data_ptr(), lb.data_ptr(),
+        ub.data_ptr(), t, cap, d, math.sqrt(d), eps0, float(d - 1),
+        _tiles(cap), smem, _stream())
+    _check(rc, "rabitq_est")
+    LAUNCHES["rabitq_est"] += 1
+    return est, lb, ub
+
+
+def rabitq_est(codes: torch.Tensor, norm_o: torch.Tensor, f_o: torch.Tensor,
+               v: torch.Tensor, norm_q, eps0: float = 3.0):
+    """(n, d) int8 +-1 codes, (n,) factors, (d,) rotated unit query
+    residual, scalar ``norm_q`` -> (est, lb, ub), each (n,): the tile form
+    at T = 1 with every lane valid."""
+    dev = codes.device
+    nq = torch.as_tensor(norm_q, dtype=torch.float32, device=dev).reshape(1)
+    valid = torch.ones(1, codes.shape[0], dtype=torch.bool, device=dev)
+    out = rabitq_est_tiles(codes[None], norm_o[None], f_o[None], v[None], nq,
+                           valid, eps0)
+    return tuple(t[0] for t in out)

@@ -13,6 +13,8 @@ exact distances, the RaBitQ code products and bounds come from
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import numerics
@@ -133,6 +135,83 @@ def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
     pos.scatter_(1, slot, torch.where(keep, lane, n))
     pos = pos[:, :budget].contiguous()
     return pos, pos < n, match.sum(dim=1).to(torch.int32)
+
+
+def rabitq_est_tiles(codes: torch.Tensor, norm_o: torch.Tensor,
+                     f_o: torch.Tensor, v: torch.Tensor, norm_q: torch.Tensor,
+                     valid: torch.Tensor, eps0: float = 3.0):
+    """Plain version of the RaBitQ estimator over T probed tiles at once:
+    codes (T, cap, d) int8 +-1, norm_o/f_o/valid (T, cap), v (T, d) each
+    tile's rotated unit query residual, norm_q (T,).  Returns (est, lb, ub),
+    each (T, cap) and +inf off ``valid``.
+
+    The JAX formula (``kernels/ref.py rabitq_est``) with one fp32 rounding
+    per operation in its order: s1 = sum_j code[j] v[j] in ascending j,
+    then ``/ sqrt(d)``, ``/ f_o``, the error bound, ``scale = (2 nq) no``,
+    ``base = nq^2 + no^2`` and sqrt(max(base - scale * t, 0)) for t in (ip,
+    ip + err, ip - err): the order the CUDA kernel evaluates its ``__f*_rn``
+    intrinsics in, so the two agree to the bit."""
+    d = codes.shape[-1]
+    s1 = torch.zeros(codes.shape[:-1], dtype=torch.float32,
+                     device=codes.device)
+    for j in range(d):
+        s1 = s1 + codes[..., j].to(torch.float32) * v[:, j, None]
+    # a tensor divisor: CUDA turns division by a Python scalar into a
+    # multiply by its reciprocal, which the kernel's __fdiv_rn does not do
+    ip = (s1 / s1.new_tensor(math.sqrt(d))) / f_o
+    err = numerics.lane_err(f_o, d, eps0)
+    nq = norm_q[:, None]
+    scale = (2.0 * nq) * norm_o
+    base = nq * nq + norm_o * norm_o
+
+    def dist(t):
+        return torch.where(valid, torch.sqrt(torch.clamp(base - scale * t,
+                                                         min=0.0)), INF)
+
+    return dist(ip), dist(ip + err), dist(ip - err)
+
+
+# The single-query forms: row 0 of the batched plain versions (T = 1 for
+# the RaBitQ estimator).
+
+def rabitq_est(codes, norm_o, f_o, v, norm_q, eps0: float = 3.0):
+    """(n, d) codes, (n,) factors, (d,) v, scalar norm_q -> (est, lb, ub)."""
+    out = rabitq_est_tiles(codes[None], norm_o[None], f_o[None], v[None],
+                           torch.as_tensor(norm_q, dtype=torch.float32,
+                                           device=codes.device).reshape(1),
+                           torch.ones(1, codes.shape[0], dtype=torch.bool,
+                                      device=codes.device), eps0)
+    return tuple(t[0] for t in out)
+
+
+def pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """(n, M) codes, (M, K) LUT -> (n,) squared estimates."""
+    return pq_adc_batch(codes, lut[None])[0]
+
+
+def l2_exact(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(n, d) vectors, (d,) query -> (n,) exact distances."""
+    return l2_exact_batch(x, q[None])[0]
+
+
+def bucket_hist(dists, valid, d_min, delta, ew_map, m: int):
+    """(n,) distances, one codebook -> (bucket (n,), hist (m+1,))."""
+    bucket, hist = bucket_hist_batch(dists[None], valid[None],
+                                     d_min.reshape(1), delta.reshape(1),
+                                     ew_map.reshape(1, -1), m)
+    return bucket[0], hist[0]
+
+
+def fused_scan(codes, vectors, valid, lut, q, d_min, delta, ew_map, m: int,
+               tau_pred):
+    """One query's fused scan: (est (n,), bucket (n,), hist (m+1,),
+    early (n,), nmiss ())."""
+    out = fused_scan_batch(codes, vectors, valid[None], lut[None], q[None],
+                           d_min.reshape(1), delta.reshape(1),
+                           ew_map.reshape(1, -1), m,
+                           torch.as_tensor(tau_pred, dtype=torch.int32,
+                                           device=codes.device).reshape(1))
+    return tuple(t[0] for t in out)
 
 
 def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Batched large-k retrieval serving entry point of the port (static mode).
+"""Large-k retrieval serving entry point of the port (static mode).
 
 Builds an IVF+PQ or IVF+RaBitQ index over a seeded synthetic corpus on the
 device and serves fixed-size query batches through
-``index.engine.SearchEngine``; the last stdout line is one JSON summary
-with the JAX serving CLI's keys plus ``"device"``.
+``index.engine.SearchEngine`` (``--batch 1``: one (d,) query per call,
+through the single-query searchers); the last stdout line is one JSON
+summary with the JAX serving CLI's keys plus ``"device"``.  ``--method
+flat`` serves exact search one query at a time, as the JAX CLI does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve              # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -18,8 +20,8 @@ itself (gloo with ``--device cpu``, NCCL on cards 0..N-1 with CUDA) over a
 prints the summary.
 
 ``--mode static`` with every ``--method`` of the JAX CLI is ported; the
-other modes, ``--batch 1`` and ``--tuned`` raise, naming the ROADMAP item
-that brings them.
+other modes and ``--tuned`` raise, naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
@@ -82,8 +84,8 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
     if args.method == "flat":
         if tau_pred_on:
             raise SystemExit("--tau-pred does not apply to the flat baseline")
-        batch = args.batch
-        searcher = lambda qb: flat.search_batch(x, qb, args.k)[1]  # noqa: E731
+        batch = 1
+        searcher = lambda q: flat.search(x, q, args.k)[1]  # noqa: E731
     else:
         if tau_pred_on and not args.method.endswith("bbc"):
             raise SystemExit("--tau-pred on requires a *_bbc method")
@@ -91,7 +93,7 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
             index, k=args.k, n_probe=min(args.n_probe, args.n_clusters),
             use_bbc=args.method.endswith("bbc"),
             pred_count=args.pred_count, device=dev, mesh=mesh)
-        batch = args.batch
+        batch = max(1, args.batch)
         eng.warmup((batch, (args.queries - 1) % batch + 1),
                    predictive=tau_pred_on)
         state = [eng.predictor_init()]
@@ -103,13 +105,16 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
             return eng.search(qb).ids
 
     batches = [qs[i:i + batch] for i in range(0, args.queries, batch)]
+    if batch == 1:          # one (d,) query per call
+        batches = [q for q in qs]
     searcher(batches[0])
     _sync(dev)
     t0 = time.monotonic()
     results = [searcher(qb) for qb in batches]
     _sync(dev)
     dt = time.monotonic() - t0
-    all_ids = [row for ids in results for row in ids.cpu().numpy()]
+    all_ids = [row for ids in results
+               for row in ids.reshape(-1, args.k).cpu().numpy()]
     idx = sample_indices(args.queries, RECALL_SAMPLE)
     recall = float("nan") if x is None else mean_recall(
         x, qs[torch.as_tensor(idx, device=dev)], [all_ids[i] for i in idx],
@@ -213,9 +218,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported yet (ROADMAP.md queue 1, "
             f"{'item 9' if args.mode == 'async' else 'item 13'})")
-    if args.batch < 2:
-        raise NotImplementedError("--batch 1 (the single-query searchers) is "
-                                  "not ported yet (ROADMAP.md queue 1, item 8)")
     if args.tuned != "off":
         raise NotImplementedError("--tuned is not ported yet (ROADMAP.md "
                                   "queue 1, item 11); pass --tuned off")

@@ -90,13 +90,17 @@ def test_build_dir_is_gitignored():
 
 
 def test_launch_counters_cover_the_four_kernels():
+    """One counter per TPU kernel of the repository: the seven batched
+    kernels, the RaBitQ estimator and the four single-query forms."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
-                                 "shard_collect_batch", "spec_compact_batch"}
+                                 "shard_collect_batch", "spec_compact_batch",
+                                 "rabitq_est", "fused_scan", "pq_adc",
+                                 "l2_exact", "bucket_hist"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
-                                   "shard_collect"}
+                                   "shard_collect", "rabitq_est"}
     ops.LAUNCHES["pq_adc_batch"] = 3
     ops.reset_launches()
     assert set(ops.LAUNCHES.values()) == {0}

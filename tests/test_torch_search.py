@@ -19,6 +19,7 @@ import torch.distributed as tdist  # noqa: E402
 
 from repro.core import rerank as jrr  # noqa: E402
 from repro.data import synthetic  # noqa: E402
+from repro.index import engine as jengine  # noqa: E402
 from repro.index import ivf as jivf  # noqa: E402
 from repro.index import search as jsearch  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -116,17 +117,31 @@ def test_engine_clamps_knobs(setup):
     assert eng.pred_count <= eng.n_cand
 
 
+def _assert_single_same(jr, tr):
+    assert set(np.asarray(jr.ids).tolist()) == set(tr.ids.numpy().tolist())
+    np.testing.assert_allclose(np.sort(tr.dists.numpy()),
+                               np.sort(np.asarray(jr.dists)), rtol=1e-4,
+                               atol=1e-4)
+    assert int(tr.n_reranked) == int(jr.n_reranked)
+    assert int(tr.n_second_pass) == int(jr.n_second_pass)
+
+
 @pytest.mark.parametrize("call", ["single", "mesh", "tuned", "live", "ivf"])
 def test_engine_unported_paths_raise(setup, call, tmp_path):
-    _, _, ti, _, qs = setup
+    """What the engine still refuses (tuned points, tombstones) raises
+    naming its ROADMAP item; single-query search, once refused here, is
+    ported: on the single-device engine (``single``, ``ivf``) and on the
+    sharded one (``mesh``) it answers as the JAX engine's single call."""
+    ji, _, ti, _, qs = setup
     if call == "ivf":
         # the IVF strategy is ported; it needs the corpus vectors
         with pytest.raises(ValueError, match="vectors"):
             engine.SearchEngine.build(ti.ivf, k=K, n_probe=4, device="cpu")
         eng = engine.SearchEngine.build(ti.ivf, k=K, n_probe=4, device="cpu",
                                         vectors=ti.vectors)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.search(qs[0])
+        je = jengine.SearchEngine.build(ji.ivf, k=K, n_probe=4,
+                                        vectors=ji.vectors)
+        _assert_single_same(je.search(jnp.asarray(qs[0])), eng.search(qs[0]))
         return
     if call == "tuned":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -142,19 +157,28 @@ def test_engine_unported_paths_raise(setup, call, tmp_path):
             eng = engine.SearchEngine.build(
                 ti, k=K, n_probe=4, mesh=distributed.make_mesh((1,)))
             assert eng.mesh is not None and eng.layout is None
-            for bad in (lambda: eng.search(qs[0]),
-                        lambda: eng.with_live(np.ones(N, bool))):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    bad()
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                eng.with_live(np.ones(N, bool))
+            # a single query is the sharded engine's singleton batch
+            res = eng.search(qs[0])
+            want = eng.search(qs[:1])
+            assert res.ids.shape == (K,)
+            assert torch.equal(res.ids, want.ids[0])
+            assert torch.equal(res.n_reranked, want.n_reranked[0])
         finally:
             tdist.destroy_process_group()
         return
+    if call == "single":
+        # n_probe wide enough that the probed rows hold n_cand (the
+        # reference's single-query selection needs it)
+        eng = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE,
+                                        device="cpu")
+        je = jengine.SearchEngine.build(ji, k=K, n_probe=N_PROBE)
+        _assert_single_same(je.search(jnp.asarray(qs[0])), eng.search(qs[0]))
+        return
     eng = engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "single":
-            eng.search(qs[0])
-        else:
-            eng.with_live(np.ones(N, bool))
+        eng.with_live(np.ones(N, bool))
 
 
 def test_serve_cli_cpu(capsys):
@@ -172,7 +196,7 @@ def test_serve_cli_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--mode", "async"],
                                   ["--shards", "2", "--mode", "async"],
-                                  ["--batch", "1"], ["--tuned", "auto"]])
+                                  ["--mode", "net"], ["--tuned", "auto"]])
 def test_serve_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(["--device", "cpu", *flag])

@@ -153,14 +153,36 @@ def test_sharded_naive_matches_reference(data, meshes, kind):
 
 
 def test_sharded_engine_refuses_what_is_not_ported(data, meshes):
-    _, te = _engines(data, meshes, "pq")
+    """Tombstones and a device the mesh cannot carry are refused; a single
+    query, once refused here, is ported: the sharded engine serves it as a
+    singleton batch, as the JAX mesh engine's single call does."""
+    je, te = _engines(data, meshes, "pq")
     with pytest.raises(NotImplementedError):
         te.with_live(np.ones(N, bool))
-    with pytest.raises(NotImplementedError):
-        te.search(data["qs"][0])
+    q = data["qs"][0]
+    jr, tr = je.search(jnp.asarray(q)), te.search(q)
+    assert tr.ids.shape == (K,)
+    _assert_same(jax.tree.map(lambda a: a[None], jr),
+                 search.SearchResult(*(t[None] for t in tr)))
     with pytest.raises(ValueError, match="mesh"):
         engine.SearchEngine.build(data["tpq"], k=K, n_probe=N_PROBE,
                                   mesh=meshes[0], device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["ivf", "pq", "rq"])
+def test_sharded_single_query_matches_reference(data, meshes, kind):
+    """A (d,) query on the one-rank gloo mesh against the JAX engine's
+    single call on its one-device mesh, static and predictive from cold."""
+    je, te = _engines(data, meshes, kind)
+    js, ts = je.predictor_init(), te.predictor_init()
+    for q in data["qs"][:2]:
+        jr, tr = je.search(jnp.asarray(q)), te.search(q)
+        _assert_same(jax.tree.map(lambda a: a[None], jr),
+                     search.SearchResult(*(t[None] for t in tr)))
+        jr, js = je.search(jnp.asarray(q), pred_state=js)
+        tr, ts = te.search(q, pred_state=ts)
+        _assert_same(jax.tree.map(lambda a: a[None], jr),
+                     search.SearchResult(*(t[None] for t in tr)))
 
 
 def test_mesh_refuses_a_device_its_backend_cannot_carry(meshes):
