@@ -14,7 +14,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      collector and the compaction: every output bitwise, at cold, full and
      mixed thresholds and an overflowing budget; the RaBitQ estimator
      bitwise at the JAX kernel test's shapes and in its tile form; the
-     single-query forms at B=1 at the JAX single-kernel tests' shapes);
+     single-query forms at B=1 at the JAX single-kernel tests' shapes; the
+     exact-distance and ADC kernels bitwise, also across their query
+     tiles, ragged row tiles and coordinate chunks, on unaligned views);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card, 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
@@ -31,7 +33,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      clusters);
   7. each kernel's time at its path's full-width shapes beside its bound,
      its plain version's and (where one exists) one PyTorch call's (the
-     single-query kernels at phase 12's shapes);
+     single-query kernels at phase 12's shapes); for #2 and #3 also the
+     ceiling their numerics leave (shared memory, instruction issue) and
+     the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
      IVF+PQ, IVF+PQ+BBC predictive (singleton batches from cold),
      IVF+RaBitQ+BBC, the IVF+RaBitQ threshold baseline, IVF BBC and IVF
@@ -77,6 +81,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# The ceilings of #3 and #2, whose numerics fix their instruction mix (see
+# l2_rerank.cu and pq_adc.cu): separate fp32 instructions a second (132 SMs
+# x 128 lanes x 1.98 GHz boost) and 4-byte shared-memory words a second
+# (132 SMs x 32 banks x 1.98 GHz).
+FP32_ISSUE_PER_S = 132 * 128 * 1.98e9
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
+# #2, #3, #10 and #11 before the tiled kernels (one thread per row, commit
+# a8dde8d; NVIDIA H100 80GB HBM3 at 700 W; wrapper call, CUDA events).
+ROW_KERNEL_MS = {"pq_adc_batch": 0.2753, "l2_exact_batch": 0.9324,
+                 "pq_adc": 0.0238, "l2_exact": 0.0456}
 SEED = 0
 DEV = "cuda"
 
@@ -163,6 +177,21 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
                if e.device_type == cuda_type and kernel in e.name) / 1e3 / reps
 
 
+def under_load(fn, ms_per_call: float, seconds: float = 1.0) -> str:
+    """The card's SM clock, power draw and power-cap throttle flag, read by
+    ``nvidia-smi`` while about ``seconds`` of ``fn`` calls run."""
+    import torch
+    for _ in range(max(1, int(seconds / (ms_per_call * 1e-3)))):
+        fn()
+    time.sleep(seconds / 2)
+    reading = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+         "clocks_throttle_reasons.sw_power_cap", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.strip()
+    torch.cuda.synchronize()
+    return reading
+
+
 def max_abs(a, b) -> float:
     """Largest |a - b| over lanes finite in both; +inf lanes must match."""
     import torch
@@ -244,8 +273,9 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
 
     adc = ops.pq_adc_batch(a["codes"], a["luts"])
     torch.cuda.synchronize()
-    e = close(adc, ref.pq_adc_batch(a["codes"], a["luts"]), 1e-5,
-              f"{tag} pq_adc")
+    p_adc = ref.pq_adc_batch(a["codes"], a["luts"])
+    e = close(adc, p_adc, 1e-5, f"{tag} pq_adc")
+    check(torch.equal(adc, p_adc), f"{tag} pq_adc not bitwise equal")
     errs["pq_adc_batch"] = max(errs.get("pq_adc_batch", 0.0), e)
 
     l2 = ops.l2_exact_batch(a["vectors"], a["qs"])
@@ -264,8 +294,69 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
         errs.get("bucket_hist_batch", 0.0),
         float((bkt - r_bucket).abs().max().item()))
     log(f"[kernels] {tag}: fused est err {e1:.3g} early err {e2:.3g}, "
-        f"pq_adc err {errs['pq_adc_batch']:.3g}, l2 err "
+        f"pq_adc err {errs['pq_adc_batch']:.3g} (bitwise), l2 err "
         f"{errs['l2_exact_batch']:.3g} (bitwise), bucket/hist/nmiss equal")
+
+
+# Shapes that cross the tiled l2 and ADC kernels' edges: query tiles (B
+# past 8, 16, 32 and a multiple of 32), ragged row tiles, coordinate chunks
+# (d not a multiple of 64 or of 4, d = 960), the runtime-stride ADC (M=33,
+# K=256, and M=128, K=256 at one query a tile) and the B=1 forms.  Each
+# runs on aligned tensors and on views one element into a buffer, which
+# take the narrow copies.
+L2_EDGES = ((2, 20_001, 96), (33, 1000, 100), (64, 20_001, 960),
+            (17, 129, 4), (9, 300, 99), (1, 1000, 960), (1, 777, 36))
+ADC_EDGES = ((2, 20_001, 24, 16), (33, 1000, 33, 16), (64, 20_001, 24, 16),
+             (32, 20_001, 32, 256), (5, 3000, 128, 256), (1, 777, 32, 16),
+             (1, 1000, 33, 256))
+
+
+def check_tile_edges(errs: dict) -> None:
+    """#2 and #3 (and their B=1 forms) bitwise against their plain
+    versions at ``L2_EDGES`` and ``ADC_EDGES``; each ADC plan's shared
+    memory equal to the kernel's layout."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(SEED + 7)
+    lib = ops._lib("pq_adc")
+
+    def cu(a, shift):       # shift = 1: a view one element into a buffer
+        flat = torch.zeros(a.size + shift, dtype=torch.from_numpy(a).dtype,
+                           device=DEV)
+        flat[shift:] = torch.from_numpy(a.ravel()).to(DEV)
+        return flat[shift:].view(a.shape)
+
+    for b, n, d in L2_EDGES:
+        for shift in (0, 1):
+            x = cu(rng.standard_normal((n, d)).astype(np.float32), shift)
+            q = cu(rng.standard_normal((b, d)).astype(np.float32), shift)
+            got = ops.l2_exact_batch(x, q)
+            torch.cuda.synchronize()
+            want = ref.l2_exact_batch(x, q)
+            check(torch.equal(got, want), f"l2 B={b} n={n} d={d} "
+                  f"shift={shift} ({ops._l2_plan(b, n, d)}) not bitwise")
+            key = "l2_exact" if b == 1 else "l2_exact_batch"
+            errs[key] = max(errs.get(key, 0.0), max_abs(got, want))
+    for b, n, m_sub, k_codes in ADC_EDGES:
+        p = ops._adc_plan(b, n, m_sub, k_codes)
+        check(p.smem == lib.pq_adc_tiled_smem_bytes(
+            p.qt, m_sub, k_codes, p.staged), f"pq_adc plan {p}: shared "
+              f"memory differs from the kernel's layout")
+        for shift in (0, 1):
+            codes = cu(rng.integers(0, k_codes, (n, m_sub)).astype(np.uint8),
+                       shift)
+            luts = cu((rng.random((b, m_sub, k_codes)) * 2).astype(
+                np.float32), shift)
+            got = ops.pq_adc_batch(codes, luts)
+            torch.cuda.synchronize()
+            want = ref.pq_adc_batch(codes, luts)
+            check(torch.equal(got, want), f"pq_adc B={b} n={n} M={m_sub} "
+                  f"K={k_codes} shift={shift} ({p}) not bitwise")
+            key = "pq_adc" if b == 1 else "pq_adc_batch"
+            errs[key] = max(errs.get(key, 0.0), max_abs(got, want))
+    log(f"[kernels] tile edges: l2 (B, n, d) in {L2_EDGES} and pq_adc "
+        f"(B, n, M, K) in {ADC_EDGES}, aligned and unaligned: bitwise")
 
 
 def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625):
@@ -1284,7 +1375,9 @@ def timing(a) -> dict:
     out["pq_adc_batch"] = dict(
         ms=cuda_ms(lambda: ops.pq_adc_batch(c, lt), 20),
         plain_ms=cuda_ms(lambda: ref.pq_adc_batch(c, lt), 3, warm=1),
-        library_ms=None)
+        library_ms=None,
+        ceiling_ms=1e3 * b * n * m_sub / SMEM_WORDS_PER_S,
+        ceiling_by="shared memory")
     out["pq_adc_batch"]["bound_ms"], out["pq_adc_batch"]["bound_by"] = bound(
         n * m_sub + 4 * b * m_sub * k_codes + 4 * b * n, b * n * m_sub)
 
@@ -1292,9 +1385,13 @@ def timing(a) -> dict:
     out["l2_exact_batch"] = dict(
         ms=cuda_ms(lambda: ops.l2_exact_batch(x, q), 20),
         plain_ms=cuda_ms(lambda: ref.l2_exact_batch(x, q), 5, warm=1),
-        library_ms=cuda_ms(lambda: torch.cdist(q, x), 5, warm=1))
+        library_ms=cuda_ms(lambda: torch.cdist(q, x), 5, warm=1),
+        ceiling_ms=1e3 * 3 * b * n * d / FP32_ISSUE_PER_S, ceiling_by="issue")
     out["l2_exact_batch"]["bound_ms"], out["l2_exact_batch"]["bound_by"] = \
         bound(4 * n * d + 4 * b * d + 4 * b * n, 3 * b * n * d)
+    for name, fn in (("pq_adc_batch", lambda: ops.pq_adc_batch(c, lt)),
+                     ("l2_exact_batch", lambda: ops.l2_exact_batch(x, q))):
+        out[name]["under_load"] = under_load(fn, out[name]["ms"])
 
     bh = (est, a["valid"], a["d_min"], a["delta"], a["ew_maps"], m)
     out["bucket_hist_batch"] = dict(
@@ -1307,8 +1404,20 @@ def timing(a) -> dict:
     for name, t in out.items():
         log(f"[timing] {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} "
             f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
-            f"{t['library_ms']}")
+            f"{t['library_ms']}{against_row_kernel(name, t)}")
     return out
+
+
+def against_row_kernel(name: str, t: dict) -> str:
+    """The ceiling and the row kernels' time beside a #2/#3 reading."""
+    if name not in ROW_KERNEL_MS:
+        return ""
+    old = ROW_KERNEL_MS[name]
+    text = f"; row kernels (a8dde8d) {old:.4f} ms, {old / t['ms']:.2f}x"
+    if "ceiling_ms" in t:
+        text += (f"; ceiling {t['ceiling_ms']:.4f} ms by {t['ceiling_by']}; "
+                 f"under load (clock, power, power cap): {t['under_load']}")
+    return text
 
 
 def rabitq_kernel_args(eng, qs) -> dict:
@@ -1586,8 +1695,8 @@ def timing_single(a, errs: dict) -> dict:
         + 4 * (m_sub * k_codes + d + n_ew + 3), n_valid * m_sub + 3 * d * n_pred)
     calls = {"rabitq_est": (lambda: ops.rabitq_est_tiles(*args, eps0=RQ_EPS0),
                             "rabitq_est_kernel"),
-             "pq_adc": (lambda: ops.pq_adc(c, lt), "pq_adc_kernel"),
-             "l2_exact": (lambda: ops.l2_exact(x, q), "l2_kernel"),
+             "pq_adc": (lambda: ops.pq_adc(c, lt), "pq_adc_"),
+             "l2_exact": (lambda: ops.l2_exact(x, q), "l2_"),
              "bucket_hist": (lambda: ops.bucket_hist(*bh),
                              "bucket_hist_kernel"),
              "fused_scan": (lambda: ops.fused_scan(*fargs),
@@ -1597,7 +1706,8 @@ def timing_single(a, errs: dict) -> dict:
     for name, tm in out.items():
         log(f"[timing] {name}: {tm['ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
             f"ms by {tm['bound_by']}), plain {tm['plain_ms']:.4f} ms, library "
-            f"{tm['library_ms']}; work {tm['work']}")
+            f"{tm['library_ms']}; work {tm['work']}"
+            f"{against_row_kernel(name, tm)}")
     return out
 
 
@@ -1679,7 +1789,8 @@ def main(argv=None) -> int:
     log(f"[build] {len(_build.KERNELS)} kernels in {summary['build_s']:.1f}s")
     for kname, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"[ptxas] {kname}: {line.strip()}")
 
     errs: dict = {}
@@ -1689,6 +1800,9 @@ def main(argv=None) -> int:
                       "main-path shapes B=32 n=1000064 M=32 d=128")
         check_kernels(kernel_inputs(rng, 3, 1000, 33, 100, m=64, density=0.9),
                       errs, "ragged B=3 n=1000 M=33 d=100")
+        check_kernels(kernel_inputs(rng, 64, 20_001, 24, 960), errs,
+                      "tile edges B=64 n=20001 M=24 d=960")
+        check_tile_edges(errs)
         check_rabitq_kernel(rabitq_kernel_inputs(SEED, 32, 1_000_064, 128,
                                                  1024),
                             errs, "full-width B=32 n=1000064 d=128 C=1024")

@@ -1,80 +1,214 @@
 // Batched ADC: shared (n, M) uint8 codes x per-query (B, M, K) LUTs ->
-// (B, n) squared estimates.
+// (B, n) squared estimates, summed from the m = 0 term in ascending m in
+// fp32, the plain version's order, so the two agree bit for bit.
 //
-// Replaces: src/repro/kernels/pq_adc.py::adc_batch_pallas.  Plain version:
-// kernels/ref.py pq_adc_batch.
+// Replaces: src/repro/kernels/pq_adc.py::adc_batch_pallas (B > 1) and
+// adc_pallas (B = 1: the same kernel with one query a tile).  Plain
+// version: kernels/ref.py pq_adc_batch.
 //
-// What bounds it on an H100: device-memory bytes.  It reads n*M code bytes
-// once and writes 4*B*n bytes of estimates; B*n*M fp32 adds and as many
-// shared-memory lookups are cheap beside that.  At B=32, M=32 the write is
-// four times the read.
+// What bounds it on an H100.  By the roofline, device-memory bytes: n*M
+// code bytes read once and 4*B*n bytes of estimates written (0.048 ms at
+// B=32, n=1M, M=32, K=16).  Beyond that, shared memory: the B*n*M LUT
+// lookups are gathers by code byte, and shared memory serves at most 32
+// fp32 words per SM per clock, ~0.13 ms for 1.07e9 lookups on 132 SMs at
+// 1.98 GHz: the ceiling this kernel works against.  The B*n*M fp32 adds
+// (0.03 ms of issue) are cheaper.
 //
-// What the design does about it.  The B LUTs sit in shared memory (BQ
-// queries per block) and are indexed by the code byte directly, not through
-// the one-hot MXU matmul the Pallas kernel uses.  One thread owns one lane,
-// reads its code row once per query chunk (contiguous rows, so the warp's
-// reads are whole sectors through L1) and writes BQ coalesced outputs.  The
-// sum runs in ascending m, as the plain version's does, so the two agree
-// bit for bit.
+// What the design does about it.  Persistent blocks (two per SM) stage
+// the LUTs of a query tile in shared memory once, as
+// [query][m][k] (all of B = 32 at M=32, K=16: 64 KB), then walk their row
+// tiles of 256 code rows.  A tile's 256*M contiguous code bytes come
+// through a 2-stage ring of 16-byte cp.async copies, so the codes are
+// read from device memory once per query tile (once per call on the
+// paths), coalesced, while the previous tile is summed.  A thread owns one
+// row: it reads its M codes from shared memory 16 (M=32) or 8 (M=24) bytes
+// at a time, and for each m computes the LUT offset m*K + code once and
+// reads the TN queries' entries at the fixed stride M*K.  A warp's 32
+// lanes read at most K = 16 distinct words of one (query, m) LUT row, one
+// shared-memory wavefront, and their stores are 32 consecutive rows of
+// one query, one 128-byte line.  The kernel is specialised on (M, K) =
+// (32, 16) and (24, 16), the paths' shapes, so every offset is an
+// immediate; a runtime-stride instantiation takes any other shape (the
+// 8-bit K=256 regime too, with fewer queries per tile).  When a query's
+// LUT leaves no room for the ring, that instantiation reads its codes
+// from device memory directly.
 #include "scan_common.cuh"
 
 namespace {
 
-template <int BQ>
-__global__ void __launch_bounds__(bbc::kThreads)
-pq_adc_kernel(const uint8_t* __restrict__ codes,
-              const float* __restrict__ luts, float* __restrict__ out, int n,
-              int M, int K, int B) {
-  extern __shared__ float lut_s[];                       // BQ * M * K
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, B - q0);
+constexpr int kRowsA = bbc::kThreads;   // code rows per tile: one a thread
+constexpr int kStagesA = 2;              // code ring depth
+
+__host__ __device__ inline int lut_words(int qt, int mk) {
+  return (qt * mk + 3) & ~3;     // floats, rounded to 16 bytes
+}
+
+// The tiled kernel.  MS/KS: compile-time M and K, or 0 for runtime ones.
+// flags: bit 0 codes staged through the ring, bit 1 16-byte code copies
+// (16-byte aligned codes).
+// Two blocks per SM: what the paths' 80 KB of shared memory allows, and a
+// register budget (128) under which no instantiation spills.
+template <int MS, int KS, int TN>
+__global__ void __launch_bounds__(bbc::kThreads, 2)
+pq_adc_tiled_kernel(const uint8_t* __restrict__ codes,
+                    const float* __restrict__ luts, float* __restrict__ out,
+                    int n, int m_rt, int k_rt, int B, int qt, int flags) {
+  const int M = MS ? MS : m_rt;
+  const int K = KS ? KS : k_rt;
   const int mk = M * K;
-  bbc::stage_rows(lut_s, luts, q0, nq, mk);
-  __syncthreads();
-  for (int tile = blockIdx.y; tile * bbc::kThreads < n; tile += gridDim.y) {
-    const int lane = tile * bbc::kThreads + threadIdx.x;
-    if (lane >= n) continue;
-    float acc[BQ];
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) acc[j] = 0.f;
-    const uint8_t* crow = codes + static_cast<size_t>(lane) * M;
-    for (int mm = 0; mm < M; ++mm) {
-      const float* l = lut_s + mm * K + crow[mm];
-#pragma unroll
-      for (int j = 0; j < BQ; ++j) acc[j] += l[j * mk];
+  const bool staged = flags & 1, vec = flags & 2;
+  extern __shared__ uint4 smem_u4[];
+  float* lut_s = reinterpret_cast<float*>(smem_u4);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(lut_s + lut_words(qt, mk));
+  const int tile_bytes = kRowsA * M;               // a multiple of 16
+  const size_t total = static_cast<size_t>(n) * M;
+  const int n_tiles = (n + kRowsA - 1) / kRowsA;
+  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+      ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
+  const int tid = threadIdx.x;
+
+  auto load_codes = [&](int j) {
+    const size_t base = static_cast<size_t>(blockIdx.x + j * gridDim.x)
+                        * tile_bytes;
+    uint8_t* dst = ring + (j & 1) * tile_bytes;
+    if (vec) {
+      for (int i = 16 * tid; i < tile_bytes; i += 16 * bbc::kThreads) {
+        const size_t a = base + i;
+        const int nb = a + 16 <= total ? 16
+                       : a < total ? static_cast<int>(total - a) : 0;
+        bbc::cp_async16(dst + i, nb ? codes + a : codes, nb);
+      }
+    } else {
+      for (int i = tid; i < tile_bytes; i += bbc::kThreads) {
+        const size_t a = base + i;
+        dst[i] = a < total ? codes[a] : 0;
+      }
     }
+  };
+
+  for (int q0 = 0; q0 < B; q0 += qt) {
+    const int nq_words = min(qt, B - q0) * mk;
+    const float* src = luts + static_cast<size_t>(q0) * mk;
+    __syncthreads();                 // the previous query tile is summed
+    for (int i = tid; i < qt * mk; i += bbc::kThreads)   // zeros past B
+      bbc::cp_async4(lut_s + i, i < nq_words ? src + i : luts,
+                     i < nq_words ? 4 : 0);
+    if (staged && my_tiles > 0) load_codes(0);
+    bbc::cp_async_commit();
+    for (int j = 0; j < my_tiles; ++j) {
+      if (staged && j + 1 < my_tiles) load_codes(j + 1);
+      bbc::cp_async_commit();
+      bbc::cp_async_wait<1>();       // the LUTs and tile j have landed
+      __syncthreads();
+      const int row = (blockIdx.x + j * gridDim.x) * kRowsA + tid;
+      if (row < n) {
+        const uint8_t* crow = staged
+            ? ring + (j & 1) * tile_bytes + tid * M
+            : codes + static_cast<size_t>(row) * M;
+        [[maybe_unused]] uint32_t w[MS ? MS / 4 : 1];   // 4 codes a word
+        if constexpr (MS == 32) {
+          const uint4* c4 = reinterpret_cast<const uint4*>(crow);
+          const uint4 a = c4[0], b = c4[1];
+          w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+          w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+        } else if constexpr (MS == 24) {
+          const uint2* c2 = reinterpret_cast<const uint2*>(crow);
 #pragma unroll
-    for (int j = 0; j < BQ; ++j)
-      if (j < nq) out[static_cast<size_t>(q0 + j) * n + lane] = acc[j];
+          for (int t = 0; t < 3; ++t) {
+            const uint2 a = c2[t];
+            w[2 * t] = a.x;
+            w[2 * t + 1] = a.y;
+          }
+        }
+        for (int g = 0; g < qt; g += TN) {
+          const float* lut = lut_s + g * mk;
+          float acc[TN];
+          if constexpr (MS != 0) {           // codes from registers
+            const int c0 = w[0] & 0xff;
+#pragma unroll
+            for (int t = 0; t < TN; ++t) acc[t] = lut[t * mk + c0];
+#pragma unroll
+            for (int m = 1; m < MS; ++m) {
+              const float* l =
+                  lut + m * K + ((w[m >> 2] >> (8 * (m & 3))) & 0xff);
+#pragma unroll
+              for (int t = 0; t < TN; ++t)
+                acc[t] = __fadd_rn(acc[t], l[t * mk]);
+            }
+          } else {                           // runtime M: code by code
+            const int c0 = crow[0];
+#pragma unroll
+            for (int t = 0; t < TN; ++t) acc[t] = lut[t * mk + c0];
+            for (int m = 1; m < M; ++m) {
+              const float* l = lut + m * K + crow[m];
+#pragma unroll
+              for (int t = 0; t < TN; ++t)
+                acc[t] = __fadd_rn(acc[t], l[t * mk]);
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < TN; ++t)
+            if (q0 + g + t < B)
+              out[static_cast<size_t>(q0 + g + t) * n + row] = acc[t];
+        }
+      }
+      __syncthreads();               // slot j & 1 is refilled for tile j + 2
+    }
   }
 }
 
-template <int BQ>
-int launch(const uint8_t* codes, const float* luts, float* out, int n, int M,
-           int K, int B, int tiles, int smem, cudaStream_t stream) {
-  cudaError_t err = bbc::allow_smem(pq_adc_kernel<BQ>, smem);
+template <int MS, int KS, int TN>
+int launch_tiled(const uint8_t* codes, const float* luts, float* out, int n,
+                 int M, int K, int B, int qt, int flags, int grid, int smem,
+                 cudaStream_t stream) {
+  auto kernel = pq_adc_tiled_kernel<MS, KS, TN>;
+  cudaError_t err = bbc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + BQ - 1) / BQ, tiles);
-  pq_adc_kernel<BQ><<<grid, bbc::kThreads, smem, stream>>>(codes, luts, out,
-                                                           n, M, K, B);
+  kernel<<<grid, bbc::kThreads, smem, stream>>>(codes, luts, out, n, M, K, B,
+                                                qt, flags);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MS, int KS>
+int launch_tn(const uint8_t* codes, const float* luts, float* out, int n,
+              int M, int K, int B, int tn, int qt, int flags, int grid,
+              int smem, cudaStream_t stream) {
+  switch (tn) {
+    case 8: return launch_tiled<MS, KS, 8>(codes, luts, out, n, M, K, B, qt,
+                                           flags, grid, smem, stream);
+    case 4: return launch_tiled<MS, KS, 4>(codes, luts, out, n, M, K, B, qt,
+                                           flags, grid, smem, stream);
+    case 2: return launch_tiled<MS, KS, 2>(codes, luts, out, n, M, K, B, qt,
+                                           flags, grid, smem, stream);
+    case 1: return launch_tiled<MS, KS, 1>(codes, luts, out, n, M, K, B, qt,
+                                           flags, grid, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-extern "C" int pq_adc_smem_bytes(int bq, int M, int K) {
-  return 4 * bq * M * K;
+// The shared memory the tiled kernel's layout needs: the query tile's LUTs
+// (rounded to 16 bytes) and, when staged, the code ring.
+extern "C" int pq_adc_tiled_smem_bytes(int qt, int M, int K, int staged) {
+  return 4 * lut_words(qt, M * K) + (staged ? kStagesA * kRowsA * M : 0);
 }
 
+// The tiled kernel, TN queries per thread, qt per query tile, `grid`
+// persistent blocks.  A shared-memory size below the layout's is refused.
 extern "C" int pq_adc_batch_launch(const uint8_t* codes, const float* luts,
                                    float* out, int n, int M, int K, int B,
-                                   int bq, int tiles, int smem,
-                                   cudaStream_t stream) {
-  switch (bq) {
-    case 8: return launch<8>(codes, luts, out, n, M, K, B, tiles, smem, stream);
-    case 4: return launch<4>(codes, luts, out, n, M, K, B, tiles, smem, stream);
-    case 2: return launch<2>(codes, luts, out, n, M, K, B, tiles, smem, stream);
-    case 1: return launch<1>(codes, luts, out, n, M, K, B, tiles, smem, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                   int tn, int qt, int flags, int grid,
+                                   int smem, cudaStream_t stream) {
+  if (qt < 1 || qt % tn
+      || smem < pq_adc_tiled_smem_bytes(qt, M, K, flags & 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((flags & 1) && K == 16 && M == 32)
+    return launch_tn<32, 16>(codes, luts, out, n, M, K, B, tn, qt, flags,
+                             grid, smem, stream);
+  if ((flags & 1) && K == 16 && M == 24)
+    return launch_tn<24, 16>(codes, luts, out, n, M, K, B, tn, qt, flags,
+                             grid, smem, stream);
+  return launch_tn<0, 0>(codes, luts, out, n, M, K, B, tn, qt, flags, grid,
+                         smem, stream);
 }

@@ -19,11 +19,19 @@ signatures; the first four launch their batched kernel at B = 1.
 one of the four batched PQ/l2/bucket kernels at B = 1 counts under its
 single-query key, whichever wrapper made it; B > 1 under the ``*_batch``
 key.
+
+The launch shape of the exact-distance and ADC kernels is a plain function
+of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
+thread and a query tile hold, the grid and the shared memory; one kernel
+each serves every B.  The CPU tests check the plans; the kernels refuse a
+shared-memory size below their layout's.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +48,17 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
 LANE_TILE = 256        # threads per block = lanes per tile
+SMEM_PER_SM = 233472   # 228 KB: the shared memory of one SM, for occupancy
+SMS = 132              # SMs of an H100 SXM (the plans' default)
+# l2_rerank.cu's tiled layout: rows per block, coordinates per chunk, the
+# ring depth, and the padded chunk stride
+L2_ROWS, L2_CHUNK, L2_STAGES = 128, 64, 2
+L2_LD = L2_CHUNK + 4
+# pq_adc.cu's tiled layout: code rows per tile, ring depth; the LUT bytes a
+# block may stage (two blocks per SM at B = 32, M = 32, K = 16) and the
+# blocks an SM holds at most (the kernel's __launch_bounds__)
+ADC_ROWS, ADC_STAGES, ADC_LUT_BUDGET = 256, 2, 96 * 1024
+ADC_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -47,11 +66,10 @@ _SIGNATURES = {
         "fused_scan_batch_launch": [_P] * 14 + [_I] * 10 + [_P],
         "fused_scan_smem_bytes": [_I] * 6},
     "pq_adc": {
-        "pq_adc_batch_launch": [_P] * 3 + [_I] * 7 + [_P],
-        "pq_adc_smem_bytes": [_I] * 3},
+        "pq_adc_batch_launch": [_P] * 3 + [_I] * 9 + [_P],
+        "pq_adc_tiled_smem_bytes": [_I] * 4},
     "l2_rerank": {
-        "l2_exact_batch_launch": [_P] * 3 + [_I] * 6 + [_P],
-        "l2_smem_bytes": [_I] * 2},
+        "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P]},
     "bucket_hist": {
         "bucket_hist_batch_launch": [_P] * 7 + [_I] * 6 + [_P],
         "bucket_hist_smem_bytes": [_I] * 2},
@@ -138,6 +156,70 @@ def _tiles(n: int) -> int:
     return max(1, min((n + LANE_TILE - 1) // LANE_TILE, MAX_TILES))
 
 
+class Plan(NamedTuple):
+    """One launch of the exact-distance or ADC kernel."""
+    tn: int              # queries per thread
+    qt: int              # queries per query tile (looped inside a block)
+    grid: int            # blocks
+    smem: int            # dynamic shared memory, bytes
+    staged: bool = True  # ADC: codes through the shared-memory ring
+
+
+def _pow2_at_least(b: int, cap: int) -> int:
+    p = 1
+    while p < min(b, cap):
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=4096)
+def _l2_plan(b: int, n: int, d: int) -> Plan:
+    """The exact-distance launch for B queries over (n, d) rows: TN = 1, 2
+    or 4 queries per thread, query tiles of 8, 16 or 32 (the narrowest that
+    holds B, looped inside the block past 32), one block per 128 rows."""
+    tn = _pow2_at_least(-(-b // 8), 4)
+    return Plan(tn, 8 * tn, max(1, -(-n // L2_ROWS)),
+                L2_STAGES * (L2_ROWS + 8 * tn) * L2_LD * 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def _adc_plan(b: int, n: int, m_sub: int, k_codes: int,
+              sms: int = SMS) -> Plan:
+    """The ADC launch for B queries over (n, M) codes with (B, M, K) LUTs,
+    one kernel at every B: TN = 1-8 queries per thread and as many queries
+    per tile as ``ADC_LUT_BUDGET`` (or one query's LUT, if larger) holds;
+    the codes go through the ring when it fits beside the LUTs; one
+    persistent block per row tile, at most ``ADC_BLOCKS_PER_SM`` on each SM
+    and fewer where the shared memory holds fewer.
+    Raises when one query's LUT exceeds a block's shared memory."""
+    per_q = 4 * m_sub * k_codes
+    budget = max(ADC_LUT_BUDGET, per_q)
+    tn = _pow2_at_least(b, 8)
+    while tn > 1 and tn * per_q > budget:
+        tn //= 2
+    qt = min(-(-b // tn) * tn, budget // per_q // tn * tn)
+    lut = 4 * (-(-qt * m_sub * k_codes // 4) * 4)
+    ring = ADC_STAGES * ADC_ROWS * m_sub
+    staged = lut + ring <= MAX_SMEM
+    smem = lut + ring * staged
+    if smem > MAX_SMEM:
+        raise ValueError(f"pq_adc: one query's LUT (M={m_sub}, K={k_codes}) "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"the {MAX_SMEM} a block may use")
+    blocks = max(1, min(ADC_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    return Plan(tn, qt, max(1, min(-(-n // ADC_ROWS), sms * blocks)), smem,
+                staged)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -165,11 +247,12 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, n, dtype=torch.float32, device=codes.device)
     if b == 0 or n == 0:
         return out
-    lib = _lib("pq_adc")
-    bq, smem = _pick_bq(b, lambda q: lib.pq_adc_smem_bytes(q, m_sub, k_codes))
-    rc = lib.pq_adc_batch_launch(codes.data_ptr(), luts.data_ptr(),
-                                 out.data_ptr(), n, m_sub, k_codes, b, bq,
-                                 _tiles(n), smem, _stream())
+    p = _adc_plan(b, n, m_sub, k_codes, _sms(codes.device.index))
+    # bit 0: codes through the ring; bit 1: 16-byte code copies
+    flags = p.staged | 2 * _aligned(codes)
+    rc = _lib("pq_adc").pq_adc_batch_launch(
+        codes.data_ptr(), luts.data_ptr(), out.data_ptr(), n, m_sub, k_codes,
+        b, p.tn, p.qt, flags, p.grid, p.smem, _stream())
     _check(rc, "pq_adc_batch")
     _count("pq_adc", b)
     return out
@@ -186,11 +269,11 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, n, dtype=torch.float32, device=x.device)
     if b == 0 or n == 0:
         return out
-    lib = _lib("l2_rerank")
-    bq, smem = _pick_bq(b, lambda q: lib.l2_smem_bytes(q, d))
-    rc = lib.l2_exact_batch_launch(x.data_ptr(), qs.data_ptr(),
-                                   out.data_ptr(), n, d, b, bq, _tiles(n),
-                                   smem, _stream())
+    p = _l2_plan(b, n, d)
+    vec = d % 4 == 0 and _aligned(x, qs)     # 16-byte copies
+    rc = _lib("l2_rerank").l2_exact_batch_launch(
+        x.data_ptr(), qs.data_ptr(), out.data_ptr(), n, d, b, p.tn, vec,
+        p.grid, p.smem, _stream())
     _check(rc, "l2_exact_batch")
     _count("l2_exact", b)
     return out

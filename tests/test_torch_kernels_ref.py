@@ -1,11 +1,13 @@
 """The port's kernel mirrors (repro_torch.kernels.ref) against the JAX
 package's oracles (repro.kernels.ref) on the JAX kernel tests' shapes, the
-wrappers' device routing, and (on a card) each CUDA kernel against its
-plain version.
+wrappers' device routing, the launch plans of the exact-distance and ADC
+kernels, and (on a card) each CUDA kernel against its plain version.
 
-Float bars are the JAX kernel tests': rtol=atol=1e-5 for the ADC and fused
-estimates, 1e-4 for the early exact distances, 2e-4 for l2.  Integer
-outputs are held equal where both sides bucketize the same estimate.
+Float bars against JAX are the JAX kernel tests': rtol=atol=1e-5 for the
+ADC and fused estimates, 1e-4 for the early exact distances, 2e-4 for l2.
+Integer outputs are held equal where both sides bucketize the same
+estimate.  On a card the ADC and l2 kernels equal their plain versions bit
+for bit (the same order and roundings).
 """
 import numpy as np
 import pytest
@@ -140,8 +142,9 @@ def test_mixed_devices_raise():
                                          (3, 1000, 100, 33)])
 def test_cuda_kernels_match_plain(rng, cuda, b, n, d, m_sub):
     """Each CUDA kernel against its plain version on the same card tensors:
-    estimates bit-identical, exact distances within the JAX bars, integer
-    outputs equal to the plain version run on the kernel's estimate."""
+    estimates and exact distances bit-identical, integer outputs equal to
+    the plain version run on the kernel's estimate; each of the four
+    kernels launched once."""
     m = 64
     codes = _t(rng.integers(0, 16, (n, m_sub)).astype(np.uint8)).to(cuda)
     vectors = _t(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
@@ -162,11 +165,13 @@ def test_cuda_kernels_match_plain(rng, cuda, b, n, d, m_sub):
     bkt, h = ops.bucket_hist_batch(est, valid, cb.d_min, cb.delta, cb.ew_map,
                                    m)
     torch.cuda.synchronize()
-    assert all(v == 1 for v in ops.LAUNCHES.values())
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "fused_scan_batch": 1, "pq_adc_batch": 1, "l2_exact_batch": 1,
+        "bucket_hist_batch": 1}
     assert torch.equal(est, est0)
     assert torch.equal(adc, ref.pq_adc_batch(codes, luts))
     plain_l2 = ref.l2_exact_batch(vectors, qs)
-    torch.testing.assert_close(l2, plain_l2, rtol=2e-4, atol=2e-4)
+    assert torch.equal(l2, plain_l2)
     rb_, rh = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
                                     cb.ew_map, m)
     assert torch.equal(bucket, rb_) and torch.equal(bkt, rb_)
@@ -176,3 +181,121 @@ def test_cuda_kernels_match_plain(rng, cuda, b, n, d, m_sub):
     assert torch.equal(nmiss, (valid & ~pred).sum(1).to(torch.int32))
     torch.testing.assert_close(early[pred], plain_l2[pred], rtol=1e-4,
                                atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# launch plans of the exact-distance (#3, #11) and ADC (#2, #10) kernels
+# --------------------------------------------------------------------------
+
+PLAN_BS = [1, 2, 32, 33, 256]
+PLAN_DS = [4, 100, 128, 960]
+PLAN_MKS = [(24, 16), (32, 16), (33, 16), (24, 256), (32, 256), (128, 256)]
+PLAN_NS = [1, 1000, 20_001, 1_000_064]
+
+
+def _covers(b, qt, per_tile):
+    """Every query in [0, b) once: query tiles at multiples of qt, each
+    tile's ``per_tile`` queries (the threads' queries, padding included)."""
+    seen = [q0 + q for q0 in range(0, b, qt) for q in per_tile if q0 + q < b]
+    return sorted(seen) == list(range(b))
+
+
+@pytest.mark.parametrize("b", PLAN_BS)
+def test_l2_plan(b):
+    for d in PLAN_DS + [60_000]:   # 60,000: past the old B=1 kernel's reach
+        for n in PLAN_NS:
+            p = ops._l2_plan(b, n, d)
+            assert p.smem <= ops.MAX_SMEM
+            assert p.tn in (1, 2, 4) and p.qt == 8 * p.tn
+            # the narrowest tile that holds B, up to 32 queries; B = 1 takes
+            # the 8-query tile
+            assert p.qt == min(32, max(8, 1 << (b - 1).bit_length()))
+            # threads hold queries warp + 8j, j < TN: the tile's qt queries
+            assert _covers(b, p.qt, [w + 8 * j for w in range(8)
+                                     for j in range(p.tn)])
+            assert p.grid * ops.L2_ROWS >= n > (p.grid - 1) * ops.L2_ROWS
+            assert p.smem == ops.L2_STAGES * (ops.L2_ROWS + p.qt) \
+                * ops.L2_LD * 4
+
+
+@pytest.mark.parametrize("b", PLAN_BS)
+def test_adc_plan(b):
+    for m_sub, k_codes in PLAN_MKS:
+        for n in PLAN_NS:
+            p = ops._adc_plan(b, n, m_sub, k_codes)
+            per_q = 4 * m_sub * k_codes
+            assert p.smem <= ops.MAX_SMEM
+            assert p.tn in (1, 2, 4, 8) and p.qt % p.tn == 0
+            assert p.qt * per_q <= max(ops.ADC_LUT_BUDGET, per_q)
+            assert _covers(b, p.qt, range(p.qt))
+            lut = 4 * (-(-p.qt * m_sub * k_codes // 4) * 4)
+            ring = ops.ADC_STAGES * ops.ADC_ROWS * m_sub
+            assert p.staged and p.smem == lut + ring
+            # persistent blocks: no more than the row tiles, and at most as
+            # many as fit on the SMs at this shared memory
+            n_tiles = -(-n // ops.ADC_ROWS)
+            assert 1 <= p.grid <= n_tiles
+            assert p.grid == n_tiles or p.grid % ops.SMS == 0
+            assert p.grid <= ops.SMS * ops.ADC_BLOCKS_PER_SM
+            assert (p.grid // ops.SMS) * (p.smem + 1024) \
+                <= ops.SMEM_PER_SM or p.grid == n_tiles
+            if b == 1:       # one query a tile
+                assert (p.tn, p.qt) == (1, 1)
+            if (m_sub, k_codes) == (32, 16) and b <= 32:
+                assert p.qt >= b      # the paths' B=32 LUTs in one tile
+
+
+@pytest.mark.parametrize("m_sub,k_codes,staged", [
+    (200, 256, False), (227, 256, False), (100, 256, True), (3000, 16, False)])
+def test_adc_plan_takes_every_lut_that_fits(m_sub, k_codes, staged):
+    """Any shape whose one-query LUT (4*M*K bytes) fits a block's shared
+    memory, as the earlier kernel required, plans without raising; where
+    the code ring does not fit beside it, the codes are read from device
+    memory."""
+    assert 4 * m_sub * k_codes <= ops.MAX_SMEM
+    for b in PLAN_BS:
+        p = ops._adc_plan(b, 5000, m_sub, k_codes)
+        assert p.staged == staged and p.smem <= ops.MAX_SMEM
+        assert p.qt == 1 or staged
+
+
+def test_adc_plan_refuses_a_lut_past_shared_memory():
+    for b in (1, 32):
+        with pytest.raises(ValueError, match="shared memory"):
+            ops._adc_plan(b, 1000, 228, 256)
+
+
+L2_EDGES = [(b, n, d) for b in (2, 33, 64) for n in (1000, 20_001)
+            for d in (96, 100, 960)]
+ADC_EDGES = [(b, n, m, k) for b in (2, 33, 64) for n in (1000, 20_001)
+             for m, k in ((24, 16), (33, 16), (32, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", L2_EDGES)
+def test_cuda_l2_tiles_bitwise(rng, cuda, b, n, d):
+    """The tiled l2 kernel across query tiles, ragged row tiles and
+    coordinate chunks, equal to its plain version bit for bit."""
+    x = _t(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    qs = _t(rng.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.l2_exact_batch(x, qs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["l2_exact_batch"] == 1
+    assert torch.equal(got, ref.l2_exact_batch(x, qs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m_sub,k_codes", ADC_EDGES)
+def test_cuda_adc_tiles_bitwise(rng, cuda, b, n, m_sub, k_codes):
+    """The tiled ADC kernel across query tiles and ragged row tiles, at the
+    specialised M=24 and the runtime-stride M=33 and K=256, equal to its
+    plain version bit for bit."""
+    codes = _t(rng.integers(0, k_codes, (n, m_sub)).astype(np.uint8)).to(cuda)
+    luts = _t((rng.random((b, m_sub, k_codes)) * 2).astype(
+        np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.pq_adc_batch(codes, luts)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pq_adc_batch"] == 1
+    assert torch.equal(got, ref.pq_adc_batch(codes, luts))

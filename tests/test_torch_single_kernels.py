@@ -200,8 +200,15 @@ def test_cuda_single_query_kernels_match_plain(cuda, rng):
     q = _t(rng.standard_normal(d).astype(np.float32)).to(cuda)
     valid = _t(rng.random(n) < 0.95).to(cuda)
     lut = _t((rng.random((m_sub, 16)) * 2).astype(np.float32)).to(cuda)
+    before = dict(ops.LAUNCHES)
     assert torch.equal(ops.pq_adc(codes, lut), ref.pq_adc(codes, lut))
     assert torch.equal(ops.l2_exact(vectors, q), ref.l2_exact(vectors, q))
+    assert ops.LAUNCHES["pq_adc"] == before["pq_adc"] + 1
+    assert ops.LAUNCHES["l2_exact"] == before["l2_exact"] + 1
+    # the B=1 dispatch: the batched kernels at one query a tile (ADC) and
+    # at the 8-query tile (l2)
+    assert ops._adc_plan(1, n, m_sub, 16).qt == 1
+    assert ops._l2_plan(1, n, d).qt == 8
     est = torch.sqrt(ref.pq_adc(codes, lut))
     cb = rb.build_codebook(torch.where(valid, est, float("inf"))[None],
                            k=500, m=m)
