@@ -12,13 +12,17 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      path's shapes and at the JAX package's ragged kernel-test shapes (the
      RaBitQ scan: est/lb/ub bitwise, every integer output equal; the shard
      collector and the compaction: every output bitwise, at cold, full and
-     mixed thresholds and an overflowing budget; the RaBitQ estimator
+     mixed thresholds, an overflowing budget, the edge budgets (1, a
+     query's total, one short of it, a chunk boundary), ten repeated calls
+     and one query longer than the card's resident blocks hold; the
+     RaBitQ estimator
      bitwise at the JAX kernel test's shapes and in its tile form; the
      single-query forms at B=1 at the JAX single-kernel tests' shapes; the
      exact-distance and ADC kernels bitwise, also across their query
      tiles, ragged row tiles and coordinate chunks, on unaligned views);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
-     x 128 fp32), index built on the card, 64 queries through the fused
+     x 128 fp32), index built on the card (its k-means and PQ training run
+     twice more, and must give the same bits), 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
   9. the IVF+RaBitQ path at the same size (1024 clusters, n_probe=64,
      k=5000, B=32, m=128, eps0=3.0): 64 queries through the bound-fused
@@ -33,9 +37,10 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      clusters);
   7. each kernel's time at its path's full-width shapes beside its bound,
      its plain version's and (where one exists) one PyTorch call's (the
-     single-query kernels at phase 12's shapes); for #2 and #3 also the
-     ceiling their numerics leave (shared memory, instruction issue) and
-     the one-thread-per-row kernels' times they replaced;
+     single-query kernels at phase 12's shapes, and they and the shard
+     collector and compaction also the kernel alone); for #2 and #3 also
+     the ceiling their numerics leave (shared memory, instruction issue)
+     and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
      IVF+PQ, IVF+PQ+BBC predictive (singleton batches from cold),
      IVF+RaBitQ+BBC, the IVF+RaBitQ threshold baseline, IVF BBC and IVF
@@ -451,10 +456,12 @@ def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
     """Both compaction kernels against their plain versions on the same
     inputs, bitwise on every output, at tau_spec -1 (nothing), m
     (everything valid) and mixed, for each budget (one of which overflows
-    at tau_spec = m)."""
+    at tau_spec = m); then at the edge budgets of query 0 (1, its total,
+    one short of it, and its matches in the first half of its chunks, a
+    chunk boundary) and over ten repeated calls."""
     import torch
     from repro_torch.kernels import ops, ref
-    b, m = a["valid"].shape[0], a["m"]
+    b, n, m = *a["valid"].shape, a["m"]
     g = torch.Generator(device=DEV).manual_seed(b)
     taus = {"cold": torch.full((b,), -1, dtype=torch.int32, device=DEV),
             "all": torch.full((b,), m, dtype=torch.int32, device=DEV),
@@ -462,28 +469,53 @@ def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
                                    device=DEV).to(torch.int32)}
     args = (a["dists"], a["valid"], a["d_min"], a["delta"], a["ew_maps"], m)
     names = ("bucket", "hist", "pos", "ok", "count")
+
+    def both(tname, tau, budget):
+        got = ops.shard_collect_batch(*args, tau, budget)
+        torch.cuda.synchronize()
+        want = ref.shard_collect_batch(*args, tau, budget)
+        for name, x, y in zip(names, got, want):
+            check(torch.equal(x, y), f"{tag} shard_collect {name} differs "
+                  f"(budget {budget}, tau {tname})")
+        got_c = ops.spec_compact_batch(want[0], a["valid"], tau, budget)
+        torch.cuda.synchronize()
+        want_c = ref.spec_compact_batch(want[0], a["valid"], tau, budget)
+        for name, x, y in zip(names[2:], got_c, want_c):
+            check(torch.equal(x, y), f"{tag} spec_compact {name} differs "
+                  f"(budget {budget}, tau {tname})")
+        return want
+
     overflow = False
     for budget in budgets:
         for tname, tau in taus.items():
-            got = ops.shard_collect_batch(*args, tau, budget)
-            torch.cuda.synchronize()
-            want = ref.shard_collect_batch(*args, tau, budget)
-            for name, x, y in zip(names, got, want):
-                check(torch.equal(x, y), f"{tag} shard_collect {name} differs "
-                      f"(budget {budget}, tau {tname})")
-            got_c = ops.spec_compact_batch(want[0], a["valid"], tau, budget)
-            torch.cuda.synchronize()
-            want_c = ref.spec_compact_batch(want[0], a["valid"], tau, budget)
-            for name, x, y in zip(names[2:], got_c, want_c):
-                check(torch.equal(x, y), f"{tag} spec_compact {name} differs "
-                      f"(budget {budget}, tau {tname})")
+            want = both(tname, tau, budget)
             overflow |= bool((want[4] > budget).any().item())
     check(overflow, f"{tag}: no budget overflowed")
+    bucket, edges = want[0], set()
+    half = max(1, -(-n // ops.COLLECT_CHUNK) // 2) * ops.COLLECT_CHUNK
+    for tname in ("all", "mixed"):
+        tau = taus[tname]
+        match = a["valid"][0] & (bucket[0] <= tau[0])
+        total = int(match.sum().item())
+        boundary = int(match[:half].sum().item())
+        for budget in {1, total, total - 1, boundary} - {0, -1}:
+            both(tname, tau, budget)
+            edges.add(budget)
+    tau, budget = taus["mixed"], budgets[0]
+    first = ops.shard_collect_batch(*args, tau, budget)
+    first_c = ops.spec_compact_batch(first[0], a["valid"], tau, budget)
+    for _ in range(10):
+        again = ops.shard_collect_batch(*args, tau, budget)
+        again_c = ops.spec_compact_batch(first[0], a["valid"], tau, budget)
+        check(all(torch.equal(x, y) for x, y in zip(first + first_c,
+                                                    again + again_c)),
+              f"{tag}: a repeated call of the shard collector differs")
     for name in ("shard_collect_batch", "spec_compact_batch"):
         errs[name] = max(errs.get(name, 0.0), 0.0)
     log(f"[kernels] {tag}: shard_collect and spec_compact bitwise equal to "
         f"their plain versions at budgets {budgets}, tau cold/all/mixed "
-        f"(an overflow included)")
+        f"(an overflow included), at query 0's edge budgets "
+        f"{sorted(edges)} and over 10 repeated calls")
 
 
 RQ_EST_SHAPES = ((256, 64), (300, 96), (1024, 128), (512, 100))
@@ -680,6 +712,38 @@ def overlap(a, b) -> float:
                for x, y in zip(a.ids, b.ids)) / a.ids.numel()
 
 
+def kmeans_repro(x, index) -> dict:
+    """The build's IVF k-means (1024 clusters) and PQ codebook training
+    (M=32 x 4 bits), each run twice as ``search.build_pq_index`` runs them
+    (one generator from the seed, 10 rounds): both runs and the index the
+    main path built must hold the same bits."""
+    import torch
+    from repro_torch.index import kmeans, pq
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(SEED)
+        t0 = time.monotonic()
+        cent, assign = kmeans.kmeans(x, 1024, 10, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        cb = pq.train(x, 32, 4, 10, generator=gen)
+        torch.cuda.synchronize()
+        runs.append((cent, assign, cb.centroids, t1 - t0,
+                     time.monotonic() - t1))
+    (c1, a1, p1, *_), (c2, a2, p2, *_) = runs
+    check(torch.equal(c1, c2) and torch.equal(a1, a2),
+          "two k-means runs at 1,000,000 x 128 differ")
+    check(torch.equal(p1, p2), "two PQ codebook trainings differ")
+    check(torch.equal(c1, index.ivf.centroids)
+          and torch.equal(p1, index.pq.centroids),
+          "the k-means runs differ from the main path's index")
+    out = {"kmeans_s": [r[3] for r in runs], "pq_train_s": [r[4] for r in runs]}
+    log(f"[kmeans] IVF k-means (1,000,000 x 128, 1024 clusters, 10 rounds) "
+        f"and PQ training (32 x 16 centroids) each twice: torch.equal, and "
+        f"equal to the main path's index; seconds {json.dumps(out)}")
+    return out
+
+
 def main_path(summary: dict, card: str):
     import torch
     from repro_torch.index import engine, search
@@ -693,6 +757,7 @@ def main_path(summary: dict, card: str):
     torch.cuda.synchronize()
     log(f"[main] index (1024 clusters, M=32 x 4 bits) built on the card in "
         f"{time.monotonic() - t0:.1f}s")
+    summary["kmeans_repro"] = kmeans_repro(x, index)
     eng = engine.SearchEngine.build(index, k=k, n_probe=64, device="cuda")
     check(eng.n_cand == 40000, f"n_cand {eng.n_cand}")
     eng.warmup((b,), predictive=True)
@@ -1535,27 +1600,35 @@ def timing_shard(a, errs: dict) -> dict:
           "spec_compact at phase 11's inputs differs from its plain version")
     b, n = p["valid"].shape
     m, n_ew, bud = p["m"], p["ew_maps"].shape[1], p["budget"]
-    # dists + valid in, bucket out, hist, the position buffer and counts
-    # out, per-query params in; per lane a subtract, a divide and a floor
+    # dists + valid in, bucket out, hist, the position buffer, its ok flags
+    # and counts out, per-query params in; per lane a subtract, a divide
+    # and a floor
     t6 = dict(ms=cuda_ms(lambda: ops.shard_collect_batch(*args), 20),
               plain_ms=cuda_ms(lambda: ref.shard_collect_batch(*args), 3,
                                warm=1),
               library_ms=None,
               work={"B": b, "n": n, "budget": bud,
-                    "matches": int(want6[4].sum().item())})
+                    "matches": int(want6[4].sum().item()),
+                    "device_ms": device_ms(
+                        lambda: ops.shard_collect_batch(*args),
+                        "shard_collect_kernel")})
     t6["bound_ms"], t6["bound_by"] = bound(
-        9 * b * n + 4 * b * (m + 1) + 4 * b * bud + 4 * b
+        9 * b * n + 4 * b * (m + 1) + 5 * b * bud + 4 * b
         + 4 * b * (n_ew + 3), 3 * b * n)
     b, n = r["valid"].shape
     bud = r["budget"]
-    # bucket + valid in, the position buffer and counts out, tau_spec in
+    # bucket + valid in, the position buffer, its ok flags and counts out,
+    # tau_spec in
     t7 = dict(ms=cuda_ms(lambda: ops.spec_compact_batch(*cargs), 20),
               plain_ms=cuda_ms(lambda: ref.spec_compact_batch(*cargs), 3,
                                warm=1),
               library_ms=None,
               work={"B": b, "n": n, "budget": bud,
-                    "matches": int(want7[2].sum().item())})
-    t7["bound_ms"], t7["bound_by"] = bound(5 * b * n + 4 * b * bud + 8 * b,
+                    "matches": int(want7[2].sum().item()),
+                    "device_ms": device_ms(
+                        lambda: ops.spec_compact_batch(*cargs),
+                        "spec_compact_kernel")})
+    t7["bound_ms"], t7["bound_by"] = bound(5 * b * n + 5 * b * bud + 8 * b,
                                            0)
     for name in ("shard_collect_batch", "spec_compact_batch"):
         errs[name] = max(errs.get(name, 0.0), 0.0)
@@ -1813,7 +1886,11 @@ def main(argv=None) -> int:
                                      0.0625),
                                     (32, 125_056, (10_112, 2_560, 512),
                                      0.0625),
-                                    (3, 1000, (1500, 24), 0.9)):
+                                    (3, 1000, (1500, 24), 0.9),
+                                    # more chunks of one query than the
+                                    # card holds blocks at once
+                                    (1, 1100 * 4096 + 123, (300_000, 20_000),
+                                     0.0625)):
             check_shard_collect(shard_collect_inputs(SEED + n, b, n,
                                                      density=dens),
                                 budgets, errs, f"B={b} n={n}")

@@ -23,8 +23,10 @@ key.
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
 thread and a query tile hold, the grid and the shared memory; one kernel
-each serves every B.  The CPU tests check the plans; the kernels refuse a
-shared-memory size below their layout's.
+each serves every B.  The shard collector's (``_collect_plan``) is its
+chunk count, grid and the layout of the scratch that one memset zeroes.
+The CPU tests check the plans; the kernels refuse a shared-memory size
+below their layout's.
 """
 from __future__ import annotations
 
@@ -59,6 +61,9 @@ L2_LD = L2_CHUNK + 4
 # blocks an SM holds at most (the kernel's __launch_bounds__)
 ADC_ROWS, ADC_STAGES, ADC_LUT_BUDGET = 256, 2, 96 * 1024
 ADC_BLOCKS_PER_SM = 2
+# shard_collect.cu: lanes per chunk ticket (256 threads x 16 lanes), and
+# buffer slots per sentinel-fill ticket
+COLLECT_CHUNK, COLLECT_FILL = 4096, 8192
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -78,8 +83,8 @@ _SIGNATURES = {
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
         "rabitq_fused_smem_bytes": [_I] * 4},
     "shard_collect": {
-        "shard_collect_batch_launch": [_P] * 12 + [_I] * 7 + [_P],
-        "spec_compact_batch_launch": [_P] * 7 + [_I] * 4 + [_P],
+        "shard_collect_batch_launch": [_P] * 13 + [_I] * 10 + [_P],
+        "spec_compact_batch_launch": [_P] * 8 + [_I] * 7 + [_P],
         "shard_collect_smem_bytes": [_I] * 2,
         "shard_collect_chunk": []},
     "rabitq_est": {
@@ -437,12 +442,59 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     return outs
 
 
-def _compact_scratch(lib, b: int, n: int, dev):
-    """(B, n_chunks) int32 scratch for the per-chunk counts and offsets."""
-    n_chunks = (n + lib.shard_collect_chunk() - 1) // lib.shard_collect_chunk()
-    return (n_chunks,
-            *(torch.empty(b, n_chunks, dtype=torch.int32, device=dev)
-              for _ in range(2)))
+class CollectPlan(NamedTuple):
+    """One launch of the shard collector or the compaction
+    (``shard_collect.cu``) and its scratch, zeroed by one memset."""
+    n_chunks: int        # chunks of COLLECT_CHUNK lanes per query
+    pieces: int          # fill pieces of COLLECT_FILL slots per query
+    grid: int            # blocks, one per ticket: B * (n_chunks + pieces)
+    ticket: int          # int32 offset of the ticket counter
+    hist: int            # int32 offset of the (B, m+1) histogram (fused)
+    words: int           # int32 words of scratch
+
+
+@functools.lru_cache(maxsize=4096)
+def _collect_plan(b: int, n: int, budget: int,
+                  hist_bins: int = 0) -> CollectPlan:
+    """The launch for B queries over n lanes into a (B, budget) buffer:
+    one ticket per chunk of ``COLLECT_CHUNK`` lanes of each query, then one
+    per ``COLLECT_FILL`` slots of each query's buffer (the sentinel fill),
+    a block each (a 1-D grid); and a scratch of int32 words that holds,
+    from offset 0, one 64-bit status word per chunk, the ticket counter and
+    (``hist_bins`` = m + 1 for the fused form) the (B, m+1) histogram on a
+    16-byte boundary."""
+    n_chunks = max(1, -(-n // COLLECT_CHUNK))
+    pieces = -(-budget // COLLECT_FILL)
+    grid = b * (n_chunks + pieces)
+    if grid >= 2 ** 31:
+        raise ValueError(f"shard collector: {grid} tickets (B={b}, n={n}, "
+                         f"budget={budget}) overflow the int32 ticket")
+    ticket = 2 * b * n_chunks
+    hist = -(-(ticket + 1) // 4) * 4
+    return CollectPlan(n_chunks, pieces, grid, ticket, hist,
+                       hist + b * hist_bins)
+
+
+def _collect_outputs(b: int, n: int, budget: int, dev):
+    """(pos, ok, count) as the kernel writes them in full, or filled here
+    when there is nothing to launch."""
+    if b == 0 or n == 0:
+        pos = torch.full((b, budget), n, dtype=torch.int32, device=dev)
+        return pos, pos < n, torch.zeros(b, dtype=torch.int32, device=dev)
+    return (torch.empty(b, budget, dtype=torch.int32, device=dev),
+            torch.empty(b, budget, dtype=torch.bool, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _collect_lib() -> ctypes.CDLL:
+    """The collector's library, checked once against ``COLLECT_CHUNK``."""
+    lib = _lib("shard_collect")
+    if lib.shard_collect_chunk() != COLLECT_CHUNK:
+        raise RuntimeError(f"shard_collect.cu takes {lib.shard_collect_chunk()}"
+                           f" lanes a block, ops.COLLECT_CHUNK says "
+                           f"{COLLECT_CHUNK}")
+    return lib
 
 
 def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,
@@ -452,12 +504,13 @@ def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,
     """Fused shard collect: (B, n) distances -> (bucket (B, n), hist
     (B, m+1), spec_pos (B, budget), spec_ok (B, budget), spec_count (B,)).
 
-    One stream pass bucketizes and histograms the valid lanes and counts,
-    per chunk, the lanes at or below the provisional ``tau_spec`` (B,);
-    the positions of the first ``budget`` of them, in stream order, fill
-    ``spec_pos`` (sentinel n past the fill).  ``spec_count`` is the true
-    total, above ``budget`` on overflow (``tau_spec = -1`` compacts
-    nothing).  Feed the buffer to ``distributed.bbc_survivors_batch``."""
+    One stream pass bucketizes and histograms the valid lanes and ranks
+    the lanes at or below the provisional ``tau_spec`` (B,) in stream
+    order; the positions of the first ``budget`` of them fill ``spec_pos``
+    (sentinel n past the fill).  ``spec_count`` is the true total, above
+    ``budget`` on overflow (``tau_spec = -1`` compacts nothing).  Feed the
+    buffer to ``distributed.bbc_survivors_batch``.  On the card: one memset
+    of the scratch (``_collect_plan``) and one kernel launch."""
     if not _on_cuda(dists, valid, d_min, delta, ew_maps, tau_spec):
         return _ref.shard_collect_batch(dists, valid, d_min, delta, ew_maps,
                                         m, tau_spec, budget)
@@ -471,27 +524,29 @@ def shard_collect_batch(dists: torch.Tensor, valid: torch.Tensor,
     tau_spec = _params(tau_spec, torch.int32)
     dev = dists.device
     bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
-    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
-    pos = torch.full((b, budget), n, dtype=torch.int32, device=dev) \
-        if n == 0 else torch.empty(b, budget, dtype=torch.int32, device=dev)
-    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    pos, ok, count = _collect_outputs(b, n, budget, dev)
     if b == 0 or n == 0:
-        return bucket, hist, pos, pos < n, count
-    lib = _lib("shard_collect")
+        hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
+        return bucket, hist, pos, ok, count
+    lib = _collect_lib()
     smem = lib.shard_collect_smem_bytes(n_ew, m)
     if smem > MAX_SMEM:
         raise ValueError(f"shard_collect_batch: n_ew={n_ew}, m={m} need "
                          f"{smem} bytes of shared memory")
-    n_chunks, counts, offsets = _compact_scratch(lib, b, n, dev)
+    p = _collect_plan(b, n, budget, m + 1)
+    scratch = torch.zeros(p.words, dtype=torch.int32, device=dev)
+    hist = scratch[p.hist:].view(b, m + 1)
+    vec = n % 16 == 0 and _aligned(dists, valid, bucket)
     rc = lib.shard_collect_batch_launch(
         dists.data_ptr(), valid.data_ptr(), d_min.data_ptr(),
         delta.data_ptr(), ew_maps.data_ptr(), tau_spec.data_ptr(),
-        bucket.data_ptr(), hist.data_ptr(), pos.data_ptr(), count.data_ptr(),
-        counts.data_ptr(), offsets.data_ptr(), n, b, n_ew, m, budget,
-        n_chunks, smem, _stream())
+        bucket.data_ptr(), hist.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+        count.data_ptr(), scratch.data_ptr(), scratch[p.ticket:].data_ptr(),
+        n, b, n_ew, m, budget, p.n_chunks, COLLECT_FILL, p.grid, vec, smem,
+        _stream())
     _check(rc, "shard_collect_batch")
     LAUNCHES["shard_collect_batch"] += 1
-    return bucket, hist, pos, pos < n, count
+    return bucket, hist, pos, ok, count
 
 
 def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
@@ -506,20 +561,21 @@ def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
     _need(valid, "valid", torch.bool, (b, n))
     tau_spec = _params(tau_spec, torch.int32)
     dev = bucket.device
-    pos = torch.full((b, budget), n, dtype=torch.int32, device=dev) \
-        if n == 0 else torch.empty(b, budget, dtype=torch.int32, device=dev)
-    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    pos, ok, count = _collect_outputs(b, n, budget, dev)
     if b == 0 or n == 0:
-        return pos, pos < n, count
-    lib = _lib("shard_collect")
-    n_chunks, counts, offsets = _compact_scratch(lib, b, n, dev)
+        return pos, ok, count
+    lib = _collect_lib()
+    p = _collect_plan(b, n, budget)
+    scratch = torch.zeros(p.words, dtype=torch.int32, device=dev)
+    vec = n % 16 == 0 and _aligned(bucket, valid)
     rc = lib.spec_compact_batch_launch(
         bucket.data_ptr(), valid.data_ptr(), tau_spec.data_ptr(),
-        pos.data_ptr(), count.data_ptr(), counts.data_ptr(),
-        offsets.data_ptr(), n, b, budget, n_chunks, _stream())
+        pos.data_ptr(), ok.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+        scratch[p.ticket:].data_ptr(), n, b, budget, p.n_chunks,
+        COLLECT_FILL, p.grid, vec, _stream())
     _check(rc, "spec_compact_batch")
     LAUNCHES["spec_compact_batch"] += 1
-    return pos, pos < n, count
+    return pos, ok, count
 
 
 # --------------------------------------------------------------------------

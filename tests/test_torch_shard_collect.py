@@ -7,7 +7,10 @@ Shapes are the JAX package's own kernel tests' (``tests/test_shard_collect
 .py``).  Both sides bucketize the same fp32 input with the same codebooks,
 so every integer output (bucket, hist, pos, ok, count) must be equal.  The
 CUDA kernels are held against these plain versions on the card
-(``chip_smoke.py`` phase 3, and the ``cuda``-marked test here)."""
+(``chip_smoke.py`` phase 3, and the ``cuda``-marked tests here: 1, 2 and
+more chunks of one query than the card holds blocks at once, B = 1 and 64,
+the edge budgets and repeated calls).  The one-pass kernel's launch plan
+(``ops._collect_plan``) is plain Python, checked here on the CPU."""
 import numpy as np
 import pytest
 
@@ -215,3 +218,122 @@ def test_cuda_kernels_match_plain_versions(b, n, budget):
         want = ref.spec_compact_batch(want[0], args[1], tau, budget)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("n,chunks", [(1, 1), (4096, 1), (4097, 2),
+                                      (1_000_064, 245)])
+@pytest.mark.parametrize("budget,pieces", [(0, 0), (1, 1), (8192, 1),
+                                           (8193, 2), (80_128, 10)])
+def test_collect_plan_chunks_and_scratch(b, n, chunks, budget, pieces):
+    """One ticket, and one block, per (query, 4,096-lane chunk) and per
+    (query, 8,192 slots of its buffer); the scratch holds a 64-bit status
+    word per chunk from offset 0, then the ticket counter, then (fused) the
+    histogram on a 16-byte boundary, and nothing else."""
+    assert (ops.COLLECT_CHUNK, ops.COLLECT_FILL) == (4096, 8192)
+    for bins in (0, 129):
+        p = ops._collect_plan(b, n, budget, bins)
+        assert (p.n_chunks, p.pieces) == (chunks, pieces)
+        assert p.grid == b * (chunks + pieces)
+        assert p.ticket == 2 * b * chunks
+        assert p.hist % 4 == 0 and p.ticket < p.hist <= p.ticket + 4
+        assert p.words == p.hist + b * bins
+
+
+def test_collect_plan_main_path_shape_and_limit():
+    """Phase 11's PQ shape (B=32, n=1,000,064, budget 80,128, m=128) in
+    numbers, and a ticket count past int32 raises."""
+    assert ops._collect_plan(32, 1_000_064, 80_128, 129) == (
+        245, 10, 32 * 255, 15680, 15684, 15684 + 32 * 129)
+    assert ops._collect_plan(32, 1_000_064, 20_224).words == 15684
+    with pytest.raises(ValueError, match="ticket"):
+        ops._collect_plan(1 << 20, 1 << 23, 0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_stream(seed, b, n, m=128, density=0.0625):
+    """Inputs made on the card: (B, n) distances (+inf off the valid lanes)
+    and per-query codebooks over them (``buffer.build_codebook``)."""
+    from repro_torch.core import buffer as rb
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = torch.rand(b, n, generator=g, device="cuda") * 30 + 1
+    valid = torch.rand(b, n, generator=g, device="cuda") < density
+    d = torch.where(valid, d, float("inf"))
+    cb = rb.build_codebook(d, k=min(max(n // 64, 8), 5000), m=m)
+    return [d, valid, cb.d_min, cb.delta, cb.ew_map]
+
+
+def _kernels_equal_plain(args, m, tau, budget):
+    """Both kernels bitwise equal to their plain versions; returns the
+    plain fused outputs."""
+    got = ops.shard_collect_batch(*args, m, tau, budget)
+    want = ref.shard_collect_batch(*args, m, tau, budget)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), budget
+    got = ops.spec_compact_batch(want[0], args[1], tau, budget)
+    for g, w in zip(got, ref.spec_compact_batch(want[0], args[1], tau,
+                                                budget)):
+        assert torch.equal(g, w), budget
+    return want
+
+
+def _resident_blocks():
+    p = torch.cuda.get_device_properties(0)
+    threads = getattr(p, "max_threads_per_multi_processor", 2048)
+    return p.multi_processor_count * threads // 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,chunks,extra", [(1, 1, 0), (64, 1, 0),
+                                            (1, 2, -5), (64, 2, -5),
+                                            (1, "resident", 16),
+                                            (64, 3, 123)])
+def test_cuda_one_pass_across_chunks(card, b, chunks, extra):
+    """One chunk, two (the second ragged, n % 16 != 0: the scalar loads),
+    and more chunks of one query than the card holds blocks at once (the
+    look-back over chunks that ran long before), at B = 1 and 64, with
+    budgets that hold and overflow the matches."""
+    m = 128
+    if chunks == "resident":
+        chunks = _resident_blocks() + 40
+    n = chunks * ops.COLLECT_CHUNK + extra
+    args = _card_stream(b + n, b, n, m)
+    g = torch.Generator(device="cuda").manual_seed(b)
+    for tau in (torch.full((b,), m, dtype=torch.int32, device=card),
+                torch.randint(-1, m + 1, (b,), generator=g,
+                              device=card).to(torch.int32)):
+        for budget in (n // 8, n // 40):
+            _kernels_equal_plain(args, m, tau, budget)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64])
+def test_cuda_edge_budgets_and_repeats(card, b):
+    """Budgets of 1, exactly query 0's total, one short of it and its
+    matches in the first two chunks (a chunk boundary); then one call
+    repeated 10 times gives the same bits."""
+    m = 128
+    n = 5 * ops.COLLECT_CHUNK + 48
+    args = _card_stream(7 + b, b, n, m, density=0.3)
+    tau = torch.full((b,), m, dtype=torch.int32, device=card)
+    want = _kernels_equal_plain(args, m, tau, n)
+    match = args[1][0] & (want[0][0] <= m)
+    total = int(match.sum())
+    boundary = int(match[:2 * ops.COLLECT_CHUNK].sum())
+    assert 1 < boundary < total - 1
+    for budget in (1, total, total - 1, boundary):
+        out = _kernels_equal_plain(args, m, tau, budget)
+        assert int(out[4][0]) == total
+    first = ops.shard_collect_batch(*args, m, tau, boundary)
+    first_c = ops.spec_compact_batch(first[0], args[1], tau, boundary)
+    for _ in range(10):
+        again = ops.shard_collect_batch(*args, m, tau, boundary)
+        again_c = ops.spec_compact_batch(first[0], args[1], tau, boundary)
+        for x, y in zip(first + first_c, again + again_c):
+            assert torch.equal(x, y)
