@@ -19,7 +19,11 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      bitwise at the JAX kernel test's shapes and in its tile form; the
      single-query forms at B=1 at the JAX single-kernel tests' shapes; the
      exact-distance and ADC kernels bitwise, also across their query
-     tiles, ragged row tiles and coordinate chunks, on unaligned views);
+     tiles, ragged row tiles and coordinate chunks, on unaligned views;
+     the bucketize-histogram on +inf and NaN lanes and degenerate
+     codebooks, aligned and unaligned, over repeated calls; the RaBitQ
+     estimator with tiles all padding; ``numerics.sqrt_rn`` on the card
+     bitwise against its CPU form on 23M values);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card (its k-means and PQ training run
      twice more, and must give the same bits), 64 queries through the fused
@@ -31,14 +35,17 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
   5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
      form, batched and sharded: the CPU engine on a one-rank gloo mesh, the
      card's on a one-rank NCCL mesh; each form also on single (d,)
-     queries) on a 20,000 x 128 index: id sets, distances, counters;
+     queries) on a 20,000 x 128 index: id sets, distances, counters, and
+     the plain versions' float outputs bitwise between the CPU and the
+     card;
   6. the unfused, unfused predictive and plain IVF+PQ forms and the IVF
      forms at the JAX serving CLI's defaults (100,000 x 96, k=5000, 316
      clusters);
   7. each kernel's time at its path's full-width shapes beside its bound,
      its plain version's and (where one exists) one PyTorch call's (the
-     single-query kernels at phase 12's shapes, and they and the shard
-     collector and compaction also the kernel alone); for #2 and #3 also
+     single-query kernels at phase 12's shapes, and they, the batched
+     bucketize-histogram, the shard collector and compaction also the
+     kernel alone); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -521,11 +528,13 @@ def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
 RQ_EST_SHAPES = ((256, 64), (300, 96), (1024, 128), (512, 100))
 
 
-def rabitq_est_inputs(seed, t, cap, d, ragged: bool):
+def rabitq_est_inputs(seed, t, cap, d, ragged: bool, empty: int = 0,
+                      scatter: bool = False):
     """Random inputs of the RaBitQ estimator over ``t`` tiles of ``cap``
     lanes: +-1 int8 codes, factors in the JAX kernel test's ranges, unit
     v rows, and (``ragged``) each tile's valid lanes a prefix of random
-    length, as the member table pads its clusters."""
+    length, as the member table pads its clusters; the first ``empty``
+    tiles all padding; ``scatter``: valid lanes scattered, not a prefix."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(seed)
 
@@ -539,6 +548,9 @@ def rabitq_est_inputs(seed, t, cap, d, ragged: bool):
     size = torch.randint(1, cap + 1, (t, 1), generator=g, device=DEV) \
         if ragged else torch.full((t, 1), cap, device=DEV)
     valid = torch.arange(cap, device=DEV)[None] < size
+    if scatter:
+        valid = rand(t, cap) < 0.3
+    valid[:empty] = False
     return dict(codes=codes, norm_o=rand(t, cap) * 5 + 0.5,
                 f_o=rand(t, cap) * 0.3 + 0.6, v=v, norm_q=rand(t) * 3 + 1,
                 valid=valid)
@@ -563,6 +575,132 @@ def check_rabitq_est(a, errs: dict, tag: str) -> None:
                              max(max_abs(x, y) for x, y in zip(got, want)))
     log(f"[kernels] {tag}: rabitq_est est/lb/ub bitwise equal to the plain "
         f"version ({int(a['valid'].sum().item())} valid lanes)")
+
+
+def sqrt_rn_values(count: int = 1 << 24):
+    """``count`` + a few fp32 values from a numpy seed: uniform, tiny
+    (u**8: subnormals), random bit patterns of every finite positive float,
+    the neighbours of exact squares, and 0, -0, +inf, -inf, NaN, -1, the
+    largest, the smallest normal and the smallest subnormal float."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    q = count // 4
+    fi = np.finfo(np.float32)
+    sq = (rng.random(q, dtype=np.float32) * np.float32(4096) + 1) ** 2
+    return np.concatenate([
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, fi.max, fi.tiny,
+                  fi.smallest_subnormal], dtype=np.float32),
+        rng.random(q, dtype=np.float32) * np.float32(1000),
+        rng.random(q, dtype=np.float32) ** 8,
+        rng.integers(0, 0x7F800000, q, dtype=np.uint32).view(np.float32),
+        np.nextafter(sq, np.float32(np.inf)), np.nextafter(sq, np.float32(0)),
+        sq[: count - 4 * q + q // 2]])
+
+
+def check_sqrt_rn(summary: dict) -> None:
+    """``numerics.sqrt_rn`` on the card (``torch.sqrt``) bitwise equal to
+    its CPU form (the fp64 fix-up) on 16M+ values: the card's square root
+    is IEEE, which the port's CPU/card agreement rests on.  Also counts
+    how many of them the CPU's ``torch.sqrt`` rounds differently."""
+    import numpy as np
+    import torch
+    from repro_torch.core import numerics
+    x = torch.from_numpy(sqrt_rn_values())
+    card = numerics.sqrt_rn(x.to(DEV)).cpu()
+    cpu = numerics.sqrt_rn(x)
+    bits = card.view(torch.int32) == cpu.view(torch.int32)
+    nan = torch.isnan(cpu)
+    check(torch.equal(torch.isnan(card), nan), "sqrt_rn NaN lanes differ")
+    bad = int((~bits & ~nan).sum().item())
+    check(bad == 0, f"sqrt_rn: {bad} of {x.numel()} values differ between "
+          f"the card and the CPU fix-up")
+    with np.errstate(invalid="ignore"):
+        ieee = torch.from_numpy(np.sqrt(x.numpy()))
+    plain = torch.sqrt(x)
+    off = int(((plain.view(torch.int32) != ieee.view(torch.int32))
+               & ~nan).sum().item())
+    summary["sqrt_rn"] = {"values": x.numel(), "card_vs_cpu_fixup_differ": 0,
+                          "cpu_torch_sqrt_not_ieee": off}
+    log(f"[kernels] sqrt_rn: {x.numel()} values bitwise equal on the card "
+        f"(torch.sqrt) and the CPU (fp64 fix-up); the CPU's torch.sqrt "
+        f"rounds {off} of them differently")
+
+
+def bucket_hist_edge_inputs(seed, b, n, shift: int = 0):
+    """#4's inputs with the lanes and codebooks its +inf shortcut must
+    keep: +inf off the valid lanes and on some valid ones, NaN lanes, and
+    per query a codebook from its finite lanes, query 1 with delta 0 (and
+    d_min one of its distances, so 0 / 0 occurs), query 2 with d_min +inf,
+    query 3 with both; ``shift`` = 1 puts the distances and validity one
+    element into their buffers (the lane-by-lane path)."""
+    import torch
+    from repro_torch.core import buffer as rb
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def view(t):
+        flat = torch.zeros(t.numel() + shift, dtype=t.dtype, device=DEV)
+        flat[shift:] = t.reshape(-1)
+        return flat[shift:].view(t.shape)
+
+    valid = torch.rand(b, n, generator=g, device=DEV) < 0.5
+    dists = torch.rand(b, n, generator=g, device=DEV) * 30 + 1
+    dists = torch.where(valid, dists, float("inf"))
+    cb = rb.build_codebook(dists, k=min(max(n // 8, 8), 5000), m=128)
+    odd = torch.rand(b, n, generator=g, device=DEV)
+    dists = torch.where(valid & (odd < 0.05), float("inf"), dists)
+    dists = torch.where(odd > 0.97, float("nan"), dists)
+    d_min, delta = cb.d_min.clone(), cb.delta.clone()
+    if b > 1:
+        delta[1], d_min[1] = 0.0, dists[1, 0] if bool(
+            torch.isfinite(dists[1, 0])) else 5.0
+    if b > 2:
+        d_min[2] = float("inf")
+    if b > 3:
+        d_min[3], delta[3] = float("inf"), 0.0
+    return (view(dists), view(valid), d_min, delta, cb.ew_map, 128)
+
+
+def check_bucket_hist_edges(errs: dict) -> None:
+    """#4 and its B=1 form #12 bitwise against the plain version on the
+    card and the plain version on the CPU, on +inf and NaN lanes and the
+    degenerate codebooks (delta 0, d_min +inf), at ragged and unaligned
+    shapes, B from 1 to 33; then ten repeated calls interleaved with calls
+    of other shapes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    shapes = ((1, 262_144), (1, 1003), (4, 1000), (5, 100_003),
+              (33, 20_001), (32, 1_000_064), (2, 3))
+    for i, (b, n) in enumerate(shapes):
+        for shift in (0, 1):
+            a = bucket_hist_edge_inputs(SEED + i, b, n, shift)
+            got = ops.bucket_hist_batch(*a)
+            torch.cuda.synchronize()
+            want = ref.bucket_hist_batch(*a)
+            cpu = ref.bucket_hist_batch(*(t.cpu() if torch.is_tensor(t)
+                                          else t for t in a))
+            for name, x, y, z in zip(("bucket", "hist"), got, want, cpu):
+                check(torch.equal(x, y), f"bucket_hist B={b} n={n} "
+                      f"shift={shift} {name} differs from the plain version")
+                check(torch.equal(x.cpu(), z), f"bucket_hist B={b} n={n} "
+                      f"{name}: the plain version differs on the CPU")
+            if b == 1:
+                one = ops.bucket_hist(a[0][0], a[1][0], a[2], a[3], a[4][0],
+                                      a[5])
+                check(all(torch.equal(x, y[0]) for x, y in zip(one, want)),
+                      f"bucket_hist (B=1 form) n={n} shift={shift}")
+    first = bucket_hist_edge_inputs(SEED, 32, 1_000_064)
+    other = bucket_hist_edge_inputs(SEED + 1, 3, 5000)
+    want = ref.bucket_hist_batch(*first)
+    for _ in range(10):
+        got = ops.bucket_hist_batch(*first)
+        ops.bucket_hist_batch(*other)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              "bucket_hist: a repeated call differs")
+    errs["bucket_hist_batch"] = max(errs.get("bucket_hist_batch", 0.0), 0.0)
+    errs["bucket_hist"] = max(errs.get("bucket_hist", 0.0), 0.0)
+    log(f"[kernels] bucket_hist (B, n) in {shapes}, aligned and unaligned, "
+        f"+inf/NaN lanes, delta 0 and d_min +inf: bitwise equal to the plain "
+        f"version on the card and on the CPU; 10 repeated calls equal")
 
 
 def check_single_kernels(errs: dict) -> None:
@@ -591,6 +729,19 @@ def check_single_kernels(errs: dict) -> None:
                      errs, "tiles T=64 cap=4096 d=128 (ragged tiles)")
     check_rabitq_est(rabitq_est_inputs(SEED + 1, 7, 300, 100, ragged=True),
                      errs, "tiles T=7 cap=300 d=100 (ragged tiles)")
+    # tiles all padding (the +inf stores, full and ragged chunks), valid
+    # lanes not a prefix, rows that do not fit 128 to a block (d = 960),
+    # one long tile (blocks that own several chunks), many short tiles
+    for i, (t, cap, d, empty, scatter) in enumerate((
+            (64, 4096, 128, 16, False), (9, 1003, 128, 4, False),
+            (6, 777, 100, 2, True), (5, 2048, 128, 1, True),
+            (3, 600, 960, 1, False), (1, 70_001, 128, 0, True),
+            (700, 300, 128, 100, False))):
+        check_rabitq_est(rabitq_est_inputs(SEED + 2 + i, t, cap, d,
+                                           ragged=True, empty=empty,
+                                           scatter=scatter),
+                         errs, f"tiles T={t} cap={cap} d={d}, {empty} all "
+                         f"padding{', scattered lanes' if scatter else ''}")
 
     rng = np.random.default_rng(SEED)
 
@@ -665,7 +816,7 @@ def corpus(n, d, n_q, seed=SEED):
     rng = np.random.default_rng(seed)
     x = synthetic.clustered(rng, n, d)
     qs = synthetic.queries_from(rng, x, n_q)
-    return torch.from_numpy(x).cuda(), torch.from_numpy(qs).cuda()
+    return torch.from_numpy(x).to(DEV), torch.from_numpy(qs).to(DEV)
 
 
 def recall(x, qs, ids, k) -> float:
@@ -924,6 +1075,63 @@ def id_diff(g, c, row, x, qb) -> str:
             f"{float(c.dists[row].max())}")
 
 
+def plain_float_parity(pq_index, rq_index, x, qs) -> dict:
+    """Phase 5's float half: the plain versions run on the card and on the
+    CPU over the same inputs (built on the card, copied to the CPU) give
+    the same bits: the PQ estimate, early leg and integers of the fused
+    scan, the RaBitQ scan's est/lb/ub/exact and integers, one query's
+    factors and tile estimates, and the exact distances in the kernels'
+    ascending order and in the gathered rows' fixed pairwise order."""
+    import torch
+    from repro_torch.index import engine, ivf as ivf_mod, search as S
+    from repro_torch.index import rabitq as rq_mod
+    from repro_torch.kernels import ref
+    pq_eng = engine.SearchEngine.build(pq_index, k=1000, n_probe=16,
+                                       device=DEV)
+    rq_eng = engine.SearchEngine.build(rq_index, k=1000, n_probe=16,
+                                       device=DEV)
+    qb = qs[:32]
+    out = {}
+
+    def same(name, fn, *args):
+        def cpu(a):
+            return a.cpu() if torch.is_tensor(a) else a
+        got, want = fn(*args), fn(*(cpu(a) for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (g, c) in enumerate(zip(got, want)):
+            diff = int((g.cpu() != c).sum().item())
+            check(torch.equal(g.cpu(), c), f"parity plain {name}[{i}]: "
+                  f"{diff} of {c.numel()} differ between the card and the CPU")
+        out[name] = sum(g.numel() for g in got)
+
+    a = main_path_kernel_args(pq_eng, qb)
+    same("pq_fused_scan", ref.fused_scan_batch, *(a[k] for k in (
+        "codes", "vectors", "valid", "luts", "qs", "d_min", "delta",
+        "ew_maps", "m", "tau_pred")))
+    r = rabitq_kernel_args(rq_eng, qb)
+    same("rabitq_fused_scan", lambda *t: ref.fused_rabitq_scan_batch(
+        *t, eps0=RQ_EPS0), *(r[k] for k in RQ_ARGS))
+    probed = ivf_mod.route(rq_index.ivf, qs[0], 16)
+    ids, valid = ivf_mod.gather_candidates(rq_index.ivf, probed)
+    safe = ids.clamp(min=0)
+    rq = rq_index.rq
+    same("rabitq_query_factors", lambda rot, q, c: tuple(
+        rq_mod.query_factors(rq._replace(rot=rot), q, c)), rq.rot, qs[0],
+        rq_index.ivf.centroids[probed])
+    qf = rq_mod.query_factors(rq, qs[0], rq_index.ivf.centroids[probed])
+    same("rabitq_est_tiles", lambda *t: ref.rabitq_est_tiles(
+        *t, eps0=RQ_EPS0), rq.codes[safe], rq.norm_o[safe], rq.f_o[safe],
+        qf.v, qf.norm_q, valid)
+    same("l2_exact", ref.l2_exact_batch, x, qb)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rows = torch.randint(0, x.shape[0], (32, 2000), generator=g, device=DEV)
+    same("exact_rows", S._exact_dists, x, rows, qb[:, None])
+    log(f"[parity] plain versions bitwise equal on the card and the CPU "
+        f"(values compared): {json.dumps(out)}")
+    return out
+
+
 def parity(summary: dict) -> None:
     """Phase 5: each engine form on the card and on the CPU (the plain
     versions) over the same index, batched and sharded: equal id sets,
@@ -934,6 +1142,7 @@ def parity(summary: dict) -> None:
     x, qs = corpus(20_000, 128, 64, seed=SEED + 1)
     pq_index = search.build_pq_index(x, 128, seed=SEED, device="cuda")
     rq_index = search.build_rabitq_index(x, 128, seed=SEED, device="cuda")
+    plain = plain_float_parity(pq_index, rq_index, x, qs)
     ivf_kw = dict(vectors=x)
     forms = [("bbc_fused", pq_index, dict(use_bbc=True, fused=True), True),
              ("bbc_unfused", pq_index, dict(use_bbc=True, fused=False), True),
@@ -1022,6 +1231,7 @@ def parity(summary: dict) -> None:
             out[skey] = {"ids_equal": True, "counters_equal": True}
             log(f"[parity] {skey}: id sets equal, dists within 1e-4, "
                 f"counters equal")
+    out["plain_floats_bitwise"] = plain
     summary["parity_20k"] = out
 
 
@@ -1462,7 +1672,9 @@ def timing(a) -> dict:
     out["bucket_hist_batch"] = dict(
         ms=cuda_ms(lambda: ops.bucket_hist_batch(*bh), 20),
         plain_ms=cuda_ms(lambda: ref.bucket_hist_batch(*bh), 3, warm=1),
-        library_ms=None)
+        library_ms=None, work={
+            "B": b, "n": n, "device_ms": device_ms(
+                lambda: ops.bucket_hist_batch(*bh), "bucket_hist_kernel")})
     out["bucket_hist_batch"]["bound_ms"], \
         out["bucket_hist_batch"]["bound_by"] = bound(
             9 * b * n + 4 * b * (m + 1) + 4 * b * (n_ew + 2), 4 * b * n)
@@ -1707,6 +1919,12 @@ def timing_single(a, errs: dict) -> dict:
     out["rabitq_est"]["bound_ms"], out["rabitq_est"]["bound_by"] = bound(
         n_valid * (d + 8) + t * cap + 4 * t * (d + 1) + 12 * t * cap,
         n_valid * (2 * d + 20))
+    # the same launch with every lane padding: what it costs to read the
+    # validity and write +inf, with no row read
+    pad = [torch.zeros_like(x) if k == "valid" else x
+           for k, x in zip(RQE_ARGS, args)]
+    out["rabitq_est"]["work"]["device_ms_all_padding"] = device_ms(
+        lambda: ops.rabitq_est_tiles(*pad, eps0=RQ_EPS0), "rabitq_est_kernel")
 
     c, lt = a["pq"]["codes"], a["pq"]["lut"]
     n, m_sub = c.shape
@@ -1895,6 +2113,8 @@ def main(argv=None) -> int:
                                                      density=dens),
                                 budgets, errs, f"B={b} n={n}")
         check_single_kernels(errs)
+        check_bucket_hist_edges(errs)
+        check_sqrt_rn(summary)
 
     launches = {k: 0 for k in ops.LAUNCHES}
     eng = qb = main_queries = x = rq_eng = rq_queries = rq_state = None

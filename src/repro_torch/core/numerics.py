@@ -2,8 +2,17 @@
 plain kernel versions.
 
 Every sum that reaches a bucketize or a ranking is added here in an order
-fixed by the code, not by the device: elementwise PyTorch operations round
-alike on the CPU and the card, so a CPU and a CUDA run give the same bits.
+fixed by the code, not by the device, and every square root goes through
+``sqrt_rn``, so a CPU and a CUDA run give the same bits.  The port relies
+on these fp32 operations to round alike on both devices: ``+``, ``-``,
+``*`` and ``/`` of two tensors (IEEE round to nearest on both; on CUDA a
+division by a Python scalar becomes a multiply by its reciprocal, so the
+plain versions divide by a tensor), ``floor``, ``clamp``, ``where``,
+comparisons and conversions.  ``torch.sqrt`` is not one of them: on the
+CPU (torch 2.13, AVX512) it is 1 ulp off the IEEE root on about 0.6% of
+fp32 inputs, while the card's is IEEE.
+
+* ``sqrt_rn``: the IEEE round-to-nearest fp32 square root on both devices.
 
 * ``ordered_sum``: a fixed pairwise order, for the rotations, the RaBitQ
   centroid correction ``s2`` and the routing distances.
@@ -21,6 +30,35 @@ import torch
 
 INF = float("inf")
 CHUNK = 1 << 24   # elements per temporary block of the fixed-order sums
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded (IEEE round-to-nearest) fp32 square root of an
+    fp32 tensor, as ``__fsqrt_rn`` and nvcc's default ``sqrtf`` give it on
+    the card and ``jnp.sqrt``/``np.sqrt`` on the CPU; 0, -0, +inf, NaN and
+    negatives as ``torch.sqrt``.
+
+    On the CPU ``torch.sqrt`` rounds wrongly by 1 ulp on some inputs, so the
+    fp64 root, rounded to fp32, is moved one step to the neighbour whose
+    midpoint with it, squared in fp64, lies on the other side of ``x``.  A
+    midpoint of two adjacent floats has at most 25 significant bits, so its
+    square (at most 50) and the comparison are exact in fp64, and no fp32
+    ``x`` equals such a square (no ties).  On the card ``torch.sqrt`` is
+    already IEEE (``chip_smoke.py`` phase 3 holds it bitwise against this
+    fix-up on 23M values) and saves the fix-up's passes over the (B, n)
+    arrays of the main path."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    xd = x.double()
+    r = torch.sqrt(xd).float()
+    ok = torch.isfinite(r) & (r > 0)
+    up = torch.nextafter(r, torch.full_like(r, INF))
+    lo = torch.nextafter(r, torch.zeros_like(r))
+    rd = r.double()
+    hi_m = (rd + up.double()) * 0.5
+    lo_m = (rd + lo.double()) * 0.5
+    r = torch.where(ok & (xd > hi_m * hi_m), up, r)
+    return torch.where(ok & (xd < lo_m * lo_m), lo, r)
 
 
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +88,7 @@ def exact_dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     for j in range(xt.shape[0]):
         t = xt[j] - qt[j]
         acc = t * t if acc is None else acc + t * t
-    return torch.sqrt(acc)
+    return sqrt_rn(acc)
 
 
 def rotate(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
@@ -91,7 +129,7 @@ def code_dot(codes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def lane_err(f_o: torch.Tensor, d: int, eps0: float) -> torch.Tensor:
     """The per-lane error bound eps0 * sqrt((1 - f^2) / (f^2 (d - 1)))."""
     f2 = f_o * f_o
-    return eps0 * torch.sqrt((1.0 - f2) / (f2 * float(d - 1)))
+    return eps0 * sqrt_rn((1.0 - f2) / (f2 * float(d - 1)))
 
 
 def rabitq_bounds(s1, s2, nq, norm_o, f_o, d: int, eps0: float):
@@ -105,7 +143,7 @@ def rabitq_bounds(s1, s2, nq, norm_o, f_o, d: int, eps0: float):
     base = nq * nq + norm_o * norm_o
 
     def dist(t):
-        return torch.sqrt(torch.clamp(base - scale * t, min=0.0))
+        return sqrt_rn(torch.clamp(base - scale * t, min=0.0))
 
     return dist(ip), dist(ip + err), dist(ip - err)
 
@@ -119,6 +157,6 @@ def rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, rot, qs, d2,
     = Pq - Pc decomposition of the JAX oracle, in fixed summation order."""
     d = codes.shape[1]
     s1 = code_dot(codes, rotate(qs, rot))
-    nq = torch.sqrt(d2)[:, cl.long()]
+    nq = sqrt_rn(d2)[:, cl.long()]
     bounds = rabitq_bounds(s1, s2[None], nq, norm_o[None], f_o[None], d, eps0)
     return tuple(torch.where(lane_valid, t, INF) for t in bounds)

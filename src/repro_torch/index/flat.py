@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import buffer as rb
+from repro_torch.core import numerics
 
 
 def search_batch(x: torch.Tensor, qs: torch.Tensor, k: int):
@@ -12,7 +13,7 @@ def search_batch(x: torch.Tensor, qs: torch.Tensor, k: int):
     d2 = (torch.sum(x * x, dim=1)[None, :] - 2.0 * (qs @ x.T)
           + torch.sum(qs * qs, dim=1)[:, None])
     vals, idx = rb.smallest(d2, k)
-    return torch.sqrt(torch.clamp(vals, min=0.0)), idx
+    return numerics.sqrt_rn(torch.clamp(vals, min=0.0)), idx
 
 
 def search(x: torch.Tensor, q: torch.Tensor, k: int):

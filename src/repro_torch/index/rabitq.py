@@ -80,7 +80,7 @@ def query_factors(rq: RabitqCodes, q: torch.Tensor,
     give the same bits."""
     single = centroid.ndim == 1
     qr = q[None] - (centroid[None] if single else centroid)      # (T, d)
-    norm_q = torch.sqrt(numerics.ordered_sum(qr * qr))
+    norm_q = numerics.sqrt_rn(numerics.ordered_sum(qr * qr))
     v = numerics.rotate(qr / torch.clamp(norm_q, min=1e-12)[:, None], rq.rot)
     if single:
         return QueryFactors(v=v[0], norm_q=norm_q[0])

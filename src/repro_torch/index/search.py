@@ -176,7 +176,7 @@ def _exact_dists(vectors: torch.Tensor, ids: torch.Tensor,
     distance comes from one source, chosen alike on both devices, so the
     last-bit difference from a kernel's value never meets it."""
     diff = vectors[ids.clamp(min=0)] - q
-    return torch.sqrt(numerics.ordered_sum(diff * diff))
+    return numerics.sqrt_rn(numerics.ordered_sum(diff * diff))
 
 
 def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
@@ -231,7 +231,8 @@ def _pq_sample_est(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
     acc = torch.gather(luts[:, 0, :], 1, sc[:, :, 0].long())
     for m in range(1, sc.shape[2]):
         acc = acc + torch.gather(luts[:, m, :], 1, sc[:, :, m].long())
-    return torch.where(sok, torch.sqrt(torch.clamp(acc, min=0.0)), INF)
+    return torch.where(sok, numerics.sqrt_rn(torch.clamp(acc, min=0.0)),
+                       INF)
 
 
 def _topk_est_id(est: torch.Tensor, gids: torch.Tensor, width: int):
@@ -257,8 +258,8 @@ def _predictive_select(est, bucket, hist, lane_valid, tau_pred, count: int,
 
 
 def _sqrt_est(est2: torch.Tensor, lane_valid: torch.Tensor) -> torch.Tensor:
-    return torch.where(lane_valid, torch.sqrt(torch.clamp(est2, min=0.0)),
-                       INF)
+    return torch.where(lane_valid,
+                       numerics.sqrt_rn(torch.clamp(est2, min=0.0)), INF)
 
 
 # --------------------------------------------------------------------------
@@ -324,8 +325,8 @@ def ivf_pq_search(index: PQIndex, q: torch.Tensor, k: int, n_probe: int,
     lut = pq_mod.adc_table(index.pq, q)
     flat_ids, flat_valid = ids.reshape(-1), valid.reshape(-1)
     est = ops.pq_adc(index.codes[flat_ids.clamp(min=0)], lut)   # squared
-    flat_est = torch.sqrt(torch.clamp(torch.where(flat_valid, est, INF),
-                                      min=0.0))
+    flat_est = numerics.sqrt_rn(torch.clamp(torch.where(flat_valid, est, INF),
+                                            min=0.0))
     est2 = flat_est.reshape(n_probe, cap)
 
     if not use_bbc:
@@ -734,7 +735,7 @@ def _rabitq_sample_ub(stream: RabitqStream, rot: torch.Tensor,
     for i in range(0, b, step):
         c = stream.codes[spos[i:i + step]].to(torch.float32)
         s1[i:i + step] = numerics.ordered_sum(c * g[i:i + step, None, :])
-    nq = torch.gather(torch.sqrt(d2), 1, stream.cl.long()[spos])
+    nq = torch.gather(numerics.sqrt_rn(d2), 1, stream.cl.long()[spos])
     _, _, ub = numerics.rabitq_bounds(s1, stream.s2[spos], nq,
                                       stream.norm_o[spos], stream.f_o[spos],
                                       d, eps0)

@@ -1,5 +1,6 @@
 // Device functions shared by the port's kernels (fused_scan.cu, pq_adc.cu,
-// l2_rerank.cu, bucket_hist.cu, rabitq_fused.cu).
+// l2_rerank.cu, bucket_hist.cu, rabitq_fused.cu, shard_collect.cu,
+// rabitq_est.cu).
 //
 // Numerics.  Build without --use_fast_math: the bucket id of an estimate
 // must equal the plain PyTorch version's for the same fp32 value, which
@@ -38,6 +39,23 @@ __device__ __forceinline__ int bucket_of(float e, float d_min, float delta,
   if (bf >= static_cast<float>(n_ew)) return m;
   const int bi = bf >= 0.f ? static_cast<int>(bf) : 0;  // NaN maps to 0 too
   return ew[bi];
+}
+
+// Whether a +inf distance (a lane off the probe) may skip the division:
+// for a finite d_min and a positive finite delta, (inf - d_min) / delta is
+// +inf, past every bin, so bucket_of gives m; but the IEEE division takes
+// its slow path on +inf.  Not for a degenerate codebook: with d_min = +inf
+// the difference is NaN (bin 0), with delta = 0 it is the division's own.
+__device__ __forceinline__ bool inf_to_m(float d_min, float delta) {
+  return isfinite(d_min) && isfinite(delta) && delta > 0.f;
+}
+
+// bucket_of with the +inf shortcut where ``inf_m`` (inf_to_m of the
+// query's codebook) allows it: the same bucket id for every input.
+__device__ __forceinline__ int bucket_of_inf(float e, float d_min,
+                                             float delta, bool inf_m,
+                                             const int* ew, int n_ew, int m) {
+  return (inf_m && e == INFINITY) ? m : bucket_of(e, d_min, delta, ew, n_ew, m);
 }
 
 // Sum of one shared-memory row of nq histograms into the zeroed global

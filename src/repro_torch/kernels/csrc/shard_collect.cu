@@ -241,12 +241,10 @@ __device__ __forceinline__ void collect(
     for (int i = threadIdx.x; i < m + 1; i += blockDim.x) hist_s[i] = 0;
     __syncthreads();
     const float dm = d_min[q], dl = delta[q];
-    const bool inf_to_m = isfinite(dm) && isfinite(dl) && dl > 0.f;
+    const bool inf_m = bbc::inf_to_m(dm, dl);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (inf_to_m && e[i] == INFINITY) b[i] = m;
-      else b[i] = bbc::bucket_of(e[i], dm, dl, ew_s, n_ew, m);
-    }
+    for (int i = 0; i < kPer; ++i)
+      b[i] = bbc::bucket_of_inf(e[i], dm, dl, inf_m, ew_s, n_ew, m);
     if (vec && (c + 1) * kChunk <= n) {
       // a whole chunk: through shared memory, so that each warp store
       // covers 512 contiguous bytes (slots rotated against bank clashes)

@@ -25,8 +25,10 @@ of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
 thread and a query tile hold, the grid and the shared memory; one kernel
 each serves every B.  The shard collector's (``_collect_plan``) is its
 chunk count, grid and the layout of the scratch that one memset zeroes.
-The CPU tests check the plans; the kernels refuse a shared-memory size
-below their layout's.
+The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
+over (query, chunk) items, the RaBitQ estimator's (``_est_lanes``) the
+lanes a block holds.  The CPU tests check the plans; the kernels refuse a
+shared-memory size below their layout's.
 """
 from __future__ import annotations
 
@@ -64,6 +66,11 @@ ADC_BLOCKS_PER_SM = 2
 # shard_collect.cu: lanes per chunk ticket (256 threads x 16 lanes), and
 # buffer slots per sentinel-fill ticket
 COLLECT_CHUNK, COLLECT_FILL = 4096, 8192
+# bucket_hist.cu: lanes per work item (256 threads x 4 lanes) and the
+# persistent blocks an SM holds (its __launch_bounds__)
+BH_CHUNK, BH_BLOCKS_PER_SM = 1024, 4
+# rabitq_est.cu: the most lanes (threads) a block holds
+EST_LANES = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -76,8 +83,9 @@ _SIGNATURES = {
     "l2_rerank": {
         "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P]},
     "bucket_hist": {
-        "bucket_hist_batch_launch": [_P] * 7 + [_I] * 6 + [_P],
-        "bucket_hist_smem_bytes": [_I] * 2},
+        "bucket_hist_batch_launch": [_P] * 7 + [_I] * 9 + [_P],
+        "bucket_hist_smem_bytes": [_I] * 2,
+        "bucket_hist_chunk": []},
     "rabitq_fused": {
         "fused_rabitq_scan_batch_launch":
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
@@ -89,7 +97,7 @@ _SIGNATURES = {
         "shard_collect_chunk": []},
     "rabitq_est": {
         "rabitq_est_launch": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
-        "rabitq_est_smem_bytes": [_I]},
+        "rabitq_est_smem_bytes": [_I] * 2},
 }
 
 
@@ -284,11 +292,43 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class HistPlan(NamedTuple):
+    """One launch of the bucketize-histogram kernel (``bucket_hist.cu``)."""
+    chunks: int          # work items (chunks of BH_CHUNK lanes) per query
+    per: int             # consecutive items of each block
+    grid: int            # persistent blocks
+
+
+@functools.lru_cache(maxsize=4096)
+def _hist_plan(b: int, n: int, sms: int = SMS) -> HistPlan:
+    """The B * chunks work items, query-major, cut into runs of ``per``
+    consecutive items, one run a block, at most ``BH_BLOCKS_PER_SM`` blocks
+    on each SM: a block stages a query's codebook once per run."""
+    chunks = max(1, -(-n // BH_CHUNK))
+    total = b * chunks
+    per = -(-total // min(total, sms * BH_BLOCKS_PER_SM))
+    if total + per >= 2 ** 31:
+        raise ValueError(f"bucket_hist_batch: {total} work items (B={b}, "
+                         f"n={n}) overflow the kernel's int32 indices")
+    return HistPlan(chunks, per, -(-total // per))
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_lib() -> ctypes.CDLL:
+    """The histogram kernel's library, checked once against ``BH_CHUNK``."""
+    lib = _lib("bucket_hist")
+    if lib.bucket_hist_chunk() != BH_CHUNK:
+        raise RuntimeError(f"bucket_hist.cu takes {lib.bucket_hist_chunk()} "
+                           f"lanes a work item, ops.BH_CHUNK says {BH_CHUNK}")
+    return lib
+
+
 def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
                       d_min: torch.Tensor, delta: torch.Tensor,
                       ew_maps: torch.Tensor, m: int):
     """(B, n) distances, per-query codebooks -> (bucket (B, n) int32, hist
-    (B, m+1) int32 over the valid lanes)."""
+    (B, m+1) int32 over the valid lanes).  On the card the launch function
+    memsets ``hist`` and launches the kernel: no PyTorch call between."""
     if not _on_cuda(dists, valid, d_min, delta, ew_maps):
         return _ref.bucket_hist_batch(dists, valid, d_min, delta, ew_maps, m)
     b, n = dists.shape
@@ -298,19 +338,24 @@ def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
     d_min = _params(d_min, torch.float32)
     delta = _params(delta, torch.float32)
     ew_maps = _params(ew_maps, torch.int32)
-    bucket = torch.empty(b, n, dtype=torch.int32, device=dists.device)
-    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dists.device)
+    dev = dists.device
+    bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
-        return bucket, hist
-    lib = _lib("bucket_hist")
+        return bucket, torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
+    lib = _hist_lib()
     smem = lib.bucket_hist_smem_bytes(n_ew, m)
     if smem > MAX_SMEM:
         raise ValueError(f"bucket_hist_batch: n_ew={n_ew}, m={m} need {smem} "
                          f"bytes of shared memory")
+    p = _hist_plan(b, n, _sms(dev.index))
+    hist = torch.empty(b, m + 1, dtype=torch.int32, device=dev)
+    vec = n % 4 == 0 and _aligned(dists, bucket) \
+        and valid.data_ptr() % 4 == 0
     rc = lib.bucket_hist_batch_launch(
         dists.data_ptr(), valid.data_ptr(), d_min.data_ptr(),
         delta.data_ptr(), ew_maps.data_ptr(), bucket.data_ptr(),
-        hist.data_ptr(), n, b, n_ew, m, _tiles(n), smem, _stream())
+        hist.data_ptr(), n, b, n_ew, m, p.chunks, p.per, p.grid, vec, smem,
+        _stream())
     _check(rc, "bucket_hist_batch")
     _count("bucket_hist", b)
     return bucket, hist
@@ -406,7 +451,7 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     _need(valid, "valid", torch.bool, (b, n))
     _need(s2, "s2", torch.float32, (n,))
     g = numerics.rotate(qs, rot)
-    nq = _need(torch.sqrt(d2).contiguous(), "d2", torch.float32, (b, c))
+    nq = _need(numerics.sqrt_rn(d2).contiguous(), "d2", torch.float32, (b, c))
     d_min = _params(d_min, torch.float32)
     delta = _params(delta, torch.float32)
     ew_maps = _params(ew_maps, torch.int32)
@@ -618,6 +663,20 @@ def fused_scan(codes: torch.Tensor, vectors: torch.Tensor,
     return tuple(t[0] for t in out)
 
 
+def _est_lanes(d: int, smem_bytes) -> tuple[int, int]:
+    """Lanes a block of the RaBitQ estimator holds (``EST_LANES``, or fewer
+    where their d-byte code rows do not fit shared memory) and its shared
+    memory.  Raises when 32 rows do not fit."""
+    lanes = EST_LANES
+    while lanes > 32 and smem_bytes(d, lanes) > MAX_SMEM:
+        lanes //= 2
+    smem = smem_bytes(d, lanes)
+    if smem > MAX_SMEM:
+        raise ValueError(f"rabitq_est: d={d} needs {smem} bytes of shared "
+                         f"memory for {lanes} code rows")
+    return lanes, smem
+
+
 def rabitq_est_tiles(codes: torch.Tensor, norm_o: torch.Tensor,
                      f_o: torch.Tensor, v: torch.Tensor,
                      norm_q: torch.Tensor, valid: torch.Tensor,
@@ -640,19 +699,16 @@ def rabitq_est_tiles(codes: torch.Tensor, norm_o: torch.Tensor,
                                device=codes.device) for _ in range(3))
     if t == 0 or cap == 0:
         return est, lb, ub
-    if t > 65535:
-        raise ValueError(f"rabitq_est: {t} tiles, more than a grid's "
-                         f"65535 rows")
     lib = _lib("rabitq_est")
-    smem = lib.rabitq_est_smem_bytes(d)
-    if smem > MAX_SMEM:
-        raise ValueError(f"rabitq_est: d={d} needs {smem} bytes of shared "
-                         f"memory")
+    lanes, smem = _est_lanes(d, lib.rabitq_est_smem_bytes)
+    if -(-cap // lanes) > 65535:
+        raise ValueError(f"rabitq_est: {cap} lanes a tile, more than a "
+                         f"grid's 65535 chunks of {lanes}")
     rc = lib.rabitq_est_launch(
         codes.data_ptr(), norm_o.data_ptr(), f_o.data_ptr(), v.data_ptr(),
         norm_q.data_ptr(), valid.data_ptr(), est.data_ptr(), lb.data_ptr(),
-        ub.data_ptr(), t, cap, d, math.sqrt(d), eps0, float(d - 1),
-        _tiles(cap), smem, _stream())
+        ub.data_ptr(), t, cap, d, math.sqrt(d), eps0, float(d - 1), lanes,
+        smem, _stream())
     _check(rc, "rabitq_est")
     LAUNCHES["rabitq_est"] += 1
     return est, lb, ub

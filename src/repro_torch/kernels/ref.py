@@ -36,11 +36,13 @@ def bucketize_batch(dists: torch.Tensor, d_min: torch.Tensor,
                     delta: torch.Tensor, ew_maps: torch.Tensor,
                     m: int) -> torch.Tensor:
     """(B, n) distances, per-query codebook params -> (B, n) Eq. 6 bucket ids,
-    with overflow bucket ``m``."""
+    with overflow bucket ``m``.  A NaN bin (a NaN distance, +inf against a
+    d_min of +inf, or 0 / 0 where delta is 0) maps to bin 0, as the JAX
+    oracle's conversion and the kernels' ``bbc::bucket_of`` map it."""
     n_ew = ew_maps.shape[1]
     bin_f = torch.floor((dists - d_min[:, None]) / delta[:, None])
     overflow = bin_f >= n_ew
-    bin_id = bin_f.clamp(0, n_ew - 1).long()
+    bin_id = torch.nan_to_num(bin_f, nan=0.0).clamp(0, n_ew - 1).long()
     bucket = torch.gather(ew_maps.long(), 1, bin_id)
     return torch.where(overflow, m, bucket).to(torch.int32)
 
@@ -78,7 +80,7 @@ def fused_scan_batch(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
     nmiss (B,)): ``early`` is the exact distance on valid lanes whose bucket
     is at or below ``tau_pred`` and +inf elsewhere, and ``nmiss`` counts the
     valid lanes above it."""
-    est = torch.sqrt(torch.clamp(pq_adc_batch(codes, luts), min=0.0))
+    est = numerics.sqrt_rn(torch.clamp(pq_adc_batch(codes, luts), min=0.0))
     est = torch.where(valid, est, INF)
     bucket = bucketize_batch(est, d_min, delta, ew_maps, m)
     hist = histogram_batch(bucket, valid, m)
@@ -165,8 +167,8 @@ def rabitq_est_tiles(codes: torch.Tensor, norm_o: torch.Tensor,
     base = nq * nq + norm_o * norm_o
 
     def dist(t):
-        return torch.where(valid, torch.sqrt(torch.clamp(base - scale * t,
-                                                         min=0.0)), INF)
+        return torch.where(valid, numerics.sqrt_rn(
+            torch.clamp(base - scale * t, min=0.0)), INF)
 
     return dist(ip), dist(ip + err), dist(ip - err)
 

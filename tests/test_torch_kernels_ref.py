@@ -1,7 +1,8 @@
 """The port's kernel mirrors (repro_torch.kernels.ref) against the JAX
 package's oracles (repro.kernels.ref) on the JAX kernel tests' shapes, the
-wrappers' device routing, the launch plans of the exact-distance and ADC
-kernels, and (on a card) each CUDA kernel against its plain version.
+wrappers' device routing, the launch plans of the exact-distance, ADC,
+bucketize-histogram and RaBitQ estimator kernels, and (on a card) each
+CUDA kernel against its plain version.
 
 Float bars against JAX are the JAX kernel tests': rtol=atol=1e-5 for the
 ADC and fused estimates, 1e-4 for the early exact distances, 2e-4 for l2.
@@ -69,6 +70,77 @@ def test_bucket_hist_batch_mirror(rng, b, n):
                                          _t(delta), _t(ew), m)
     np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
     np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+
+
+DEGENERATE = ["inf_lanes", "nan_lanes", "delta0", "dmin_inf"]
+
+
+def _degenerate_inputs(rng, b, n, case):
+    """Inputs of #4 that its +inf shortcut must keep: (B, n) distances,
+    +inf off the valid lanes and on a few valid ones, codebooks from the
+    JAX build; then the last query gets the ``case``: NaN lanes, a delta of
+    0 (with d_min one of its own distances, so 0 / 0 occurs too) or a
+    d_min of +inf (so +inf - d_min is NaN)."""
+    m = 64
+    valid = rng.random((b, n)) < 0.7
+    dists = np.where(valid, rng.random((b, n)) * 10 + 1, np.inf)
+    dists[valid & (rng.random((b, n)) < 0.05)] = np.inf
+    dists = dists.astype(np.float32)
+    d_min, delta, ew = _codebooks(np.where(np.isfinite(dists), dists,
+                                           np.inf), k=min(n // 2, 400), m=m)
+    q = b - 1
+    if case == "nan_lanes":
+        dists[q, rng.random(n) < 0.1] = np.nan
+    elif case == "delta0":
+        delta[q] = 0.0
+        d_min[q] = dists[q][np.isfinite(dists[q])][0]
+    elif case == "dmin_inf":
+        d_min[q] = np.inf
+    return dists, valid, d_min, delta, ew, m
+
+
+@pytest.mark.parametrize("n", [1000, 1003])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("case", DEGENERATE)
+def test_bucket_hist_batch_degenerate_mirror(rng, case, b, n):
+    """The plain #4 equals the JAX oracle on +inf and NaN lanes and on the
+    degenerate codebooks (delta 0, d_min +inf): where the kernel sends a
+    +inf lane straight to bucket m, and where it must not."""
+    dists, valid, d_min, delta, ew, m = _degenerate_inputs(rng, b, n, case)
+    want_b, want_h = jref.bucket_hist_batch(
+        jnp.asarray(dists), jnp.asarray(valid), jnp.asarray(d_min),
+        jnp.asarray(delta), jnp.asarray(ew), m)
+    got_b, got_h = ops.bucket_hist_batch(_t(dists), _t(valid), _t(d_min),
+                                         _t(delta), _t(ew), m)
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1003])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("case", DEGENERATE)
+def test_cuda_bucket_hist_degenerate(rng, cuda, case, b, n):
+    """#4 (and at B = 1 #12, through ``ops.bucket_hist``) on the card equal
+    to its plain version on the degenerate inputs, and to the plain
+    version run on the CPU."""
+    args = _degenerate_inputs(rng, b, n, case)
+    cpu = [_t(a) for a in args[:5]]
+    gpu = [a.to(cuda) for a in cpu]
+    m = args[5]
+    ops.reset_launches()
+    got = ops.bucket_hist_batch(*gpu, m)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["bucket_hist" if b == 1 else "bucket_hist_batch"] == 1
+    want = ref.bucket_hist_batch(*gpu, m)
+    want_cpu = ref.bucket_hist_batch(*cpu, m)
+    for x, y, z in zip(got, want, want_cpu):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    if b == 1:
+        single = ops.bucket_hist(gpu[0][0], gpu[1][0], gpu[2], gpu[3],
+                                 gpu[4][0], m)
+        for x, y in zip(single, want):
+            assert torch.equal(x, y[0])
 
 
 @pytest.mark.parametrize("b,n,d,m_sub", [(4, 512, 64, 16), (8, 768, 96, 24),
@@ -299,3 +371,50 @@ def test_cuda_adc_tiles_bitwise(rng, cuda, b, n, m_sub, k_codes):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["pq_adc_batch"] == 1
     assert torch.equal(got, ref.pq_adc_batch(codes, luts))
+
+
+# --------------------------------------------------------------------------
+# launch plans of the bucketize-histogram (#4, #12) and RaBitQ estimator
+# (#8) kernels
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [1, 2, 32, 33])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 262_144, 1_000_064])
+def test_hist_plan_covers_every_item_once(b, n):
+    """The runs of ``per`` consecutive (query, chunk) items tile the B *
+    chunks items exactly, the chunks cover the row, at most
+    ``BH_BLOCKS_PER_SM`` blocks an SM, and the blocks that meet a query
+    (the kernel's ``blocks_of``) are the ones whose runs hold its items."""
+    p = ops._hist_plan(b, n, ops.SMS)
+    total = b * p.chunks
+    assert (p.chunks - 1) * ops.BH_CHUNK < n <= p.chunks * ops.BH_CHUNK
+    assert (p.grid - 1) * p.per < total <= p.grid * p.per
+    assert p.grid <= ops.SMS * ops.BH_BLOCKS_PER_SM
+    owners = [it // p.per for it in range(total)]
+    for q in range(b):
+        first = q * p.chunks // p.per
+        last = ((q + 1) * p.chunks - 1) // p.per
+        assert set(owners[q * p.chunks:(q + 1) * p.chunks]) == set(
+            range(first, last + 1))
+
+
+def _est_smem(d, lanes):
+    """rabitq_est.cu's layout: each warp's v, then its 32 rows of an odd
+    count of 16-byte words."""
+    s = (d + 15) // 16 * 16
+    row = s if (s // 16) % 2 else s + 16
+    return lanes // 32 * ((4 * d + 15) // 16 * 16 + 32 * row)
+
+
+@pytest.mark.parametrize("d,lanes", [(64, 128), (100, 128), (128, 128),
+                                     (960, 128), (1536, 128), (2048, 64),
+                                     (4096, 32)])
+def test_est_lanes_fit_shared_memory(d, lanes):
+    assert ops._est_lanes(d, _est_smem) == (lanes, _est_smem(d, lanes))
+    assert _est_smem(d, lanes) <= ops.MAX_SMEM
+
+
+def test_est_lanes_refuse_rows_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._est_lanes(8192, _est_smem)
+

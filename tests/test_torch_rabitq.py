@@ -173,8 +173,9 @@ def test_fixed_order_sums():
 @pytest.mark.parametrize("d", [1, 37, 128])
 def test_exact_dist_is_the_ascending_fp32_sum(d):
     """exact_dist adds the fp32 squares in ascending coordinate order, one
-    rounding per operation (the CUDA kernels' order), and agrees with the
-    fp64 distance to fp32 rounding; the plain l2 kernel version is it."""
+    rounding per operation (the CUDA kernels' order), takes the correctly
+    rounded square root (numpy's, the card's), and agrees with the fp64
+    distance to fp32 rounding; the plain l2 kernel version is it."""
     g = torch.Generator().manual_seed(d)
     x = torch.randn(50, d, generator=g) * 10
     q = torch.randn(3, d, generator=g) * 10
@@ -183,7 +184,7 @@ def test_exact_dist_is_the_ascending_fp32_sum(d):
         t = x[None, :, j] - q[:, j, None]
         want = want + t * t
     got = numerics.exact_dist(x[None], q[:, None])
-    assert torch.equal(got, torch.sqrt(want))
+    assert torch.equal(got, torch.from_numpy(np.sqrt(want.numpy())))
     assert torch.equal(ref.l2_exact_batch(x, q), got)
     f64 = torch.cdist(q.double(), x.double())
     torch.testing.assert_close(got.double(), f64, rtol=1e-5, atol=1e-5)
