@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9, 11 and 12
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-13
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -22,8 +22,12 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      tiles, ragged row tiles and coordinate chunks, on unaligned views;
      the bucketize-histogram on +inf and NaN lanes and degenerate
      codebooks, aligned and unaligned, over repeated calls; the RaBitQ
-     estimator with tiles all padding; ``numerics.sqrt_rn`` on the card
-     bitwise against its CPU form on 23M values);
+     estimator with tiles all padding; the fused scan, batched and in its
+     one-query kernel, on +inf and NaN estimates and rows, degenerate
+     codebooks, thresholds -1 and m, ragged and unaligned shapes, no valid
+     lane and every lane predicted, over repeated calls, every output
+     bitwise; ``numerics.sqrt_rn`` on the card bitwise against its CPU
+     form on 23M values);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card (its k-means and PQ training run
      twice more, and must give the same bits), 64 queries through the fused
@@ -45,7 +49,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      its plain version's and (where one exists) one PyTorch call's (the
      single-query kernels at phase 12's shapes, and they, the batched
      bucketize-histogram, the shard collector and compaction also the
-     kernel alone); for #2 and #3 also
+     kernel alone; the one-query fused scan beside the batched kernel at
+     one query, its design before, and with no predicted row and no valid
+     lane); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -60,6 +66,11 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      predictive and naive, IVF static, predictive and naive; ms per batch,
      recall@k, the id-set overlap with the batched engine on the same
      index, the survivor tier of each batch and the counters;
+ 13. ``serve --mode async`` at the JAX serving CLI's defaults (100,000 x
+     96, 316 clusters, IVF+PQ+BBC, k=5000, 64 Poisson requests at 200/s,
+     deadline 500 ms, batches of 16) with ``--check-parity``: p50/p99
+     latency, shed, degraded and deadline-met shares, batches, recall and
+     parity, which must be 1.0 over more than 0 requests;
   8. (only when asked for) torch.profiler over batches of phases 4, 9 and
      11 (sharded IVF+PQ) and over single IVF+PQ+BBC queries (phase 12):
      device time by operator and the device's idle share;
@@ -67,8 +78,8 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 7, 8, 10):
      the band threshold, the static and warm predictive gates, and where
      the band lanes' lower-bound buckets lie.
 
-Kernel launch counts are zeroed before phases 4, 9, 6, 12 and 11 and read
-after each; comparison and timing launches do not count.  A launch of
+Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11 and 13 and
+read after each; comparison and timing launches do not count.  A launch of
 the PQ, l2, bucket or fused kernel at one query counts under its
 single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -701,6 +712,135 @@ def check_bucket_hist_edges(errs: dict) -> None:
     log(f"[kernels] bucket_hist (B, n) in {shapes}, aligned and unaligned, "
         f"+inf/NaN lanes, delta 0 and d_min +inf: bitwise equal to the plain "
         f"version on the card and on the CPU; 10 repeated calls equal")
+
+
+def same(a, b) -> bool:
+    """Equal values and NaN at the same places (``torch.equal`` counts a
+    NaN unequal to itself)."""
+    import torch
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def fused_edge_inputs(seed, b, n, m_sub, d, shift: int = 0,
+                      density: float = 0.5, odd: bool = True):
+    """Fused-scan inputs with what its kernels must get right: per query a
+    codebook from the clean estimates, query 1 with delta 0, query 2 with
+    d_min +inf, query 3 with both; thresholds m // 3, -1, m and 5; with
+    ``odd`` LUT entries of +inf and NaN (so 1 lane in 16 estimates +inf and
+    1 in 16 NaN) and +inf and NaN coordinates in some vector rows;
+    ``shift`` = 1 puts codes, vectors and validity one element into their
+    buffers (the narrow loads)."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def view(t):
+        flat = torch.zeros(t.numel() + shift, dtype=t.dtype, device=DEV)
+        flat[shift:] = t.reshape(-1)
+        return flat[shift:].view(t.shape)
+
+    codes = torch.randint(0, 16, (n, m_sub), generator=g, device=DEV,
+                          dtype=torch.uint8)
+    vectors = torch.randn(n, d, generator=g, device=DEV)
+    qs = torch.randn(b, d, generator=g, device=DEV)
+    valid = torch.rand(b, n, generator=g, device=DEV) < density
+    luts = torch.rand(b, m_sub, 16, generator=g, device=DEV) * 2
+    m = 128
+    est = torch.where(valid, torch.sqrt(ref.pq_adc_batch(codes, luts)),
+                      float("inf"))
+    cb = rb.build_codebook(est, k=min(max(n // 8, 8), 5000), m=m)
+    d_min, delta = cb.d_min.clone(), cb.delta.clone()
+    if b > 1:
+        delta[1], d_min[1] = 0.0, est[1][torch.isfinite(est[1])][:1].sum()
+    if b > 2:
+        d_min[2] = float("inf")
+    if b > 3:
+        d_min[3], delta[3] = float("inf"), 0.0
+    if odd:
+        luts[:, 0, 15] = float("inf")
+        luts[:, 1 % m_sub, 14] = float("nan")
+        vectors[::97, d // 2] = float("nan")
+        vectors[::89, 0] = float("inf")
+    tau = torch.tensor([m // 3, -1, m, 5] * b, dtype=torch.int32,
+                       device=DEV)[:b]
+    return dict(codes=view(codes), vectors=view(vectors), valid=view(valid),
+                luts=luts, qs=qs, d_min=d_min, delta=delta,
+                ew_maps=cb.ew_map, m=m, tau_pred=tau)
+
+
+FUSED_ARGS = ("codes", "vectors", "valid", "luts", "qs", "d_min", "delta",
+              "ew_maps", "m", "tau_pred")
+
+
+def check_fused_edges(errs: dict) -> None:
+    """#1 and the one-query kernel #9 bitwise against the plain version
+    (every output, NaN where it is NaN) on ``fused_edge_inputs``: +inf and
+    NaN lanes and rows, degenerate codebooks, thresholds -1 and m, n not a
+    multiple of 4 or of a work item, unaligned views, M of whole-word rows
+    (16, 24, 32) and not (8, 33), d of several staging passes and not a
+    multiple of 4, no valid lane, every lane valid and predicted; #9 with
+    its threshold as an int and as a tensor, on the CPU too where n is
+    small; then ten repeated calls interleaved with another shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    names = ("est", "bucket", "hist", "early", "nmiss")
+
+    def one_args(a, j):
+        return (a["codes"], a["vectors"], a["valid"][j], a["luts"][j],
+                a["qs"][j], a["d_min"][j], a["delta"][j], a["ew_maps"][j],
+                a["m"], a["tau_pred"][j])
+
+    def hold(got, want, what):
+        for name, x, y in zip(names, got, want):
+            check(same(x, y), f"{what}: {name} differs from the plain "
+                  f"version")
+
+    shapes = ((1_000_064, 32, 128), (262_147, 32, 128), (1003, 24, 96),
+              (5, 16, 64), (20_001, 33, 100), (3000, 32, 960),
+              (4099, 8, 12))
+    for i, (n, m_sub, d) in enumerate(shapes):
+        for shift in (0, 1):
+            a = fused_edge_inputs(SEED + i, 4, n, m_sub, d, shift)
+            args = [a[k] for k in FUSED_ARGS]
+            hold(ops.fused_scan_batch(*args), ref.fused_scan_batch(*args),
+                 f"fused_scan_batch B=4 n={n} M={m_sub} d={d} shift={shift}")
+            for j in range(4):
+                one = one_args(a, j)
+                want = ref.fused_scan(*one)
+                what = f"fused_scan n={n} M={m_sub} d={d} shift={shift} q{j}"
+                hold(ops.fused_scan(*one), want, what)
+                hold(ops.fused_scan(*one[:-1], int(one[-1])), want,
+                     what + " (int threshold)")
+                if n <= 20_001:
+                    cpu = ref.fused_scan(*(t.cpu() if torch.is_tensor(t)
+                                           else t for t in one))
+                    hold([x.cpu() for x in want], cpu, what + " (CPU)")
+    for dens, tau, label in ((0.0, 64, "no valid lane"),
+                             (1.0, 128, "every lane predicted")):
+        a = fused_edge_inputs(SEED + 11, 1, 262_147, 32, 128,
+                              density=dens, odd=False)
+        a["tau_pred"][:] = tau
+        one = one_args(a, 0)
+        hold(ops.fused_scan(*one), ref.fused_scan(*one),
+             f"fused_scan {label}")
+    first = fused_edge_inputs(SEED, 1, 1_000_064, 32, 128)
+    other = fused_edge_inputs(SEED + 1, 1, 5000, 24, 96)
+    want = ref.fused_scan(*one_args(first, 0))
+    for _ in range(10):
+        got = ops.fused_scan(*one_args(first, 0))
+        ops.fused_scan(*one_args(other, 0))
+        hold(got, want, "fused_scan: a repeated call")
+    errs["fused_scan_batch"] = max(errs.get("fused_scan_batch", 0.0), 0.0)
+    errs["fused_scan"] = max(errs.get("fused_scan", 0.0), 0.0)
+    log(f"[kernels] fused_scan (B=1) and fused_scan_batch (B=4) at (n, M, "
+        f"d) in {shapes}, aligned and unaligned, +inf/NaN lanes and rows, "
+        f"delta 0 and d_min +inf, thresholds -1/5/m/3/m, no valid lane, "
+        f"every lane predicted: bitwise equal to the plain version (the "
+        f"CPU's too where n <= 20001); 10 repeated calls equal")
 
 
 def check_single_kernels(errs: dict) -> None:
@@ -1422,6 +1562,60 @@ def single_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
 
 
 # --------------------------------------------------------------------------
+# phase 13: single-process async serving
+# --------------------------------------------------------------------------
+
+# the JAX serving CLI's defaults (100,000 x 96, 316 clusters, ivfpq_bbc,
+# k=5000, 64 Poisson requests at 200/s, deadline 500 ms, batches of 16,
+# seed 0), with the parity check
+ASYNC_ARGS = ["--mode", "async", "--check-parity"]
+
+
+def async_serving(summary: dict, card: str) -> dict:
+    """Phase 13: ``serve --mode async`` through its entry point
+    (``repro_torch.launch.serve.main``) on the card; its JSON line must
+    read parity 1.0 over more than 0 requests and exit 0.  Returns the
+    launches of the run."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launches()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(ASYNC_ARGS)
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    out = json.loads(lines[-1])
+    batches = [int(line.split()[1]) for line in lines
+               if line.startswith("[serve]") and "batches served" in line]
+    check(rc == 0, f"serve --mode async exited {rc}")
+    check(out["device"] == torch.cuda.get_device_name(0),
+          f"serve --mode async ran on {out['device']}")
+    check(out.get("parity") == 1.0 and out.get("parity_checked", 0) > 0,
+          f"serve --mode async parity {out.get('parity')} over "
+          f"{out.get('parity_checked')} requests")
+    check(out["conserved"] and out["requests"] == 64,
+          "serve --mode async lost requests")
+    check(batches and batches[0] > 0, "serve --mode async served no batch")
+    out.update(batches=batches[0], wall_s=wall, launches={
+        k: v for k, v in launches.items() if v}, card=card)
+    log(f"[async] p50 {out['p50_ms']} ms, p99 {out['p99_ms']} ms, shed "
+        f"{out['shed_rate']}, degraded {out['degraded_rate']}, deadline met "
+        f"{out['deadline_met_rate']}, {out['batches']} batches of up to "
+        f"{out['max_batch']}, recall_mean {out['recall_mean']}, parity "
+        f"{out['parity']} over {out['parity_checked']}, qps {out['qps']}; "
+        f"launches {out['launches']}; {card}")
+    summary["async_serving"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh-sharded deployment
 # --------------------------------------------------------------------------
 
@@ -1852,6 +2046,38 @@ def timing_shard(a, errs: dict) -> dict:
     return out
 
 
+# #9's kernel alone in PR 14, the batched kernel at one query (NVIDIA H100
+# 80GB HBM3 at 700 W; torch.profiler over 20 calls)
+FUSED_B1_PR14_MS = 0.0162
+
+
+def fused_bq1(f):
+    """One call of the batched fused-scan kernel at one query (BQ = 1, a
+    (1, 1024) grid of 256-lane blocks): #9's design before the one-query
+    kernel, still the batched kernel's one-query chunk, launched here to
+    time beside it (no launch is counted).  ``f``: phase 12's arguments,
+    (1, n) validity."""
+    import torch
+    from repro_torch.kernels import ops
+    lib = ops._lib("fused_scan")
+    n, m_sub = f["codes"].shape
+    d, m = f["vectors"].shape[1], f["m"]
+    k_codes, n_ew = f["luts"].shape[2], f["ew_maps"].shape[1]
+    est, bucket, early, hist, nmiss, counts = ops._scan_outputs(1, n, m, DEV)
+    smem = lib.fused_scan_smem_bytes(1, m_sub, k_codes, d, n_ew, m)
+    par = [f[k].to(dt).contiguous() for k, dt in (
+        ("d_min", torch.float32), ("delta", torch.float32),
+        ("ew_maps", torch.int32), ("tau_pred", torch.int32))]
+    rc = lib.fused_scan_batch_launch(
+        f["codes"].data_ptr(), f["vectors"].data_ptr(), f["valid"].data_ptr(),
+        f["luts"].data_ptr(), f["qs"].data_ptr(), *(t.data_ptr() for t in par),
+        est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
+        counts.data_ptr(), n, m_sub, k_codes, d, 1, n_ew, m, 1, ops._tiles(n),
+        smem, ops._stream())
+    check(rc == 0, f"fused_scan_batch_launch at BQ=1 returned {rc}")
+    return est[0], bucket[0], hist[0], early[0], nmiss[0]
+
+
 def single_kernel_args(pq_eng, rq_eng, q_pq, q_rq) -> dict:
     """The single-query kernels' arguments as phase 12's paths build them
     for one query: #8 over the RaBitQ query's probed tiles, #10 and #12 over
@@ -1968,8 +2194,12 @@ def timing_single(a, errs: dict) -> dict:
              f["tau_pred"])
     got = ops.fused_scan(*fargs)
     want = ref.fused_scan(*fargs)
-    check(torch.equal(got[0], want[0]) and torch.equal(got[3], want[3]),
-          "fused_scan at phase 12's shapes: est or early differ")
+    bq1 = fused_bq1(f)
+    for form, outs in (("one-query kernel", got),
+                       ("batched kernel at BQ=1", bq1)):
+        check(all(same(x_, y_) for x_, y_ in zip(outs, want)),
+              f"fused_scan ({form}) at phase 12's shapes differs from the "
+              f"plain version")
     n, m_sub = f["codes"].shape
     d, m = f["vectors"].shape[1], f["m"]
     k_codes, n_ew = f["luts"].shape[2], f["ew_maps"].shape[1]
@@ -1991,9 +2221,23 @@ def timing_single(a, errs: dict) -> dict:
              "bucket_hist": (lambda: ops.bucket_hist(*bh),
                              "bucket_hist_kernel"),
              "fused_scan": (lambda: ops.fused_scan(*fargs),
-                            "fused_scan_kernel")}
+                            "fused_scan_b1_kernel")}
     for name, (fn, kernel) in calls.items():
         out[name]["work"]["device_ms"] = device_ms(fn, kernel)
+    # #9's kernel beside the design before it (the batched kernel at one
+    # query), whose reading in PR 14 was 0.0162 ms
+    fw = out["fused_scan"]["work"]
+    fw["device_ms_batched_kernel_bq1"] = device_ms(lambda: fused_bq1(f),
+                                                   "fused_scan_kernel<1>")
+    # what the launch costs with no predicted row (tau_pred -1) and with no
+    # valid lane (only the +inf stores)
+    fw["device_ms_no_predicted_row"] = device_ms(
+        lambda: ops.fused_scan(*fargs[:-1], -1), "fused_scan_b1_kernel")
+    none = torch.zeros_like(fargs[2])
+    fw["device_ms_no_valid_lane"] = device_ms(
+        lambda: ops.fused_scan(*fargs[:2], none, *fargs[3:]),
+        "fused_scan_b1_kernel")
+    fw["device_ms_pr14"] = FUSED_B1_PR14_MS
     for name, tm in out.items():
         log(f"[timing] {name}: {tm['ms']:.4f} ms (bound {tm['bound_ms']:.4f} "
             f"ms by {tm['bound_by']}), plain {tm['plain_ms']:.4f} ms, library "
@@ -2048,9 +2292,9 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13",
                     help="comma-separated phases to run (default 1-7, 9, "
-                         "11 and 12; 8 = torch.profiler over the batches of "
+                         "11, 12 and 13; 8 = torch.profiler over the batches of "
                          "4, 9 and 11 and the queries of 12; 10 = phase 9's "
                          "band anatomy)")
     ap.add_argument("--out", default="",
@@ -2114,6 +2358,7 @@ def main(argv=None) -> int:
                                 budgets, errs, f"B={b} n={n}")
         check_single_kernels(errs)
         check_bucket_hist_edges(errs)
+        check_fused_edges(errs)
         check_sqrt_rn(summary)
 
     launches = {k: 0 for k in ops.LAUNCHES}
@@ -2145,6 +2390,9 @@ def main(argv=None) -> int:
                                         main_queries, rq_queries, x, ivf_x,
                                         ivf_queries)
         launches = {k: launches[k] + l11[k] for k in launches}
+    if 13 in phases:
+        l13 = async_serving(summary, card)
+        launches = {k: launches[k] + l13[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
@@ -2183,7 +2431,7 @@ def main(argv=None) -> int:
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
                                                rq_state)
         log(f"[band] {json.dumps(summary['band_anatomy'])}")
-    if {4, 6, 9, 11, 12} <= phases:
+    if {4, 6, 9, 11, 12, 13} <= phases:
         for k, v in launches.items():
             check(v > 0, f"kernel {k} never launched on the paths")
 

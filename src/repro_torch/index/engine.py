@@ -182,6 +182,11 @@ def _resolve_strategy(index, vectors):
     raise TypeError(f"unsupported index type: {type(index)!r}")
 
 
+def resolve_kind(index, vectors=None) -> str:
+    """The method an index serves: "ivf", "ivfpq" or "ivfrabitq"."""
+    return _resolve_strategy(index, vectors)[0].kind
+
+
 @dataclass(frozen=True)
 class SearchEngine:
     """Serving facade: index + layout + static knobs on one device, or on

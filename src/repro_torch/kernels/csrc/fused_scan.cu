@@ -1,20 +1,27 @@
-// Batched fused scan: ADC estimate + Eq. 6 bucket + (B, m+1) histogram +
-// inline exact distance of the predicted lanes + miss count, in one pass
-// over the shared candidate stream.
+// Fused scan: ADC estimate + Eq. 6 bucket + (B, m+1) histogram + inline
+// exact distance of the predicted lanes + miss count, in one pass over the
+// shared candidate stream.  Two kernels: the batched one (B > 1) and a
+// one-query form (B = 1), chosen by the wrapper (kernels/ops.py).
 //
 // Replaces: src/repro/kernels/fused_scan.py::fused_scan_batch_pallas (and
-// its helper bucketize_hist_tile).  Plain version: kernels/ref.py
-// fused_scan_batch.
+// its helper bucketize_hist_tile) with fused_scan_kernel, and
+// ::fused_scan_pallas (the one-query kernel) with fused_scan_b1_kernel.
+// Plain versions: kernels/ref.py fused_scan_batch and fused_scan.
 //
-// What bounds it on an H100: device-memory bytes.  Per batch it reads the
+// What bounds it on an H100: device-memory bytes.  Per call it reads the
 // uint8 code rows of the lanes some query probes, the fp32 vector rows of
 // the lanes some query predicts, the (B, n) validity mask, and writes three
 // (B, n) 4-byte outputs; the ADC adds and the exact leg's subtract,
 // multiply and add per coordinate come to far less time than the bytes at
 // 3.35 TB/s.  The exact leg is the direct sum of (x - q)^2 in the plain
-// version's order (see scan_common.cuh).
+// version's order (see scan_common.cuh).  At one query (n = 1M lanes, one
+// probe mask of 64 clusters in 1024) the three outputs, 12 bytes a lane,
+// are most of the bytes, and the valid lanes (1 in 16, in runs of whole
+// clusters) carry a chain of latencies: validity, code rows, the division
+// of the bucket, the predicted rows.
 //
 // What the design does about it.
+//  Batched kernel (B > 1):
 //  * The per-query ADC tables and ew_maps sit in shared memory and are
 //    indexed directly (the Pallas kernel's one-hot MXU matmuls are a TPU
 //    stand-in for exactly this gather).  Neighbouring threads read
@@ -25,15 +32,61 @@
 //    each 32-byte sector is used whole through L1.
 //  * blockIdx.x walks the query chunks fastest, so the chunks of one lane
 //    tile run side by side and the later ones read the tile from L2.
-//  * Lanes no query probes are written as (+inf, m, +inf) without reading
-//    their codes or vectors; that is what the Pallas kernel yields for them.
+//  * Lanes no query probes are written as (+inf, bucket of +inf, +inf)
+//    without reading their codes or vectors; that is what the plain version
+//    yields for them.
 //  * The histogram and the miss counts are per-block shared-memory atomics
-//    folded into zeroed globals with one atomicAdd per nonzero bin: CUDA
-//    blocks run concurrently, unlike the TPU grid the Pallas kernel's
+//    folded into the globals, which the launch function zeroes with one
+//    memset, with one atomicAdd per nonzero bin: CUDA blocks run
+//    concurrently, unlike the TPU grid the Pallas kernel's
 //    accumulate-at-program_id-0 relies on.
+//  One-query kernel (B = 1).  The batched kernel at B = 1 ran a (1, 1024)
+//  grid of 256-lane blocks, each staging the LUT, query and ew_map and
+//  zeroing and flushing a histogram for four tiles of work, with a serial
+//  chain of M one-byte code loads, one shared histogram and one miss
+//  counter per block (at k = 5000 most valid lanes fall in bucket m and
+//  miss, so a warp's 32 atomics hit one word), and each predicted row read
+//  by its own thread 16 bytes at a time, one round trip after another.
+//  Here:
+//   1. persistent blocks, about as many as the SMs hold, stage the LUT,
+//      query and ew_map once; their warps take 32-lane tiles round robin,
+//      consecutive tiles to consecutive blocks, so a probed cluster's
+//      lanes spread over about 30 SMs: the valid lanes (1 in 16, in runs
+//      of whole clusters) and above all the predicted ones (the nearest
+//      clusters' lanes, each a 512-byte row to read) are latency and
+//      per-SM traffic, not device bytes.  A thread loads its validity in
+//      its first 32 tiles at once.  (Tried on an H100 80GB HBM3 and
+//      dropped: 1,024-lane tiles, four lanes a thread with 16-byte stores,
+//      1.6-3x slower than the design before; 256-lane block tiles, 0.0117
+//      ms against 0.0188 for the design before, the rows of the nearest
+//      clusters piling on a few SMs.)
+//   2. a warp with no valid lane stores (+inf, bucket of +inf, +inf) with
+//      no division (bbc::bucket_of_inf) and reads no code;
+//   3. the code rows of M = 16, 24 or 32 bytes load as whole 16- or 8-byte
+//      words, all at once; the adds stay in ascending m;
+//   4. each warp counts into its own shared histogram; bucket m and the
+//      misses are counted per warp by ballot and popcount, with no atomic;
+//      a block with no valid lane skips the flush;
+//   5. a predicted lane's thread sums its own row in ascending coordinate
+//      order (bbc::sq_dists), bitwise the plain version's sum.  Tried and
+//      dropped, none faster: rows staged through shared memory by the
+//      whole warp, four a round, each summed by one thread (the predicted
+//      lanes are the nearest clusters', so a warp may hold 32 and the
+//      rounds queue); each thread's row copied into its own slot with
+//      cp.async (a third of the blocks an SM holds); the row's lines
+//      prefetched into L1 or L2, or loaded with 256-byte L2 fills; the
+//      tiles with a valid lane taken first.  The predicted rows add ~3.4
+//      us to the ~8 us the kernel takes without them; their loads appear
+//      to wait behind the other warps' 12 MB of stores;
+//   6. the histogram and nmiss are zeroed by one memset in the launch
+//      function, with no PyTorch call between it and the kernel.
+// Integer adds commute, so bucket, hist and nmiss equal the plain version's
+// under any block schedule.
 #include "scan_common.cuh"
 
 namespace {
+
+constexpr float kInf = __builtin_huge_valf();
 
 template <int BQ>
 __global__ void __launch_bounds__(bbc::kThreads)
@@ -62,6 +115,7 @@ fused_scan_kernel(const uint8_t* __restrict__ codes,
   int* hist_s = ew_s + BQ * n_ew;                        // BQ * m1
   int* tau_s = hist_s + BQ * m1;                         // BQ
   int* miss_s = tau_s + BQ;                              // BQ
+  int* binf_s = miss_s + BQ;                             // BQ
 
   bbc::stage_rows(lut_s, luts, q0, nq, mk);
   bbc::stage_rows(q_s, qs, q0, nq, d);
@@ -76,8 +130,14 @@ fused_scan_kernel(const uint8_t* __restrict__ codes,
     miss_s[j] = 0;
   }
   __syncthreads();
+  if (threadIdx.x < BQ) {       // the bucket of a lane off the probe (+inf)
+    const int j = threadIdx.x;
+    const float dm = par_s[2 * j], dl = par_s[2 * j + 1];
+    binf_s[j] = bbc::bucket_of_inf(kInf, dm, dl, bbc::inf_to_m(dm, dl),
+                                   ew_s + j * n_ew, n_ew, m);
+  }
+  __syncthreads();
 
-  const float inf = __int_as_float(0x7f800000);
   for (int tile = blockIdx.y; tile * bbc::kThreads < n; tile += gridDim.y) {
     const int lane = tile * bbc::kThreads + threadIdx.x;
     if (lane >= n) continue;
@@ -106,10 +166,10 @@ fused_scan_kernel(const uint8_t* __restrict__ codes,
       p[j] = false;
       if (j >= nq) continue;
       const size_t o = static_cast<size_t>(q0 + j) * n + lane;
-      float e = inf;
-      int b = m;
+      float e = kInf;
+      int b = binf_s[j];
       if (v[j]) {
-        e = sqrtf(fmaxf(acc[j], 0.f));
+        e = bbc::clamp0_sqrt(acc[j]);
         b = bbc::bucket_of(e, par_s[2 * j], par_s[2 * j + 1],
                            ew_s + j * n_ew, n_ew, m);
         atomicAdd(&hist_s[j * m1 + b], 1);
@@ -129,7 +189,7 @@ fused_scan_kernel(const uint8_t* __restrict__ codes,
     for (int j = 0; j < BQ; ++j) {
       if (j >= nq) continue;
       early[static_cast<size_t>(q0 + j) * n + lane] =
-          p[j] ? sqrtf(sq[j]) : inf;
+          p[j] ? sqrtf(sq[j]) : kInf;
     }
   }
   __syncthreads();
@@ -142,52 +202,245 @@ template <int BQ>
 int launch(const uint8_t* codes, const float* vectors, const uint8_t* valid,
            const float* luts, const float* qs, const float* d_min,
            const float* delta, const int* ew_maps, const int* tau_pred,
-           float* est, int* bucket, float* early, int* hist, int* nmiss,
-           int n, int M, int K, int d, int B, int n_ew, int m, int tiles,
-           int smem, cudaStream_t stream) {
+           float* est, int* bucket, float* early, int* counts, int n, int M,
+           int K, int d, int B, int n_ew, int m, int tiles, int smem,
+           cudaStream_t stream) {
   cudaError_t err = bbc::allow_smem(fused_scan_kernel<BQ>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counts, 0, sizeof(int) * B * (m + 2), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + BQ - 1) / BQ, tiles);
   fused_scan_kernel<BQ><<<grid, bbc::kThreads, smem, stream>>>(
       codes, vectors, valid, luts, qs, d_min, delta, ew_maps, tau_pred, est,
-      bucket, early, hist, nmiss, n, M, K, d, B, n_ew, m);
+      bucket, early, counts, counts + B * (m + 1), n, M, K, d, B, n_ew, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The one-query kernel (B = 1)
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 32;                             // lanes a work item
+constexpr int kWarps = bbc::kThreads / 32;
+constexpr int kBlocksPerSm = 6;                       // ops.FS_BLOCKS_PER_SM
+constexpr unsigned kFull = 0xffffffffu;
+
+// sum over m ascending of LUT[m, code[l, m]].  MC = 16, 24 or 32: the row
+// loads as MC / 16 words of 16 bytes (MC / 8 of 8 for 24), all issued
+// before the first add; MC = 0: any M, one byte at a time.
+template <int MC>
+__device__ __forceinline__ float adc(const uint8_t* __restrict__ codes,
+                                     int l, int M, int K,
+                                     const float* lut_s) {
+  float acc = 0.f;
+  if constexpr (MC == 0) {
+    const uint8_t* row = codes + static_cast<size_t>(l) * M;
+    for (int mm = 0; mm < M; ++mm)
+      acc = __fadd_rn(acc, lut_s[mm * K + __ldg(row + mm)]);
+  } else {
+    const uint8_t* row = codes + static_cast<size_t>(l) * MC;
+    unsigned w[MC / 4];
+    if constexpr (MC % 16 == 0) {
+#pragma unroll
+      for (int t = 0; t < MC / 16; ++t) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + t);
+        w[4 * t] = x.x;
+        w[4 * t + 1] = x.y;
+        w[4 * t + 2] = x.z;
+        w[4 * t + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < MC / 8; ++t) {
+        const uint2 x = __ldg(reinterpret_cast<const uint2*>(row) + t);
+        w[2 * t] = x.x;
+        w[2 * t + 1] = x.y;
+      }
+    }
+#pragma unroll
+    for (int mm = 0; mm < MC; ++mm)
+      acc = __fadd_rn(acc,
+                      lut_s[mm * K + ((w[mm >> 2] >> (8 * (mm & 3))) & 0xffu)]);
+  }
+  return acc;
+}
+
+template <int MC>
+__global__ void __launch_bounds__(bbc::kThreads, kBlocksPerSm)
+fused_scan_b1_kernel(const uint8_t* __restrict__ codes,
+                     const float* __restrict__ vectors,
+                     const uint8_t* __restrict__ valid,
+                     const float* __restrict__ lut,
+                     const float* __restrict__ q,
+                     const float* __restrict__ d_min,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ ew_map,
+                     const int* __restrict__ tau_ptr, int tau_val,
+                     float* __restrict__ est, int* __restrict__ bucket,
+                     float* __restrict__ early, int* hist, int* nmiss,
+                     int n, int M, int K, int d, int n_ew, int m,
+                     int tiles) {
+  extern __shared__ __align__(16) float smem1[];
+  const int m1 = m + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* lut_s = smem1;                            // M * K
+  float* q_s = lut_s + M * K;                      // d
+  int* ew_s = reinterpret_cast<int*>(q_s + d);     // n_ew
+  int* whist = ew_s + n_ew;                        // kWarps x (m + 1)
+  int* wmiss = whist + kWarps * m1;                // kWarps
+  int* wh = whist + warp * m1;
+  for (int i = threadIdx.x; i < M * K; i += blockDim.x) lut_s[i] = lut[i];
+  for (int i = threadIdx.x; i < d; i += blockDim.x) q_s[i] = q[i];
+  for (int i = threadIdx.x; i < n_ew; i += blockDim.x) ew_s[i] = ew_map[i];
+  for (int i = threadIdx.x; i < kWarps * m1; i += blockDim.x) whist[i] = 0;
+  const float dm = *d_min, dl = *delta;
+  const bool inf_m = bbc::inf_to_m(dm, dl);
+  const int tau = tau_ptr ? *tau_ptr : tau_val;
+  // warp w of block b takes tiles w * grid + b, then every warps-th one:
+  // consecutive tiles go to consecutive blocks, so to different SMs
+  const int warps = gridDim.x * kWarps;
+  const int first = warp * gridDim.x + blockIdx.x;
+  // this thread's validity in its first 32 tiles, all loaded at once
+  unsigned vbits = 0;
+  for (int k = 0, t = first; k < 32 && t < tiles; ++k, t += warps) {
+    const int l = t * kTile + lane;
+    if (l < n) vbits |= static_cast<unsigned>(__ldg(valid + l) != 0) << k;
+  }
+  __syncthreads();
+  const int b_inf = bbc::bucket_of_inf(kInf, dm, dl, inf_m, ew_s, n_ew, m);
+
+  int n_m = 0, n_miss = 0;                 // this warp's, in every lane
+  bool seen = false;
+  for (int t = first, k = 0; t < tiles; t += warps, ++k) {
+    const int l = t * kTile + lane;
+    const bool v = k < 32 ? (vbits >> k) & 1u : l < n && __ldg(valid + l);
+    float e = kInf, ex = kInf;
+    int b = b_inf;
+    if (__any_sync(kFull, v)) {
+      seen = true;
+      if (v) {
+        e = bbc::clamp0_sqrt(adc<MC>(codes, l, M, K, lut_s));
+        b = bbc::bucket_of_inf(e, dm, dl, inf_m, ew_s, n_ew, m);
+        if (b != m) atomicAdd(&wh[b], 1);
+      }
+      n_m += __popc(__ballot_sync(kFull, v && b == m));
+      n_miss += __popc(__ballot_sync(kFull, v && b > tau));
+      if (v && b <= tau) {
+        float sq = 0.f;
+        bbc::sq_dists<1>(vectors + static_cast<size_t>(l) * d, q_s, d, &sq);
+        ex = sqrtf(sq);
+      }
+    }
+    if (l < n) {
+      est[l] = e;
+      bucket[l] = b;
+      early[l] = ex;
+    }
+  }
+  if (lane == 0) {            // bucket m is counted by ballot only
+    wh[m] += n_m;
+    wmiss[warp] = n_miss;
+  }
+  if (!__syncthreads_or(seen)) return;     // no valid lane: nothing to add
+  for (int i = threadIdx.x; i < m1; i += blockDim.x) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += whist[w * m1 + i];
+    if (s) atomicAdd(hist + i, s);
+  }
+  if (threadIdx.x == 0) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += wmiss[w];
+    if (s) atomicAdd(nmiss, s);
+  }
+}
+
+template <int MC>
+int launch_b1(const uint8_t* codes, const float* vectors, const uint8_t* valid,
+              const float* lut, const float* q, const float* d_min,
+              const float* delta, const int* ew_map, const int* tau_ptr,
+              float* est, int* bucket, float* early, int* counts,
+              int tau_val, int n, int M, int K, int d, int n_ew, int m,
+              int tiles, int grid, int smem, cudaStream_t stream) {
+  cudaError_t err = bbc::allow_smem(fused_scan_b1_kernel<MC>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counts, 0, sizeof(int) * (m + 2), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_scan_b1_kernel<MC><<<grid, bbc::kThreads, smem, stream>>>(
+      codes, vectors, valid, lut, q, d_min, delta, ew_map, tau_ptr, tau_val,
+      est, bucket, early, counts, counts + m + 1, n, M, K, d, n_ew, m, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs for a chunk of bq queries.
+// Shared-memory bytes one block of the batched kernel needs for a chunk of
+// bq queries.
 extern "C" int fused_scan_smem_bytes(int bq, int M, int K, int d, int n_ew,
                                      int m) {
-  return 4 * bq * (M * K + d + 2 + n_ew + (m + 1) + 2);
+  return 4 * bq * (M * K + d + 2 + n_ew + (m + 1) + 3);
 }
 
-// Outputs hist (B, m+1) and nmiss (B,) must arrive zeroed.  Returns the
-// CUDA error code of the launch (0 on success).
+// Outputs: est, bucket, early (B, n); counts (B * (m + 2) ints: the (B,
+// m+1) histogram, then nmiss (B,)), zeroed here by one memset before the
+// launch.  Returns the CUDA error code (0 on success).
 extern "C" int fused_scan_batch_launch(
     const uint8_t* codes, const float* vectors, const uint8_t* valid,
     const float* luts, const float* qs, const float* d_min,
     const float* delta, const int* ew_maps, const int* tau_pred, float* est,
-    int* bucket, float* early, int* hist, int* nmiss, int n, int M, int K,
-    int d, int B, int n_ew, int m, int bq, int tiles, int smem,
-    cudaStream_t stream) {
+    int* bucket, float* early, int* counts, int n, int M, int K, int d, int B,
+    int n_ew, int m, int bq, int tiles, int smem, cudaStream_t stream) {
   switch (bq) {
     case 8: return launch<8>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, hist,
-                             nmiss, n, M, K, d, B, n_ew, m, tiles, smem,
-                             stream);
+                             ew_maps, tau_pred, est, bucket, early, counts, n,
+                             M, K, d, B, n_ew, m, tiles, smem, stream);
     case 4: return launch<4>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, hist,
-                             nmiss, n, M, K, d, B, n_ew, m, tiles, smem,
-                             stream);
+                             ew_maps, tau_pred, est, bucket, early, counts, n,
+                             M, K, d, B, n_ew, m, tiles, smem, stream);
     case 2: return launch<2>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, hist,
-                             nmiss, n, M, K, d, B, n_ew, m, tiles, smem,
-                             stream);
+                             ew_maps, tau_pred, est, bucket, early, counts, n,
+                             M, K, d, B, n_ew, m, tiles, smem, stream);
     case 1: return launch<1>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, hist,
-                             nmiss, n, M, K, d, B, n_ew, m, tiles, smem,
-                             stream);
+                             ew_maps, tau_pred, est, bucket, early, counts, n,
+                             M, K, d, B, n_ew, m, tiles, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Shared-memory bytes of one block of the one-query kernel.
+extern "C" int fused_scan_b1_smem_bytes(int M, int K, int d, int n_ew,
+                                        int m) {
+  return 4 * (M * K + d + n_ew + kWarps * (m + 1) + kWarps);
+}
+
+extern "C" int fused_scan_b1_tile() { return kTile; }
+
+// One query: one memset of counts (m + 2 ints: hist (m+1), then nmiss),
+// then one launch of `grid` persistent blocks whose warps take the `tiles`
+// work items of kTile lanes in turn (tile t to warp t % (grid * kWarps),
+// counted block-fastest; tiles * kTile + grid * kWarps * kTile below
+// 2^31).  tau_ptr: a device int, or null for tau_val.  mc: 16, 24 or 32
+// when the code rows are M = mc bytes and aligned for whole-word loads (16
+// bytes; 8 for 24), else 0.  Returns the CUDA error code.
+extern "C" int fused_scan_b1_launch(
+    const uint8_t* codes, const float* vectors, const uint8_t* valid,
+    const float* lut, const float* q, const float* d_min, const float* delta,
+    const int* ew_map, const int* tau_ptr, float* est, int* bucket,
+    float* early, int* counts, int tau_val, int n, int M, int K, int d,
+    int n_ew, int m, int tiles, int grid, int mc, int smem,
+    cudaStream_t stream) {
+  switch (mc) {
+#define FS_B1(MC)                                                           \
+    case MC: return launch_b1<MC>(codes, vectors, valid, lut, q, d_min,     \
+                                  delta, ew_map, tau_ptr, est, bucket, early,\
+                                  counts, tau_val, n, M, K, d, n_ew, m,     \
+                                  tiles, grid, smem, stream);
+    FS_B1(32)
+    FS_B1(24)
+    FS_B1(16)
+    FS_B1(0)
+#undef FS_B1
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

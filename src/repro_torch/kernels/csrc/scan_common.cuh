@@ -30,6 +30,12 @@ namespace bbc {
 
 constexpr int kThreads = 256;   // one lane per thread within a lane tile
 
+// The plain version's sqrt(max(acc, 0)): torch.clamp keeps a NaN sum NaN
+// (the reference's jnp.maximum too), where fmaxf would return 0.
+__device__ __forceinline__ float clamp0_sqrt(float acc) {
+  return sqrtf(acc < 0.f ? 0.f : acc);
+}
+
 // Eq. 6: ew_map[clamp(floor((e - d_min) / delta), 0, n_ew - 1)], or the
 // overflow bucket m when the bin is past the equal-width range.  +inf
 // estimates (masked lanes) land in m.
@@ -85,12 +91,14 @@ __device__ __forceinline__ float add_sq(float acc, float x, float q) {
 
 // acc[j] += |x - q_j|^2 over one vector row for BQ staged queries (q_s:
 // BQ rows of d floats), in ascending coordinate order with no contraction
-// (see the note above), with 16-byte loads where the row allows them.
+// (see the note above), with 16-byte loads where the row allows them (d a
+// multiple of 4 and the row on a 16-byte boundary: a view of the vectors
+// may start anywhere).
 template <int BQ>
 __device__ __forceinline__ void sq_dists(const float* __restrict__ xr,
                                          const float* q_s, int d,
                                          float* acc) {
-  if ((d & 3) == 0) {
+  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (int t = 0; t < d / 4; ++t) {
       const float4 x = __ldg(x4 + t);

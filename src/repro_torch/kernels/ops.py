@@ -12,13 +12,14 @@ kernels mask their own ragged edges, so nothing is padded.
 
 The single-query wrappers (``pq_adc``, ``l2_exact``, ``bucket_hist``,
 ``fused_scan``, ``rabitq_est``) keep the JAX package's single-query
-signatures; the first four launch their batched kernel at B = 1.
+signatures; the first three launch their batched kernel at B = 1, and
+``fused_scan`` launches the one-query kernel of ``fused_scan.cu``, which
+``fused_scan_batch`` also launches at B = 1.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count);
 ``chip_smoke.py`` zeroes it before a run and reads it after.  A launch of
-one of the four batched PQ/l2/bucket kernels at B = 1 counts under its
-single-query key, whichever wrapper made it; B > 1 under the ``*_batch``
-key.
+the PQ, l2, bucket or fused kernel at B = 1 counts under its single-query
+key, whichever wrapper made it; B > 1 under the ``*_batch`` key.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -26,7 +27,8 @@ thread and a query tile hold, the grid and the shared memory; one kernel
 each serves every B.  The shard collector's (``_collect_plan``) is its
 chunk count, grid and the layout of the scratch that one memset zeroes.
 The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
-over (query, chunk) items, the RaBitQ estimator's (``_est_lanes``) the
+over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
+persistent grid over chunks, the RaBitQ estimator's (``_est_lanes``) the
 lanes a block holds.  The CPU tests check the plans; the kernels refuse a
 shared-memory size below their layout's.
 """
@@ -69,14 +71,23 @@ COLLECT_CHUNK, COLLECT_FILL = 4096, 8192
 # bucket_hist.cu: lanes per work item (256 threads x 4 lanes) and the
 # persistent blocks an SM holds (its __launch_bounds__)
 BH_CHUNK, BH_BLOCKS_PER_SM = 1024, 4
+# fused_scan.cu's one-query kernel: lanes per work item (one a thread of a
+# warp), warps a block, the persistent blocks an SM holds (its
+# __launch_bounds__), and the code-row widths it loads as whole words
+# (16-byte words; 8-byte words for 24)
+FS_TILE, FS_WARPS, FS_BLOCKS_PER_SM = 32, 8, 6
+FS_WORD_ROWS = {16: 16, 24: 8, 32: 16}
 # rabitq_est.cu: the most lanes (threads) a block holds
 EST_LANES = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_scan": {
-        "fused_scan_batch_launch": [_P] * 14 + [_I] * 10 + [_P],
-        "fused_scan_smem_bytes": [_I] * 6},
+        "fused_scan_batch_launch": [_P] * 13 + [_I] * 10 + [_P],
+        "fused_scan_smem_bytes": [_I] * 6,
+        "fused_scan_b1_launch": [_P] * 13 + [_I] * 11 + [_P],
+        "fused_scan_b1_smem_bytes": [_I] * 5,
+        "fused_scan_b1_tile": []},
     "pq_adc": {
         "pq_adc_batch_launch": [_P] * 3 + [_I] * 9 + [_P],
         "pq_adc_tiled_smem_bytes": [_I] * 4},
@@ -293,9 +304,11 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
 
 
 class HistPlan(NamedTuple):
-    """One launch of the bucketize-histogram kernel (``bucket_hist.cu``)."""
-    chunks: int          # work items (chunks of BH_CHUNK lanes) per query
-    per: int             # consecutive items of each block
+    """One launch of a persistent-block kernel over work items of a fixed
+    number of lanes: the bucketize histogram (``bucket_hist.cu``) and the
+    one-query fused scan (``fused_scan.cu``)."""
+    chunks: int          # work items (chunks of lanes) per query
+    per: int             # items of a block's run; the scan: most a warp takes
     grid: int            # persistent blocks
 
 
@@ -311,6 +324,24 @@ def _hist_plan(b: int, n: int, sms: int = SMS) -> HistPlan:
         raise ValueError(f"bucket_hist_batch: {total} work items (B={b}, "
                          f"n={n}) overflow the kernel's int32 indices")
     return HistPlan(chunks, per, -(-total // per))
+
+
+@functools.lru_cache(maxsize=4096)
+def _scan_plan(n: int, smem: int, sms: int = SMS) -> HistPlan:
+    """The one-query fused scan over n lanes: tiles of ``FS_TILE`` lanes
+    dealt round robin to the ``FS_WARPS`` warps of persistent blocks (tile
+    t to warp t % (grid * FS_WARPS), counted block-fastest, so consecutive
+    tiles land on different SMs), at most ``FS_BLOCKS_PER_SM`` blocks on
+    each SM and fewer where ``smem`` bytes a block hold fewer; ``per`` is
+    the most tiles a warp takes."""
+    chunks = max(1, -(-n // FS_TILE))
+    blocks = max(1, min(FS_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    grid = min(-(-chunks // FS_WARPS), sms * blocks)
+    warps = grid * FS_WARPS
+    if (chunks + warps) * FS_TILE >= 2 ** 31:
+        raise ValueError(f"fused_scan: n={n} lanes overflow the kernel's "
+                         f"int32 lane indices")
+    return HistPlan(chunks, -(-chunks // warps), grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,11 +405,19 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     (B, M, K), ``qs`` (B, d), the codebook parameters and ``tau_pred`` (B,)
     are per query.  Returns (est (B, n), bucket (B, n), hist (B, m+1),
     early (B, n), nmiss (B,)); nmiss counts the valid lanes with bucket above
-    tau_pred, the lanes left to the second gather."""
+    tau_pred, the lanes left to the second gather.  On the card the launch
+    function zeroes hist and nmiss (one memset) and launches the kernel:
+    the one-query kernel at B = 1 (``_fused_scan_one``), else the batched
+    one."""
     if not _on_cuda(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
                     tau_pred):
         return _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
                                      delta, ew_maps, m, tau_pred)
+    if luts.shape[0] == 1:
+        out = _fused_scan_one(codes, vectors, valid.reshape(-1), luts[0],
+                              qs.reshape(-1), d_min, delta, ew_maps, m,
+                              tau_pred)
+        return tuple(t[None] for t in out)
     n, m_sub = codes.shape
     d = vectors.shape[1]
     b, _, k_codes = luts.shape
@@ -393,12 +432,9 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     ew_maps = _params(ew_maps, torch.int32)
     tau_pred = _params(tau_pred, torch.int32)
     dev = codes.device
-    est = torch.empty(b, n, dtype=torch.float32, device=dev)
-    bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
-    early = torch.empty(b, n, dtype=torch.float32, device=dev)
-    hist = torch.zeros(b, m + 1, dtype=torch.int32, device=dev)
-    nmiss = torch.zeros(b, dtype=torch.int32, device=dev)
+    est, bucket, early, hist, nmiss, counts = _scan_outputs(b, n, m, dev)
     if b == 0 or n == 0:
+        counts.zero_()
         return est, bucket, hist, early, nmiss
     lib = _lib("fused_scan")
     bq, smem = _pick_bq(b, lambda q: lib.fused_scan_smem_bytes(
@@ -407,12 +443,88 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
         codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
         luts.data_ptr(), qs.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
         ew_maps.data_ptr(), tau_pred.data_ptr(), est.data_ptr(),
-        bucket.data_ptr(), early.data_ptr(), hist.data_ptr(),
-        nmiss.data_ptr(), n, m_sub, k_codes, d, b, n_ew, m, bq, _tiles(n),
-        smem, _stream())
+        bucket.data_ptr(), early.data_ptr(), counts.data_ptr(), n, m_sub,
+        k_codes, d, b, n_ew, m, bq, _tiles(n), smem, _stream())
     _check(rc, "fused_scan_batch")
     _count("fused_scan", b)
     return est, bucket, hist, early, nmiss
+
+
+def _scan_outputs(b: int, n: int, m: int, dev):
+    """(est, bucket, early) (B, n), the (B, m+1) histogram and (B,) nmiss,
+    the last two views of one int32 buffer (returned last) that one memset
+    zeroes."""
+    est = torch.empty(b, n, dtype=torch.float32, device=dev)
+    bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
+    early = torch.empty(b, n, dtype=torch.float32, device=dev)
+    counts = torch.empty(b * (m + 2), dtype=torch.int32, device=dev)
+    return (est, bucket, early, counts[:b * (m + 1)].view(b, m + 1),
+            counts[b * (m + 1):], counts)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_lib() -> ctypes.CDLL:
+    """The fused scan's library, checked once against ``FS_TILE``."""
+    lib = _lib("fused_scan")
+    if lib.fused_scan_b1_tile() != FS_TILE:
+        raise RuntimeError(f"fused_scan.cu takes {lib.fused_scan_b1_tile()} "
+                           f"lanes a work item, ops.FS_TILE says {FS_TILE}")
+    return lib
+
+
+def _fused_scan_one(codes: torch.Tensor, vectors: torch.Tensor,
+                    valid: torch.Tensor, lut: torch.Tensor, q: torch.Tensor,
+                    d_min: torch.Tensor, delta: torch.Tensor,
+                    ew_map: torch.Tensor, m: int, tau_pred):
+    """The one-query kernel (``fused_scan_b1_kernel``) on CUDA tensors:
+    (n,) validity, (M, K) LUT, (d,) query, one codebook and ``tau_pred``, a
+    Python int or a one-element CUDA tensor (read by the kernel).  Returns
+    (est (n,), bucket (n,), hist (m+1,), early (n,), nmiss ())."""
+    n, m_sub = codes.shape
+    d = vectors.shape[1]
+    k_codes = lut.shape[1]
+    _need(codes, "codes", torch.uint8, (n, m_sub))
+    _need(vectors, "vectors", torch.float32, (n, d))
+    _need(valid, "valid", torch.bool, (n,))
+    _need(lut, "lut", torch.float32, (m_sub, k_codes))
+    _need(q, "q", torch.float32, (d,))
+    d_min = _params(d_min.reshape(1), torch.float32)
+    delta = _params(delta.reshape(1), torch.float32)
+    ew_map = _params(ew_map.reshape(-1), torch.int32)
+    n_ew = ew_map.shape[0]
+    tau_ptr, tau_val = None, 0
+    if torch.is_tensor(tau_pred):
+        if tau_pred.numel() != 1:
+            raise ValueError(f"tau_pred: one query takes one threshold, got "
+                             f"shape {tuple(tau_pred.shape)}")
+        tau_ptr = _params(tau_pred.reshape(1), torch.int32)
+    else:
+        tau_val = int(tau_pred)
+    dev = codes.device
+    est, bucket, early, hist, nmiss, counts = _scan_outputs(1, n, m, dev)
+    out = est[0], bucket[0], hist[0], early[0], nmiss[0]
+    if n == 0:
+        counts.zero_()
+        return out
+    lib = _scan_lib()
+    smem = lib.fused_scan_b1_smem_bytes(m_sub, k_codes, d, n_ew, m)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_scan: M={m_sub}, K={k_codes}, d={d}, "
+                         f"n_ew={n_ew}, m={m} need {smem} bytes of shared "
+                         f"memory")
+    p = _scan_plan(n, smem, _sms(dev.index))
+    word = FS_WORD_ROWS.get(m_sub)
+    mc = m_sub if word and codes.data_ptr() % word == 0 else 0
+    rc = lib.fused_scan_b1_launch(
+        codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+        lut.data_ptr(), q.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
+        ew_map.data_ptr(), None if tau_ptr is None else tau_ptr.data_ptr(),
+        est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
+        counts.data_ptr(), tau_val, n, m_sub, k_codes, d, n_ew, m, p.chunks,
+        p.grid, mc, smem, _stream())
+    _check(rc, "fused_scan")
+    LAUNCHES["fused_scan"] += 1
+    return out
 
 
 def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
@@ -654,13 +766,17 @@ def fused_scan(codes: torch.Tensor, vectors: torch.Tensor,
                d_min: torch.Tensor, delta: torch.Tensor, ew_map: torch.Tensor,
                m: int, tau_pred):
     """One query's fused estimate + bucketize + histogram + early exact:
-    (est (n,), bucket (n,), hist (m+1,), early (n,), nmiss ())."""
-    tau = torch.as_tensor(tau_pred, dtype=torch.int32,
-                          device=codes.device).reshape(1)
-    out = fused_scan_batch(codes, vectors, valid[None], lut[None], q[None],
-                           d_min.reshape(1), delta.reshape(1),
-                           ew_map.reshape(1, -1), m, tau)
-    return tuple(t[0] for t in out)
+    (est (n,), bucket (n,), hist (m+1,), early (n,), nmiss ()).
+    ``tau_pred`` is a Python int or a one-element tensor; on the card an
+    int goes to the kernel as a value, with no copy to the device."""
+    tensors = [codes, vectors, valid, lut, q, d_min, delta, ew_map]
+    if torch.is_tensor(tau_pred):
+        tensors.append(tau_pred)
+    if not _on_cuda(*tensors):
+        return _ref.fused_scan(codes, vectors, valid, lut, q, d_min, delta,
+                               ew_map, m, tau_pred)
+    return _fused_scan_one(codes, vectors, valid, lut, q, d_min, delta,
+                           ew_map, m, tau_pred)
 
 
 def _est_lanes(d: int, smem_bytes) -> tuple[int, int]:

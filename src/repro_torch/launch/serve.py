@@ -1,4 +1,4 @@
-"""Large-k retrieval serving entry point of the port (static mode).
+"""Large-k retrieval serving entry point of the port.
 
 Builds an IVF+PQ or IVF+RaBitQ index over a seeded synthetic corpus on the
 device and serves fixed-size query batches through
@@ -19,9 +19,27 @@ itself (gloo with ``--device cpu``, NCCL on cards 0..N-1 with CUDA) over a
 ``file://`` store.  Rank 0 builds the index and broadcasts it; rank 0
 prints the summary.
 
-``--mode static`` with every ``--method`` of the JAX CLI is ported; the
-other modes and ``--tuned`` raise, naming the ROADMAP item that brings
-them.
+``--mode async`` serves an open-loop request stream through the
+micro-batching subsystem (``repro_torch.serving``) on one device: a seeded
+synthetic trace (``--trace poisson|bursty`` at ``--rate`` req/s, deadline
+``--deadline-ms`` after each arrival, k drawn from ``--k-choices``) flows
+through admission control and deadline-aware batch assembly onto one
+warmed engine per (k, n_probe) bucket, batches of ``--max-batch``.  The
+last line is the JAX CLI's async summary plus ``"device"``; with
+``--check-parity`` every completed request's ids are held against a direct
+engine call and the exit code is 1 on any mismatch or when nothing was
+checked.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --check-parity                                 # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
+      --queries 24 --k-choices 50,120 --max-batch 4 --check-parity
+
+``--mode static`` and ``--mode async`` with every ``--method`` of the JAX
+CLI are ported; ``--mode net``, ``--tuned``, the replica tier
+(``--replicas``, ``--faults``) and sharded async serving raise, naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -40,10 +58,10 @@ from repro_torch.core import distributed
 from repro_torch.data import synthetic
 from repro_torch.index import engine, flat, search
 from repro_torch.kernels.platform import resolve_device
+from repro_torch.serving.state import HAND_TUNED
 
 METHODS = ("ivfpq", "ivfpq_bbc", "ivfrabitq", "ivfrabitq_bbc", "flat")
 RECALL_SAMPLE = 8   # queries with exact ground truth for the recall estimate
-HAND_TUNED = "hand-tuned fallback"
 
 
 def build_index(method: str, x: torch.Tensor, n_clusters: int, seed: int,
@@ -62,6 +80,18 @@ def mean_recall(x: torch.Tensor, qs: torch.Tensor, ids: list, k: int) -> float:
     gt = gt.cpu().numpy()
     recalls = [len(set(np.asarray(r).tolist()) - {-1} & set(g.tolist())) / k
                for r, g in zip(ids, gt)]
+    return float(np.mean(recalls)) if recalls else float("nan")
+
+
+def mean_recall_entries(x: torch.Tensor, entries) -> float:
+    """Mean recall over (query, ids, k) triples against exact ground truth
+    (per-entry k, so heterogeneous-k serving outcomes average correctly)."""
+    recalls = []
+    for q, ids, k in entries:
+        q = torch.as_tensor(np.asarray(q, np.float32)).to(x.device)
+        gt = flat.search(x, q, k)[1].cpu().numpy()
+        got = set(np.asarray(ids).tolist()) - {-1}
+        recalls.append(len(got & set(gt.tolist())) / k)
     return float(np.mean(recalls)) if recalls else float("nan")
 
 
@@ -130,6 +160,79 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
         "recall_queries": int(len(idx)),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")}
+
+
+def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
+              dev: torch.device) -> tuple[dict, int]:
+    """The micro-batching event loop over ``repro_torch.serving``, on one
+    device: the reference's ``run_async`` without its replica tier.
+    Returns the summary and the exit code."""
+    from repro_torch.serving import batcher as sv_batcher
+    from repro_torch.serving import queue as sv_queue
+    from repro_torch.serving import server as sv_server
+    from repro_torch.serving.state import ServingState
+
+    if args.method == "flat":
+        raise SystemExit("--mode async does not apply to the flat baseline")
+    tau_pred_on = args.tau_pred == "on"
+    if tau_pred_on and not args.method.endswith("bbc"):
+        raise SystemExit("--tau-pred on requires a *_bbc method")
+    if tau_pred_on and args.check_parity:
+        raise SystemExit(
+            "--check-parity compares against non-predictive direct calls; "
+            "run it with --tau-pred off")
+
+    n_probe = min(args.n_probe, args.n_clusters)
+    ks = tuple(int(s) for s in args.k_choices.split(",")) \
+        if args.k_choices else (args.k,)
+    trace = sv_queue.make_trace(
+        np.random.default_rng(args.seed), qs.cpu().numpy(), ks,
+        rate=args.rate, deadline=args.deadline_ms / 1e3, n_probe=n_probe,
+        pattern=args.trace, burst=args.burst,
+        recall_target=args.recall_target)
+    state = ServingState(index, use_bbc=args.method.endswith("bbc"),
+                         tau_pred=tau_pred_on, pred_count=args.pred_count,
+                         device=dev)
+    srv = sv_server.Server(
+        state, ceilings=sv_batcher.k_ceilings(ks), batch=args.max_batch,
+        admission=not args.no_admission,
+        max_wait=args.max_wait_ms / 1e3 if args.max_wait_ms else None)
+    n_buckets = len({(min(r.k, max(ks)), r.n_probe) for r in trace})
+    t0 = time.monotonic()
+    srv.warmup(trace)
+    print(f"[serve] warmed {n_buckets} shape buckets in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    outcomes = srv.run_trace(trace, warmup=False)
+    # one executor: each batch finishes at its own instant
+    batches = len({(o.bucket, o.t_done) for o in outcomes if o.completed})
+    print(f"[serve] {batches} batches served", flush=True)
+
+    summary = sv_server.summarize(outcomes, state=state)
+    done = [o for o in outcomes if o.status != sv_server.SHED]
+    idx = sample_indices(len(done), RECALL_SAMPLE)
+    # None (json null), not NaN, when everything was shed
+    recall = mean_recall_entries(
+        x, [(done[i].request.q, done[i].ids, done[i].k_effective)
+            for i in idx]) if done else None
+    parity = n_checked = None
+    if args.check_parity:
+        parity, n_checked = sv_server.parity_vs_direct(state, outcomes)
+    summary.update({
+        "mode": "async", "method": args.method, "trace": args.trace,
+        "rate": args.rate, "deadline_ms": args.deadline_ms,
+        "k_choices": list(ks), "max_batch": args.max_batch,
+        "shards": args.shards, "tau_pred": args.tau_pred,
+        "recall_mean": round(recall, 4) if recall is not None else None,
+        "recall_queries": int(len(idx))})
+    if parity is not None:
+        summary["parity"] = round(parity, 4)
+        summary["parity_checked"] = n_checked
+    summary["device"] = (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu")
+    # an all-shed run verified nothing: that is a parity failure
+    rc = 1 if (parity is not None and (parity < 1.0 or n_checked == 0)) \
+        else 0
+    return summary, rc
 
 
 def corpus(args, dev: torch.device):
@@ -205,7 +308,38 @@ def parse_args(argv=None):
                     help="predictive re-rank pool target (default ~2.5k)")
     ap.add_argument("--tuned", type=str, default="off",
                     help="tuned operating points (only 'off' is ported)")
-    ap.add_argument("--seed", type=int, default=0, help="corpus RNG seed")
+    ap.add_argument("--recall-target", type=float, default=0.95,
+                    help="recall@k requirement stamped on async-mode "
+                         "requests")
+    # -- async-mode knobs (the JAX CLI's, with its defaults) ----------------
+    ap.add_argument("--trace", choices=("poisson", "bursty"),
+                    default="poisson", help="[async] arrival pattern")
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="[async] offered load, requests/s")
+    ap.add_argument("--deadline-ms", type=float, default=500.0,
+                    help="[async] per-request deadline after arrival")
+    ap.add_argument("--k-choices", type=str, default="",
+                    help="[async] comma-separated k values sampled per "
+                         "request (default: just --k); the bucket ladder")
+    ap.add_argument("--max-batch", type=int, default=16,
+                    help="[async] padded batch width B of the shape buckets")
+    ap.add_argument("--max-wait-ms", type=float, default=None,
+                    help="[async] cap on queueing wait before a partial "
+                         "batch fires (default: deadline-slack only)")
+    ap.add_argument("--burst", type=int, default=8,
+                    help="[async] burst size for --trace bursty")
+    ap.add_argument("--no-admission", action="store_true",
+                    help="[async] disable admission control")
+    ap.add_argument("--check-parity", action="store_true",
+                    help="[async] verify every completed request's ids "
+                         "against a direct engine call; exit 1 on any "
+                         "mismatch")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="[async] replica pool size (only 1 is ported)")
+    ap.add_argument("--faults", type=str, default="",
+                    help="[async] fault schedule (not ported)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="corpus and trace RNG seed")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
 
@@ -214,13 +348,21 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
 
-    if args.mode != "static":
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP.md queue 1, "
-            f"{'item 9' if args.mode == 'async' else 'item 13'})")
+    if args.mode == "net":
+        raise NotImplementedError("--mode net is not ported yet (ROADMAP.md "
+                                  "queue 1, item 13)")
     if args.tuned != "off":
         raise NotImplementedError("--tuned is not ported yet (ROADMAP.md "
                                   "queue 1, item 11); pass --tuned off")
+    if args.mode == "async":
+        if args.replicas > 1 or args.faults:
+            raise NotImplementedError(
+                "the replica tier (--replicas > 1, --faults) is not ported "
+                "yet (ROADMAP.md queue 1, item 12)")
+        if args.shards > 1:
+            raise NotImplementedError(
+                "sharded async serving (--shards > 1 with --mode async) is "
+                "not ported yet (ROADMAP.md queue 1, item 9b)")
     dev = resolve_device(args.device)
 
     if args.shards > 1:
@@ -258,6 +400,10 @@ def main(argv=None) -> int:
     index = build_index(args.method, x, args.n_clusters, args.seed, dev)
     _sync(dev)
     print(f"[serve] index built in {time.monotonic() - t0:.1f}s", flush=True)
+    if args.mode == "async":
+        summary, rc = run_async(args, x, qs, index, dev)
+        print(json.dumps(summary))
+        return rc
     print(json.dumps(run_static(args, x, qs, index, dev)))
     return 0
 

@@ -1,0 +1,167 @@
+"""Per-shape-bucket engine and predictor-state ownership.
+
+The cross-batch tau predictor (``core.rerank.PredictorState``) is an EMA
+over bucket histograms, and histograms are only comparable when they come
+from the same search configuration: the per-query codebooks depend on
+``n_probe`` and the prediction target (``pred_count``) on ``k``.  Under
+micro-batching the batch composition varies call to call, so a single
+global predictor would mix histograms across shape buckets and drift.  This
+module therefore keys BOTH the engines and the predictor states per
+``ShapeBucket`` (a ``ServingState`` wraps exactly one index): each bucket
+self-tunes on its own request stream.
+
+``ServingState`` is the only stateful object the server loop owns; engines
+stay immutable (``index.engine.SearchEngine``) and predictor states thread
+through each call exactly as in ``launch/serve.py --tau-pred``, one state
+per bucket.  Every engine lives on the state's device: the card unless the
+caller asks for ``device="cpu"``.
+
+Not ported yet, and raising with the ROADMAP.md item that brings them:
+tuned operating points (``tuned``, item 11), tombstone masks and the
+generation swap with its predictor drift carry (``live``, ``swap``, item
+10), forks with cloned engines (the replica tier's respawn, item 12) and
+the sharded engine behind the serving loop (``mesh``, item 9b).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import rerank
+from repro_torch.index import engine as engine_mod
+from repro_torch.index import search as search_mod
+from repro_torch.kernels.platform import resolve_device
+from repro_torch.serving.batcher import Batch, ShapeBucket
+
+# what operating_points() reports for a bucket whose knobs are the
+# engine's hand defaults (the reference's tuning.points.HAND_TUNED)
+HAND_TUNED = "hand-tuned fallback"
+_not_ported = engine_mod._not_ported
+
+
+class ServingState:
+    """Engines + predictor states for every shape bucket the traffic hits.
+
+    Engines are built lazily on first use of a bucket (one
+    ``SearchEngine.build`` per (k ceiling, n_probe); prefer ``warmup`` with
+    the full bucket set at server start) and cached for the state's
+    lifetime.  The index (and ``vectors``, required for the plain-IVF
+    method as in ``SearchEngine.build``) is placed on ``device`` once.
+    """
+
+    def __init__(self, index: Any, *, use_bbc: bool = True,
+                 tau_pred: bool = False, vectors=None, mesh=None,
+                 m: int = 128, pred_count: int | None = None, tuned=None,
+                 device=None):
+        if tuned is not None:
+            raise _not_ported("tuned operating points", "item 11")
+        if mesh is not None:
+            raise _not_ported("sharded async serving", "item 9b")
+        if tau_pred and not use_bbc:
+            raise ValueError("tau_pred serving requires use_bbc=True")
+        self.device = resolve_device(device)
+        self.kind = engine_mod.resolve_kind(index, vectors)
+        self.index = search_mod.index_to(index, self.device)
+        self.vectors = None if vectors is None else torch.as_tensor(
+            vectors, dtype=torch.float32).to(self.device)
+        self.use_bbc = use_bbc
+        self.tau_pred = bool(tau_pred)
+        self.m = m
+        self.pred_count = pred_count
+        # the reference's streaming-ingest state: a tombstone mask applied
+        # to every engine (item 10); None here
+        self.live = None
+        # engines depend only on (k, n_probe): two buckets that differ only
+        # in batch width share one engine
+        self._engines: dict[tuple[int, int], engine_mod.SearchEngine] = {}
+        self._pred: dict[ShapeBucket, rerank.PredictorState] = {}
+
+    # -- engines ------------------------------------------------------------
+
+    def engine(self, bucket: ShapeBucket) -> engine_mod.SearchEngine:
+        if self.live is not None:
+            raise _not_ported("tombstone masks (live)", "item 10")
+        key = (bucket.k, bucket.n_probe)
+        eng = self._engines.get(key)
+        if eng is None:
+            eng = engine_mod.SearchEngine.build(
+                self.index, k=bucket.k, n_probe=bucket.n_probe,
+                use_bbc=self.use_bbc, m=self.m, vectors=self.vectors,
+                pred_count=self.pred_count, device=self.device)
+            self._engines[key] = eng
+        return eng
+
+    def operating_points(self) -> dict[str, str]:
+        """Per-bucket knob provenance for serving summaries, keyed
+        ``"k<k>/np<n_probe>"``: every built engine's knobs are the hand
+        defaults until tuning is ported (item 11)."""
+        return {f"k{k}/np{np_}": HAND_TUNED
+                for (k, np_) in sorted(self._engines)}
+
+    def warmup(self, buckets) -> "ServingState":
+        """Build every bucket's engine and run its padded (B, d) batch
+        once (with ``tau_pred``, its predictive form too), so the kernels
+        are built and loaded before the first request.  Partial batches
+        are padded to B, so the batch shape is the ONLY one steady-state
+        serving hits."""
+        for bucket in sorted(set(buckets)):
+            self.engine(bucket).warmup(batch_sizes=(bucket.batch,),
+                                       predictive=self.tau_pred)
+        return self
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on the engines' CUDA stream (a no-op
+        on the CPU): the end of a batch's service window."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # -- not ported: streaming-ingest swap ----------------------------------
+
+    def swap(self, index: Any, *, vectors=None, live=None, probe_qs=None,
+             drift_threshold: float = 0.25):
+        raise _not_ported("the generation swap and its predictor drift "
+                          "carry (swap)", "item 10")
+
+    # -- replica hook -------------------------------------------------------
+
+    def fork(self, clone_engines: bool = False) -> "ServingState":
+        """A new ``ServingState`` sharing this one's (immutable) engines,
+        the engine cache itself included, but owning FRESH per-bucket
+        predictor states.  Cloned engines (the replica tier's respawn)
+        are not ported yet."""
+        if clone_engines:
+            raise _not_ported("forks with cloned engines", "item 12")
+        twin = ServingState.__new__(ServingState)
+        twin.__dict__.update(self.__dict__)
+        twin._pred = {}
+        return twin
+
+    # -- predictor states ---------------------------------------------------
+
+    def pred_state(self, bucket: ShapeBucket) -> rerank.PredictorState:
+        state = self._pred.get(bucket)
+        if state is None:
+            state = self.engine(bucket).predictor_init()
+            self._pred[bucket] = state
+        return state
+
+    def pred_states(self) -> dict[ShapeBucket, rerank.PredictorState]:
+        return dict(self._pred)
+
+    # -- serving ------------------------------------------------------------
+
+    def run(self, batch: Batch):
+        """One engine call for an assembled batch; threads (and retains)
+        the bucket's predictor state when ``tau_pred`` is on.  Returns the
+        engine's ``SearchResult`` on the device, without waiting for it."""
+        eng = self.engine(batch.bucket)
+        qs = torch.from_numpy(np.ascontiguousarray(
+            batch.queries, dtype=np.float32)).to(self.device)
+        if self.tau_pred:
+            res, new_state = eng.search_batch(
+                qs, pred_state=self.pred_state(batch.bucket))
+            self._pred[batch.bucket] = new_state
+            return res
+        return eng.search_batch(qs)

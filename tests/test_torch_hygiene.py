@@ -13,6 +13,7 @@ import repro_torch  # noqa: E402,F401
 from repro_torch.index import engine, search  # noqa: E402
 from repro_torch.kernels import _build, ops, platform  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving.state import ServingState  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -60,8 +61,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
         engine.SearchEngine.build(idx, k=10, n_probe=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--n", "300", "--d", "16", "--n-clusters", "4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingState(idx)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", "async", "--n", "300", "--d", "16",
+                    "--n-clusters", "4"])
     assert engine.SearchEngine.build(idx, k=10, n_probe=2,
                                      device="cpu").device.type == "cpu"
+    assert ServingState(idx, device="cpu").device.type == "cpu"
 
 
 def test_fused_default_follows_the_device(rng):

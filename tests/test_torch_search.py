@@ -194,7 +194,7 @@ def test_serve_cli_cpu(capsys):
         assert key in out
 
 
-@pytest.mark.parametrize("flag", [["--mode", "async"],
+@pytest.mark.parametrize("flag", [["--mode", "async", "--replicas", "2"],
                                   ["--shards", "2", "--mode", "async"],
                                   ["--mode", "net"], ["--tuned", "auto"]])
 def test_serve_cli_unported_flags_raise(flag):

@@ -219,3 +219,153 @@ def test_cuda_single_query_kernels_match_plain(cuda, rng):
           m // 3)
     for g, w in zip(ops.fused_scan(*fs), ref.fused_scan(*fs)):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# the one-query fused scan (#9): its launch plan on the CPU, its kernel on
+# a card
+# --------------------------------------------------------------------------
+
+def _fs_smem(m_sub, k_codes, d, n_ew, m):
+    """fused_scan.cu's one-query layout: the LUT, the query, the ew_map,
+    8 warp histograms, 8 miss counts."""
+    return 4 * (m_sub * k_codes + d + n_ew + 8 * (m + 1) + 8)
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 262_147, 1_000_064,
+                               4_505_723])
+@pytest.mark.parametrize("smem", [_fs_smem(32, 16, 128, 256, 128),
+                                  _fs_smem(128, 256, 960, 256, 128)])
+def test_scan_plan_covers_every_tile_once(n, smem):
+    """The 32-lane tiles cover the n lanes; dealt round robin to the grid's
+    warps, each warp takes at most ``per`` of them and every tile has one
+    warp; no more blocks than the tiles fill or the SMs hold at the
+    kernel's shared memory."""
+    p = ops._scan_plan(n, smem, ops.SMS)
+    assert (p.chunks - 1) * ops.FS_TILE < n <= p.chunks * ops.FS_TILE
+    per_sm = max(1, min(ops.FS_BLOCKS_PER_SM,
+                        ops.SMEM_PER_SM // (smem + 1024)))
+    assert p.grid == min(-(-p.chunks // ops.FS_WARPS), ops.SMS * per_sm)
+    warps = p.grid * ops.FS_WARPS
+    taken = [len(range(w, p.chunks, warps)) for w in range(warps)]
+    assert sum(taken) == p.chunks and max(taken) == p.per
+
+
+def test_scan_plan_refuses_int32_overflow():
+    with pytest.raises(ValueError, match="int32"):
+        ops._scan_plan(2 ** 31 - 100, _fs_smem(32, 16, 128, 256, 128))
+
+
+@pytest.mark.parametrize("tau", [3, -1, 64])
+def test_fused_scan_int_and_tensor_thresholds_agree(rng, tau):
+    """The single-query wrapper takes its threshold as an int or as a
+    one-element tensor; both give the plain version's outputs."""
+    n, d, m_sub, m = 300, 16, 8, 64
+    codes = _t(rng.integers(0, 16, (n, m_sub)).astype(np.uint8))
+    vectors = _t(rng.standard_normal((n, d)).astype(np.float32))
+    q = _t(rng.standard_normal(d).astype(np.float32))
+    valid = _t(rng.random(n) < 0.7)
+    lut = _t((rng.random((m_sub, 16)) * 2).astype(np.float32))
+    est = torch.sqrt(ref.pq_adc(codes, lut))
+    cb = rb.build_codebook(torch.where(valid, est, float("inf"))[None],
+                           k=100, m=m)
+    args = (codes, vectors, valid, lut, q, cb.d_min, cb.delta, cb.ew_map, m)
+    a = ops.fused_scan(*args, tau)
+    b = ops.fused_scan(*args, torch.tensor([tau], dtype=torch.int32))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a[4]) == int((valid & (a[1] > tau)).sum())
+
+
+def _same(a, b):
+    """Equal, with NaN at the same places."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _fused_edge_case(rng, n, m_sub, d, dev, shift=0, density=0.5):
+    """One query's inputs with +inf and NaN estimates (LUT entries) and
+    rows (coordinates), moved to ``dev``; ``shift`` = 1 makes codes,
+    vectors and validity views one element into their buffers."""
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if not shift:
+            return t
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    codes = rng.integers(0, 16, (n, m_sub)).astype(np.uint8)
+    vectors = rng.standard_normal((n, d)).astype(np.float32)
+    vectors[::97, d // 2] = np.nan
+    vectors[::89, 0] = np.inf
+    valid = rng.random(n) < density
+    lut = (rng.random((m_sub, 16)) * 2).astype(np.float32)
+    est = np.sqrt(np.asarray(ref.pq_adc(_t(codes), _t(lut))))
+    lut[0, 15], lut[1, 14] = np.inf, np.nan
+    cb = rb.build_codebook(torch.where(_t(valid), _t(est), float("inf"))[None],
+                           k=min(max(n // 8, 8), 5000), m=128)
+    q = rng.standard_normal(d).astype(np.float32)
+    return (put(codes), put(vectors), put(valid), _t(lut).to(dev),
+            _t(q).to(dev), cb.d_min.to(dev), cb.delta.to(dev),
+            cb.ew_map.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m_sub,d", [(262_147, 32, 128), (1003, 24, 96),
+                                       (20_001, 33, 100), (3000, 32, 960),
+                                       (5, 16, 64)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_cuda_fused_scan_one_query_edges(cuda, rng, n, m_sub, d, shift):
+    """#9's one-query kernel bitwise against the plain version: n not a
+    multiple of 4 or of a block's lanes, aligned and unaligned views,
+    +inf and NaN estimates and rows, the normal and the degenerate
+    codebooks (delta 0, d_min +inf, both), thresholds -1, 5, m // 3 and
+    m (every valid lane predicted), as an int and as a tensor."""
+    a = _fused_edge_case(rng, n, m_sub, d, cuda, shift)
+    d_min, delta = a[5], a[6]
+    for dm, dl in ((d_min, delta), (d_min, torch.zeros_like(delta)),
+                   (torch.full_like(d_min, float("inf")), delta),
+                   (torch.full_like(d_min, float("inf")),
+                    torch.zeros_like(delta))):
+        for tau in (-1, 5, 42, 128):
+            args = (*a[:5], dm, dl, a[7], 128)
+            want = ref.fused_scan(*args, tau)
+            before = ops.LAUNCHES["fused_scan"]
+            for got in (ops.fused_scan(*args, tau),
+                        ops.fused_scan(*args, torch.tensor(
+                            [tau], dtype=torch.int32, device=cuda))):
+                assert all(_same(x, y) for x, y in zip(got, want)), \
+                    (dm, dl, tau)
+            assert ops.LAUNCHES["fused_scan"] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_fused_scan_no_valid_lane_every_lane_predicted_repeats(cuda,
+                                                                     rng):
+    """No valid lane (only the +inf stores and no flush), every lane valid
+    and predicted, and ten repeated calls interleaved with another shape,
+    each bitwise the plain version's; the batched wrapper at B = 1 takes
+    the one-query kernel."""
+    for density, tau in ((0.0, 64), (1.0, 128)):
+        a = _fused_edge_case(rng, 262_147, 32, 128, cuda, density=density)
+        args = (*a, 128, tau)
+        assert all(_same(x, y) for x, y in zip(ops.fused_scan(*args),
+                                                ref.fused_scan(*args)))
+    first = (*_fused_edge_case(rng, 1_000_064, 32, 128, cuda), 128, 42)
+    other = (*_fused_edge_case(rng, 5000, 24, 96, cuda), 128, 7)
+    want = ref.fused_scan(*first)
+    for _ in range(10):
+        got = ops.fused_scan(*first)
+        ops.fused_scan(*other)
+        assert all(_same(x, y) for x, y in zip(got, want))
+    tau = torch.tensor([42], dtype=torch.int32, device=cuda)
+    before = dict(ops.LAUNCHES)
+    batched = ops.fused_scan_batch(first[0], first[1], first[2][None],
+                                   first[3][None], first[4][None], first[5],
+                                   first[6], first[7][None], 128, tau)
+    assert ops.LAUNCHES["fused_scan"] == before["fused_scan"] + 1
+    assert ops.LAUNCHES["fused_scan_batch"] == before["fused_scan_batch"]
+    assert all(_same(x[0], y) for x, y in zip(batched, want))
