@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-13
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-14
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 7, 8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -27,7 +27,12 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 7, 8, 10):
      codebooks, thresholds -1 and m, ragged and unaligned shapes, no valid
      lane and every lane predicted, over repeated calls, every output
      bitwise; ``numerics.sqrt_rn`` on the card bitwise against its CPU
-     form on 23M values);
+     form on 23M values; the exact-distance kernel at the delta-segment
+     scan's shapes (B=32 over 4096 rows and ragged capacities, d=128) and
+     the whole segment scan against the CPU's; the fused scan, the
+     bucketize-histogram, the shard collector, the compaction and the
+     RaBitQ scan on lane masks with 5% of the lanes tombstoned inside the
+     probed clusters, at the main path's width);
   4. the main path at full size: a SIFT1M-width synthetic corpus (1,000,000
      x 128 fp32), index built on the card (its k-means and PQ training run
      twice more, and must give the same bits), 64 queries through the fused
@@ -51,7 +56,8 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 7, 8, 10):
      bucketize-histogram, the shard collector and compaction also the
      kernel alone; the one-query fused scan beside the batched kernel at
      one query, its design before, and with no predicted row and no valid
-     lane); for #2 and #3 also
+     lane; the exact-distance kernel at one delta segment's scan, B=32 x
+     4096 rows, beside its bound and issue ceiling); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -70,16 +76,31 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 7, 8, 10):
      96, 316 clusters, IVF+PQ+BBC, k=5000, 64 Poisson requests at 200/s,
      deadline 500 ms, batches of 16) with ``--check-parity``: p50/p99
      latency, shed, degraded and deadline-met shares, batches, recall and
-     parity, which must be 1.0 over more than 0 requests;
-  8. (only when asked for) torch.profiler over batches of phases 4, 9 and
-     11 (sharded IVF+PQ) and over single IVF+PQ+BBC queries (phase 12):
+     parity, which must be 1.0 over more than 0 requests; then the same run
+     sharded (``serve_rank`` on a one-rank NCCL mesh over a ``file://``
+     store: rank 0's event loop drives the sharded engines through the
+     lock-step protocol), held to the same bars;
+ 14. streaming ingest on phase 4's corpus: a ``MutableIndex`` (IVF+PQ+BBC,
+     1024 clusters, k=5000, n_probe=64, B=32), 50,000 inserted rows of the
+     corpus's mixture (13 segments of 4096), 50,000 deleted ids (40,000
+     base rows, 10,000 segment rows: churn 0.10, the merge trigger), 64
+     queries with and without the segments, a merge crashed after its
+     checkpoint, the checkpoint verified, the merge resumed, the queries
+     again: recall@5000 against exact search over the live corpus (>= 0.95
+     before, while sealed and after), deleted ids surfaced (0), seconds of
+     the build, checkpoint write and verify and the rebuild; the same
+     schedule merged without a crash must return the same bits;
+  8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
+     (sharded IVF+PQ) and 14 (the mutable index with its segments) and
+     over single IVF+PQ+BBC queries (phase 12):
      device time by operator and the device's idle share;
  10. (only when asked for, after 9) the band anatomy of one RaBitQ batch:
      the band threshold, the static and warm predictive gates, and where
      the band lanes' lower-bound buckets lie.
 
-Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11 and 13 and
-read after each; comparison and timing launches do not count.  A launch of
+Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
+of its two runs) and 14 (its searches with the segments) and read after
+each; comparison and timing launches do not count.  A launch of
 the PQ, l2, bucket or fused kernel at one query counts under its
 single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -234,9 +255,11 @@ def close(a, b, tol: float, name: str) -> float:
     return err
 
 
-def kernel_inputs(rng, b, n, m_sub, d, k_codes=16, m=128, density=0.0625):
+def kernel_inputs(rng, b, n, m_sub, d, k_codes=16, m=128, density=0.0625,
+                  valid=None):
     """Random kernel inputs and per-query codebooks built from the plain
-    ADC estimate (as the searcher builds them from its sample)."""
+    ADC estimate (as the searcher builds them from its sample); ``valid``
+    replaces the random lane mask."""
     import numpy as np
     import torch
     from repro_torch.core import buffer as rb
@@ -247,7 +270,8 @@ def kernel_inputs(rng, b, n, m_sub, d, k_codes=16, m=128, density=0.0625):
     vectors = torch.from_numpy(
         rng.standard_normal((n, d), dtype=np.float32)).to(dev)
     qs = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
-    valid = torch.from_numpy(rng.random((b, n)) < density).to(dev)
+    if valid is None:
+        valid = torch.from_numpy(rng.random((b, n)) < density).to(dev)
     luts = torch.from_numpy(
         (rng.random((b, m_sub, k_codes)) * 2).astype(np.float32)).to(dev)
     est = torch.sqrt(ref.pq_adc_batch(codes, luts))
@@ -382,12 +406,14 @@ def check_tile_edges(errs: dict) -> None:
         f"(B, n, M, K) in {ADC_EDGES}, aligned and unaligned: bitwise")
 
 
-def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625):
+def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625,
+                         dead: float = 0.0):
     """Random inputs of the RaBitQ scan: a cluster-major stream of +-1 int8
     codes over ``c`` clusters, per-query probe masks (each cluster probed
-    with probability ``density``), and per-query codebooks over the upper
-    bounds of a sample of the probed lanes (every 16th), as the searcher
-    builds them from its sample."""
+    with probability ``density``; a ``dead`` share of the lanes tombstoned,
+    holes inside the probed clusters), and per-query codebooks over the
+    upper bounds of a sample of the probed lanes (every 16th), as the
+    searcher builds them from its sample."""
     import torch
     from repro_torch.core import buffer as rb
     from repro_torch.core import numerics as nm
@@ -413,7 +439,7 @@ def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625):
     hit = rand(b, c) < density
     hit[torch.arange(b, device=dev), torch.randint(0, c, (b,), generator=g,
                                                    device=dev)] = True
-    valid = hit[:, cl.long()]
+    valid = hit[:, cl.long()] & (rand(n) >= dead)[None, :]
     diff = cent[None] - qs[:, None]
     d2 = nm.ordered_sum(diff * diff)
     s2 = nm.rabitq_s2(codes, nm.rotate(cent, rot), cl)
@@ -456,14 +482,16 @@ def check_rabitq_kernel(a, errs: dict, tag: str) -> None:
         f"{n_cert} certified (query, lane) pairs")
 
 
-def shard_collect_inputs(seed, b, n, m=128, density=0.0625):
+def shard_collect_inputs(seed, b, n, m=128, density=0.0625, valid=None):
     """Random inputs of the shard collector: (B, n) distances (+inf off the
-    ``density`` valid lanes) and per-query codebooks over them."""
+    ``density`` valid lanes, or off ``valid``) and per-query codebooks over
+    them."""
     import torch
     from repro_torch.core import buffer as rb
     g = torch.Generator(device=DEV).manual_seed(seed)
     dists = torch.rand(b, n, generator=g, device=DEV) * 30 + 1
-    valid = torch.rand(b, n, generator=g, device=DEV) < density
+    if valid is None:
+        valid = torch.rand(b, n, generator=g, device=DEV) < density
     dists = torch.where(valid, dists, float("inf"))
     cb = rb.build_codebook(dists, k=min(max(n // 64, 8), 5000), m=m)
     return dict(dists=dists, valid=valid, d_min=cb.d_min, delta=cb.delta,
@@ -534,6 +562,84 @@ def check_shard_collect(a, budgets, errs: dict, tag: str) -> None:
         f"their plain versions at budgets {budgets}, tau cold/all/mixed "
         f"(an overflow included), at query 0's edge budgets "
         f"{sorted(edges)} and over 10 repeated calls")
+
+
+def tombstoned_probe_mask(seed, b, n, c=1024, n_probe=64, dead=0.05):
+    """A mutable index's lane masks: a cluster-major stream of ``c``
+    clusters, each query probing ``n_probe`` of them (runs of whole
+    clusters), with a ``dead`` share of the stream's lanes tombstoned (the
+    same rows for every query: holes inside the probed clusters).
+    Returns (mask, live-lane share of the probed lanes)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    cl = torch.sort(torch.randint(0, c, (n,), generator=g, device=DEV)
+                    ).values
+    pick = torch.rand(b, c, generator=g, device=DEV).argsort(dim=1)[:, :n_probe]
+    hit = torch.zeros(b, c, dtype=torch.bool, device=DEV)
+    hit.scatter_(1, pick, True)
+    probe = hit[:, cl]
+    live = torch.rand(n, generator=g, device=DEV) >= dead
+    mask = probe & live[None, :]
+    return mask, float(mask.sum().item()) / max(1, int(probe.sum().item()))
+
+
+DELTA_SHAPES = ((32, 4096, 128), (32, 1000, 128), (32, 4095, 128))
+
+
+def check_delta_scan(errs: dict) -> None:
+    """#3 at the delta-segment scan's shapes (B=32 queries, one segment of
+    4096 rows and ragged capacities, d=128), bitwise against its plain
+    version, and the whole scan (``ingest.segment.delta_scan``: the mask,
+    the k' smallest) against the same scan on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.ingest import segment
+    from repro_torch.kernels import ops, ref
+    for b, n, d in DELTA_SHAPES:
+        rng = np.random.default_rng(n)
+        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+        got = ops.l2_exact_batch(x.to(DEV), q.to(DEV))
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref.l2_exact_batch(x.to(DEV), q.to(DEV))),
+              f"l2 at the delta shape {(b, n, d)} differs from its plain "
+              f"version")
+        live = torch.from_numpy(rng.random(n) >= 0.05)
+        ids = torch.arange(10_000, 10_000 + n)
+        cd, ci = segment.delta_scan(x, ids, live, q, k=5000)
+        gd, gi = segment.delta_scan(x.to(DEV), ids.to(DEV), live.to(DEV),
+                                    q.to(DEV), k=5000)
+        check(torch.equal(gd.cpu(), cd) and torch.equal(gi.cpu(), ci),
+              f"delta_scan at {(b, n, d)} differs between the card and the "
+              f"CPU")
+        errs["l2_exact_batch"] = max(errs.get("l2_exact_batch", 0.0),
+                                     max_abs(got.cpu(),
+                                             ref.l2_exact_batch(x, q)))
+    log(f"[kernels] delta scan: l2 bitwise at {list(DELTA_SHAPES)}; "
+        f"delta_scan (5% dead rows, k'=min(5000, capacity)) equal to the "
+        f"CPU's")
+
+
+def check_tombstones(errs: dict, summary: dict) -> None:
+    """#1, #4, #6 and #7, and #5, on lane masks with 5% of the lanes
+    tombstoned inside the probed clusters (a mutable index's masks), at the
+    main path's width: every output bitwise against the plain version."""
+    import numpy as np
+    n, b = 1_000_064, 32
+    mask, share = tombstoned_probe_mask(SEED + 7, b, n)
+    check_kernels(kernel_inputs(np.random.default_rng(SEED + 7), b, n, 32,
+                                128, valid=mask),
+                  errs, "tombstoned B=32 n=1000064 M=32 d=128")
+    check_shard_collect(shard_collect_inputs(SEED + 8, b, n, valid=mask),
+                        (80_128, 20_224, 4096), errs,
+                        f"tombstoned B={b} n={n}")
+    check_rabitq_kernel(rabitq_kernel_inputs(SEED + 9, b, n, 128, 1024,
+                                             dead=0.05),
+                        errs, "tombstoned RaBitQ B=32 n=1000064 d=128")
+    summary["tombstoned_live_share"] = share
+    log(f"[kernels] tombstoned masks: {share:.4f} of the probed lanes live; "
+        f"fused scan, bucket_hist, shard_collect, spec_compact and the "
+        f"RaBitQ scan bitwise equal to their plain versions")
 
 
 RQ_EST_SHAPES = ((256, 64), (300, 96), (1024, 128), (512, 100))
@@ -1571,21 +1677,23 @@ def single_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
 ASYNC_ARGS = ["--mode", "async", "--check-parity"]
 
 
-def async_serving(summary: dict, card: str) -> dict:
-    """Phase 13: ``serve --mode async`` through its entry point
-    (``repro_torch.launch.serve.main``) on the card; its JSON line must
-    read parity 1.0 over more than 0 requests and exit 0.  Returns the
-    launches of the run."""
+def _async_run(summary: dict, card: str, key: str, tag: str, label: str,
+               run) -> dict:
+    """Run ``serve --mode async`` through ``run`` (which prints the CLI's
+    lines, the JSON summary last, and returns the exit code); the summary
+    must read parity 1.0 over more than 0 requests and the code be 0.
+    Returns the launches of the run."""
     import contextlib
     import io
     import torch
+    from repro_torch.core import distributed as D
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     ops.reset_launches()
+    D.reset_tiers()
     buf = io.StringIO()
     t0 = time.monotonic()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main(ASYNC_ARGS)
+        rc = run()
     wall = time.monotonic() - t0
     launches = dict(ops.LAUNCHES)
     lines = buf.getvalue().strip().splitlines()
@@ -1594,24 +1702,232 @@ def async_serving(summary: dict, card: str) -> dict:
     out = json.loads(lines[-1])
     batches = [int(line.split()[1]) for line in lines
                if line.startswith("[serve]") and "batches served" in line]
-    check(rc == 0, f"serve --mode async exited {rc}")
+    check(rc == 0, f"{label} exited {rc}")
     check(out["device"] == torch.cuda.get_device_name(0),
-          f"serve --mode async ran on {out['device']}")
+          f"{label} ran on {out['device']}")
     check(out.get("parity") == 1.0 and out.get("parity_checked", 0) > 0,
-          f"serve --mode async parity {out.get('parity')} over "
+          f"{label} parity {out.get('parity')} over "
           f"{out.get('parity_checked')} requests")
     check(out["conserved"] and out["requests"] == 64,
-          "serve --mode async lost requests")
-    check(batches and batches[0] > 0, "serve --mode async served no batch")
+          f"{label} lost requests")
+    check(batches and batches[0] > 0, f"{label} served no batch")
     out.update(batches=batches[0], wall_s=wall, launches={
-        k: v for k, v in launches.items() if v}, card=card)
-    log(f"[async] p50 {out['p50_ms']} ms, p99 {out['p99_ms']} ms, shed "
+        k: v for k, v in launches.items() if v}, card=card,
+        tiers={k: v for k, v in D.TIERS.items() if v})
+    log(f"[{tag}] p50 {out['p50_ms']} ms, p99 {out['p99_ms']} ms, shed "
         f"{out['shed_rate']}, degraded {out['degraded_rate']}, deadline met "
         f"{out['deadline_met_rate']}, {out['batches']} batches of up to "
         f"{out['max_batch']}, recall_mean {out['recall_mean']}, parity "
-        f"{out['parity']} over {out['parity_checked']}, qps {out['qps']}; "
-        f"launches {out['launches']}; {card}")
-    summary["async_serving"] = out
+        f"{out['parity']} over {out['parity_checked']}, qps {out['qps']}, "
+        f"shards {out['shards']}; launches {out['launches']}, survivor "
+        f"tiers {out['tiers']}; {card}")
+    summary[key] = out
+    return launches
+
+
+def async_serving(summary: dict, card: str) -> dict:
+    """Phase 13: ``serve --mode async`` through its entry point
+    (``repro_torch.launch.serve.main``) on the card, then the same run
+    sharded: ``serve_rank`` on a one-rank NCCL mesh (the default group of
+    phase 11), rank 0's event loop driving the sharded engines through the
+    lock-step protocol.  Returns the launches of both runs."""
+    import torch
+    from repro_torch.launch import serve
+
+    def sharded_run():
+        mesh("cuda")
+        args = serve.parse_args(ASYNC_ARGS + ["--shards", "1"])
+        out, rc = serve.serve_rank(args, torch.device("cuda", 0))
+        print(json.dumps(out))
+        return rc
+
+    l1 = _async_run(summary, card, "async_serving", "async",
+                    "serve --mode async", lambda: serve.main(ASYNC_ARGS))
+    l2 = _async_run(summary, card, "async_sharded", "async-sharded",
+                    "serve --mode async, sharded (one NCCL rank)",
+                    sharded_run)
+    a, b = summary["async_serving"], summary["async_sharded"]
+    check(b["shards"] == 1 and b["completed"] == a["completed"],
+          "the sharded async run served another request set")
+    return {k: l1[k] + l2[k] for k in l1}
+
+
+# --------------------------------------------------------------------------
+# phase 14: streaming ingest at full width
+# --------------------------------------------------------------------------
+
+INGEST_INSERT, INGEST_DELETE_BASE, INGEST_DELETE_SEG = 50_000, 40_000, 10_000
+INGEST_Q = 64
+
+
+def ingest_rows(n: int, d: int, seed: int):
+    """``n`` new rows of the main corpus's mixture: ``corpus`` draws
+    ``synthetic.clustered``'s 256 centers first from ``SEED``; the rows take
+    fresh assignments and noise from ``seed``."""
+    import numpy as np
+    centers = np.random.default_rng(SEED).standard_normal((256, d)) * 2.0
+    rng = np.random.default_rng(seed)
+    return (centers[rng.integers(0, 256, n)]
+            + rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+
+
+def ingest_schedule(x_np, rows, del_base, del_seg):
+    """A MutableIndex over the main corpus (IVF+PQ+BBC, 1024 clusters,
+    k=5000, n_probe=64, generation 0 built on the card), then the inserts
+    and the deletes of base and segment rows.  Returns (index, seconds by
+    step)."""
+    import numpy as np
+    import torch
+    from repro_torch import ingest
+    secs = {}
+    t0 = time.monotonic()
+    mi = ingest.MutableIndex(x_np, "ivfpq", k=5000, n_probe=64,
+                             n_clusters=1024, device=DEV)
+    torch.cuda.synchronize()
+    secs["build_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    ins = mi.insert(rows)
+    secs["insert_s"] = time.monotonic() - t0
+    doomed = np.concatenate([del_base, ins[del_seg]])
+    t0 = time.monotonic()
+    count = mi.delete(doomed)
+    torch.cuda.synchronize()
+    secs["delete_s"] = time.monotonic() - t0
+    check(count == len(doomed), f"deleted {count} of {len(doomed)} ids")
+    return mi, secs
+
+
+def live_recall(mi, qs, res, k: int):
+    """(recall@k against exact search over ``live_corpus()``, deleted ids
+    that surfaced: none is live, so any result id outside it counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.index import flat
+    lx, lids = mi.live_corpus()
+    _, gt = flat.search_batch(torch.from_numpy(lx).to(DEV), qs, k)
+    gt = lids[gt.cpu().numpy()]
+    ids = np.concatenate([r.ids.cpu().numpy() for r in res])
+    rec = float(np.mean([len(set(r.tolist()) & set(g.tolist())) / k
+                         for r, g in zip(ids, gt)]))
+    return rec, int((~np.isin(ids, lids)).sum())
+
+
+def ingest_path(summary: dict, card: str, x, qs, prof: bool = False) -> dict:
+    """Phase 14: the main cell's corpus as a MutableIndex; 50,000 inserted
+    rows (13 segments of 4096), 50,000 deleted ids (40,000 base rows,
+    10,000 segment rows: churn 0.10, the merge trigger); 64 queries in
+    batches of 32 with and without the segments; a merge crashed after its
+    checkpoint, the checkpoint verified, the merge resumed, the queries
+    again; the same schedule merged without a crash must give the same
+    bits.  ``prof`` (phase 8) adds torch.profiler over three batches with
+    the segments, before the merge.  Returns the launches of the
+    searches."""
+    import numpy as np
+    import torch
+    from repro_torch import ingest
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import ops
+    k, b = 5000, 32
+    x_np = x.cpu().numpy()
+    n, d = x_np.shape
+    rows = ingest_rows(INGEST_INSERT, d, SEED + 14)
+    rng = np.random.default_rng(SEED + 15)
+    del_base = rng.choice(n, INGEST_DELETE_BASE, replace=False)
+    del_seg = rng.choice(INGEST_INSERT, INGEST_DELETE_SEG, replace=False)
+    q = qs[:INGEST_Q]
+    batches = [q[i:i + b] for i in range(0, INGEST_Q, b)]
+    out = {"corpus": [n, d], "inserted": INGEST_INSERT,
+           "deleted": INGEST_DELETE_BASE + INGEST_DELETE_SEG, "k": k,
+           "n_probe": 64, "batch": b, "queries": INGEST_Q, "card": card}
+
+    mi, secs = ingest_schedule(x_np, rows, del_base, del_seg)
+    out.update(secs)
+    out["segments"] = len(mi.segments)
+    out["churn"] = mi.churn_fraction()
+    check(out["segments"] == 13, f"{out['segments']} segments")
+    check(mi.needs_merge(), f"churn {out['churn']} under the merge trigger")
+    mi.search(batches[0])                       # warm: uploads the segments
+    ops.reset_launches()
+    res, ms = timed_batches(mi.search, batches)
+    launches = dict(ops.LAUNCHES)
+    _, ms_base = timed_batches(mi.engine.search_batch, batches)
+    for r in res:
+        check_result(r, b, k, "mutable index")
+    out["recall_before"], out["surfaced_before"] = live_recall(mi, q, res, k)
+    out.update(ms_per_batch=ms, ms_per_batch_base_only=ms_base,
+               launches={kk: v for kk, v in launches.items() if v})
+    check(launches["l2_exact_batch"] == 13 * len(batches),
+          f"{launches['l2_exact_batch']} delta-scan launches of #3")
+    if prof:
+        log("[profile] the mutable index with 13 segments (phase 14):")
+        summary["profile_ingest"] = profile(mi, qs)
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_merge_")
+    t0 = time.monotonic()
+    try:
+        ingest.MergeJob(mi, ckpt).run(crash_after_checkpoint=True)
+        check(False, "the injected merge crash did not happen")
+    except ingest.MergeCrash:
+        pass
+    out["checkpoint_write_s"] = time.monotonic() - t0   # seal + snapshot
+    out["checkpoint_bytes"] = sum(
+        f.stat().st_size for f in Path(ckpt).rglob("*") if f.is_file())
+    sealed, _ = timed_batches(mi.search, batches)
+    out["recall_sealed"], out["surfaced_sealed"] = live_recall(mi, q, sealed,
+                                                               k)
+    t0 = time.monotonic()
+    CheckpointManager(ckpt).verify(mi.generation + 1)
+    out["checkpoint_verify_s"] = time.monotonic() - t0
+    build = mi.build_engine
+
+    def timed_build(*a):
+        t = time.monotonic()
+        eng = build(*a)
+        torch.cuda.synchronize()
+        out["rebuild_s"] = time.monotonic() - t
+        return eng
+
+    mi.build_engine = timed_build
+    t0 = time.monotonic()
+    ingest.resume_merge(mi, ckpt)
+    out["resume_s"] = time.monotonic() - t0
+    check(mi.generation == 1 and not mi.segments and mi.churn_fraction() == 0,
+          "the resumed merge left churn behind")
+    mi.search(batches[0])
+    after, ms_after = timed_batches(mi.search, batches)
+    out["ms_per_batch_after"] = ms_after
+    out["recall_after"], out["surfaced_after"] = live_recall(mi, q, after, k)
+    del mi
+    torch.cuda.empty_cache()
+
+    twin, _ = ingest_schedule(x_np, rows, del_base, del_seg)
+    ingest.MergeJob(twin, tempfile.mkdtemp(prefix="chip_smoke_merge_")).run()
+    straight = [twin.search(qb) for qb in batches]
+    out["resumed_equals_uninterrupted"] = all(
+        torch.equal(a.ids, c.ids) and torch.equal(a.dists, c.dists)
+        for a, c in zip(after, straight))
+    del twin
+    torch.cuda.empty_cache()
+    for key in ("recall_before", "recall_sealed", "recall_after"):
+        check(out[key] >= 0.95, f"phase 14 {key} {out[key]}")
+    for key in ("surfaced_before", "surfaced_sealed", "surfaced_after"):
+        check(out[key] == 0, f"phase 14: {out[key]} deleted ids surfaced")
+    check(out["resumed_equals_uninterrupted"],
+          "the resumed merge differs from the uninterrupted one")
+    log(f"[ingest] {n} x {d} + {INGEST_INSERT} rows ({out['segments']} "
+        f"segments) - {out['deleted']} ids, churn {out['churn']:.4f}: "
+        f"ms/batch {ms} with segments, {ms_base} base only, {ms_after} after "
+        f"the merge; recall@{k} before {out['recall_before']:.4f}, sealed "
+        f"{out['recall_sealed']:.4f}, after {out['recall_after']:.4f}; "
+        f"deleted ids surfaced {out['surfaced_before']}/"
+        f"{out['surfaced_sealed']}/{out['surfaced_after']}; build "
+        f"{out['build_s']:.2f}s, checkpoint write {out['checkpoint_write_s']:.2f}s "
+        f"({out['checkpoint_bytes']} bytes), verify "
+        f"{out['checkpoint_verify_s']:.2f}s, rebuild {out['rebuild_s']:.2f}s, "
+        f"resume {out['resume_s']:.2f}s; resumed == uninterrupted: "
+        f"{out['resumed_equals_uninterrupted']}; launches {out['launches']}; "
+        f"{card}")
+    summary["ingest"] = out
     return launches
 
 
@@ -1877,6 +2193,39 @@ def timing(a) -> dict:
             f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']}{against_row_kernel(name, t)}")
     return out
+
+
+def timing_delta() -> dict:
+    """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
+    4096 rows of d=128): the wrapper call and the kernel alone beside the
+    bound and the fp32 issue ceiling, the plain version and
+    ``torch.cdist``, and the blocks the launch fills the card with."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, n, d = DELTA_SHAPES[0]
+    rng = np.random.default_rng(SEED + 21)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(DEV)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(DEV)
+    got = ops.l2_exact_batch(x, q)
+    check(torch.equal(got, ref.l2_exact_batch(x, q)),
+          "l2 at the delta-scan shape differs from its plain version")
+    fn = lambda: ops.l2_exact_batch(x, q)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(
+        lambda: ref.l2_exact_batch(x, q), 5, warm=1),
+        library_ms=cuda_ms(lambda: torch.cdist(q, x), 20),
+        ceiling_ms=1e3 * 3 * b * n * d / FP32_ISSUE_PER_S, ceiling_by="issue",
+        work={"B": b, "n": n, "d": d, "device_ms": device_ms(fn, "l2_", 50),
+              "blocks": ops._l2_plan(b, n, d).grid, "sms": ops.SMS})
+    t["bound_ms"], t["bound_by"] = bound(4 * n * d + 4 * b * d + 4 * b * n,
+                                         3 * b * n * d)
+    log(f"[timing] l2_exact_batch at the delta-scan shape {(b, n, d)}: "
+        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}, issue ceiling "
+        f"{t['ceiling_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+        f"torch.cdist {t['library_ms']:.4f} ms; {t['work']['blocks']} blocks "
+        f"on {t['work']['sms']} SMs")
+    return {"l2_exact_batch@delta": t}
 
 
 def against_row_kernel(name: str, t: dict) -> str:
@@ -2292,9 +2641,9 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13",
-                    help="comma-separated phases to run (default 1-7, 9, "
-                         "11, 12 and 13; 8 = torch.profiler over the batches of "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13,14",
+                    help="comma-separated phases to run (default 1-7, 9 and "
+                         "11-14; 8 = torch.profiler over the batches of "
                          "4, 9 and 11 and the queries of 12; 10 = phase 9's "
                          "band anatomy)")
     ap.add_argument("--out", default="",
@@ -2360,6 +2709,8 @@ def main(argv=None) -> int:
         check_bucket_hist_edges(errs)
         check_fused_edges(errs)
         check_sqrt_rn(summary)
+        check_delta_scan(errs)
+        check_tombstones(errs, summary)
 
     launches = {k: 0 for k in ops.LAUNCHES}
     eng = qb = main_queries = x = rq_eng = rq_queries = rq_state = None
@@ -2393,11 +2744,16 @@ def main(argv=None) -> int:
     if 13 in phases:
         l13 = async_serving(summary, card)
         launches = {k: launches[k] + l13[k] for k in launches}
+    if 14 in phases:
+        check(eng is not None, "phase 14 takes phase 4's corpus and needs it")
+        l14 = ingest_path(summary, card, x, main_queries, prof=8 in phases)
+        launches = {k: launches[k] + l14[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
               "shapes and needs phase 4")
         times = timing(main_path_kernel_args(eng, qb))
+        times.update(timing_delta())
         if rq_eng is not None:
             times.update(timing_rabitq(
                 rabitq_kernel_args(rq_eng, rq_queries[:32]), errs))
@@ -2431,7 +2787,7 @@ def main(argv=None) -> int:
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
                                                rq_state)
         log(f"[band] {json.dumps(summary['band_anatomy'])}")
-    if {4, 6, 9, 11, 12, 13} <= phases:
+    if {4, 6, 9, 11, 12, 13, 14} <= phases:
         for k, v in launches.items():
             check(v > 0, f"kernel {k} never launched on the paths")
 

@@ -50,6 +50,14 @@ def _loader(arrays: Mapping[str, np.ndarray], fields, device):
     return t, ivf
 
 
+def ivf_index_from_numpy(arrays: Mapping[str, np.ndarray], device=None):
+    """The IVF part alone (the four ``ivf`` keys; the corpus vectors go to
+    the engine as ``vectors=``).  Returns ``(IVFIndex, FlatLayout)`` on
+    ``device``."""
+    _, ivf = _loader(arrays, IVF_FIELDS[:-1], device)
+    return ivf, ivf_mod.flat_layout(ivf)
+
+
 def pq_index_from_numpy(arrays: Mapping[str, np.ndarray], device=None):
     """Returns ``(PQIndex, FlatLayout)`` on ``device``."""
     t, ivf = _loader(arrays, FIELDS, device)

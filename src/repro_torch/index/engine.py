@@ -27,16 +27,24 @@ device; every call runs the distributed BBC collector of
 all ranks at once.
 
 Each method is a strategy object chosen once, at build, from the index
-type (``IVFIndex`` with ``vectors=``, ``PQIndex``, ``RabitqIndex``).  What
-the JAX engine also does (tuned operating points, tombstones) raises
+type (``IVFIndex`` with ``vectors=``, ``PQIndex``, ``RabitqIndex``).
+
+Deletes are a tombstone mask, not a rebuild: ``eng.with_live(corpus_live)``
+returns an engine whose searchers AND the mask (permuted once into stream
+order, this rank's block on a mesh) into their lane masks, so a dead row
+is an unprobed lane.  The mask is a tensor input of every call; flipping
+tombstones touches neither the layout nor the quantized streams.  What
+the JAX engine also does (tuned operating points) raises
 ``NotImplementedError`` naming the ROADMAP item that brings it: no request
 is quietly served through another path.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import rerank
@@ -73,7 +81,7 @@ class _IvfStrategy:
         return search_mod.ivf_search_batch(
             eng.index, eng.vectors, qs, eng.layout, k=eng.k,
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
-            pred_state=pred_state, pred_count=eng.pred_count)
+            pred_state=pred_state, pred_count=eng.pred_count, live=eng.live)
 
     def shard_streams(self, index, vectors, layout, dev) -> tuple:
         return (index.centroids.to(dev),
@@ -85,7 +93,7 @@ class _IvfStrategy:
             eng.mesh, qs, cent, eng.shard_layout, svecs, k=eng.k,
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             cap_shard=eng.cap_shard, budget=eng.shard_budget,
-            pred_state=pred_state, pred_count=eng.pred_count)
+            pred_state=pred_state, pred_count=eng.pred_count, slive=eng.live)
 
 
 class _IvfPqStrategy:
@@ -108,7 +116,7 @@ class _IvfPqStrategy:
         return search_mod.ivf_pq_search_batch(
             eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
             n_cand=eng.n_cand, use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
-            pred_state=pred_state, pred_count=eng.pred_count)
+            pred_state=pred_state, pred_count=eng.pred_count, live=eng.live)
 
     def shard_streams(self, index, vectors, layout, dev) -> tuple:
         order = layout.order.to(index.codes.device)
@@ -123,7 +131,7 @@ class _IvfPqStrategy:
             k=eng.k, n_probe=eng.n_probe, n_cand=eng.n_cand,
             use_bbc=eng.use_bbc, m=eng.m, cap_shard=eng.cap_shard,
             budget=eng.shard_budget, pred_state=pred_state,
-            pred_count=eng.pred_count)
+            pred_count=eng.pred_count, slive=eng.live)
 
 
 class _IvfRabitqStrategy:
@@ -147,7 +155,7 @@ class _IvfRabitqStrategy:
             eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
             use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
             stream=eng.stream, pred_state=pred_state,
-            pred_count=eng.pred_count)
+            pred_count=eng.pred_count, live=eng.live)
 
     def shard_streams(self, index, vectors, layout, dev) -> tuple:
         local = ivf_mod.FlatLayout(*(t.to(index.rq.codes.device)
@@ -163,7 +171,7 @@ class _IvfRabitqStrategy:
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             cap_shard=eng.cap_shard, budget=eng.shard_budget,
             fused=eng.fused, pred_state=pred_state,
-            pred_count=eng.pred_count)
+            pred_count=eng.pred_count, slive=eng.live)
 
 
 _STRATEGIES = {s.kind: s for s in
@@ -215,6 +223,13 @@ class SearchEngine:
     shard_streams: tuple = ()
     cap_shard: int = 1
     shard_budget: int | None = None
+    # tombstones: a (n_flat,) stream-ordered bool mask on ``device`` (this
+    # rank's (F,) block when sharded), ANDed into the lane masks at scan
+    # time; None = every lane live.  Made from a corpus-row mask by
+    # ``with_live``.
+    live: torch.Tensor | None = None
+    # streaming-ingest generation of the index this engine serves
+    generation: int = 0
 
     @property
     def strategy(self):
@@ -225,8 +240,8 @@ class SearchEngine:
               n_cand: int | None = None, use_bbc: bool = True, m: int = 128,
               pred_count: int | None = None, fused: bool | None = None,
               device=None, vectors=None, mesh=None,
-              shard_budget: int | None = None, tuned=None
-              ) -> "SearchEngine":
+              shard_budget: int | None = None, tuned=None,
+              generation: int = 0) -> "SearchEngine":
         """Place ``index`` (and ``vectors``, for an ``IVFIndex``) on
         ``device`` (the card unless ``device="cpu"``) and resolve the knobs
         from the method's defaults; then n_probe, n_cand and pred_count are
@@ -270,7 +285,7 @@ class SearchEngine:
                 n_probe=n_probe, n_cand=n_cand, use_bbc=use_bbc, m=m,
                 pred_count=pred_count, fused=fused, vectors=vectors,
                 device=dev, mesh=mesh, shard_layout=local, cap_shard=cap_shard,
-                shard_budget=shard_budget,
+                shard_budget=shard_budget, generation=generation,
                 shard_streams=strategy.shard_streams(index, vectors, local,
                                                      dev))
         layout = ivf_mod.flat_layout(ivf)
@@ -280,14 +295,34 @@ class SearchEngine:
                             k=k, n_probe=n_probe, n_cand=n_cand,
                             use_bbc=use_bbc, m=m, pred_count=pred_count,
                             fused=fused, vectors=vectors, stream=stream,
-                            device=dev)
+                            device=dev, generation=generation)
 
     def predictor_init(self) -> rerank.PredictorState:
         """Cold cross-batch threshold-predictor state for this engine."""
         return rerank.predictor_init(self.m, self.device)
 
     def with_live(self, corpus_live) -> "SearchEngine":
-        raise _not_ported("tombstone deletes (with_live)", "item 10")
+        """Engine with a tombstone mask: ``corpus_live[i]`` False deletes
+        corpus row ``i`` from every search, without touching the layout or
+        the quantized streams.  The (N,) mask (numpy or a tensor) is
+        permuted into stream order (``corpus_live[clip(order)]``; padding
+        lanes are masked by the layout anyway) and placed on the engine's
+        device, this rank's block on a mesh.  ``None`` clears it.  Returns
+        a new engine sharing every build-time artifact."""
+        if corpus_live is None:
+            return dataclasses.replace(self, live=None)
+        if isinstance(corpus_live, torch.Tensor):
+            corpus_live = corpus_live.to(torch.bool)
+        else:
+            corpus_live = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(corpus_live, dtype=bool)))
+        if corpus_live.ndim != 1 or corpus_live.shape[0] < 1:
+            raise ValueError(f"corpus_live must be (N,), got "
+                             f"{tuple(corpus_live.shape)}")
+        order = (self.layout if self.mesh is None else self.shard_layout).order
+        pos = order.clamp(0, corpus_live.shape[0] - 1)
+        live = corpus_live.to(order.device)[pos].to(self.device)
+        return dataclasses.replace(self, live=live)
 
     @property
     def dim(self) -> int:
@@ -323,14 +358,15 @@ class SearchEngine:
 
     def search_one(self, q, pred_state=None):
         """One (d,) query -> SearchResult of (k,) rows and 0-d counters.
-        Predictive search and the sharded engine are natively batched: they
-        serve a singleton batch; otherwise the method's single-query
-        searcher runs."""
+        Predictive search, the sharded engine and an engine with a
+        tombstone mask (the masks live on the batched searchers) serve a
+        singleton batch; otherwise the method's single-query searcher
+        runs."""
         q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
         if pred_state is not None:
             res, state = self.search_batch(q[None], pred_state=pred_state)
             return search_mod.SearchResult(*(x[0] for x in res)), state
-        if self.mesh is not None:
+        if self.mesh is not None or self.live is not None:
             res = self.search_batch(q[None])
             return search_mod.SearchResult(*(x[0] for x in res))
         return self.strategy.search_one(self, q)

@@ -194,12 +194,24 @@ def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
 
 
 def _routing(ivf: ivf_mod.IVFIndex, layout: ivf_mod.FlatLayout,
-             qs: torch.Tensor, n_probe: int):
+             qs: torch.Tensor, n_probe: int, live: torch.Tensor | None = None):
     """Probed clusters (B, n_probe), lane masks (B, n_flat), and the (B, C)
-    squared query-centroid distances."""
+    squared query-centroid distances.  ``live`` (n_flat,), the tombstone
+    mask, is ANDed into the lane masks: a dead lane is an unprobed one."""
     probed, d2 = ivf_mod.route_batch_d2(ivf, qs, n_probe)
-    lane_valid = ivf_mod.probe_mask(layout, probed, ivf.n_clusters)
+    lane_valid = _live_lanes(
+        ivf_mod.probe_mask(layout, probed, ivf.n_clusters), live)
     return probed, lane_valid, d2
+
+
+def _live_lanes(lane_valid: torch.Tensor, live: torch.Tensor | None):
+    """``lane_valid & live[None, :]`` (``live`` None: every lane live)."""
+    if live is None:
+        return lane_valid
+    if live.shape != lane_valid.shape[1:] or live.dtype != torch.bool:
+        raise ValueError(f"live mask {tuple(live.shape)} {live.dtype} for "
+                         f"{lane_valid.shape[1]} lanes")
+    return lane_valid & live[None, :]
 
 
 def _resolve_pred_count(pred_count: int | None, k: int,
@@ -460,7 +472,8 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
                         n_cand: int, use_bbc: bool = False, m: int = 128,
                         fused: bool | None = None,
                         pred_state: rerank.PredictorState | None = None,
-                        pred_count: int | None = None):
+                        pred_count: int | None = None,
+                        live: torch.Tensor | None = None):
     """Batched IVF+PQ (with or without BBC) over a (B, d) query batch.
 
     ``fused`` (default: True for CUDA tensors, False on the CPU) runs the
@@ -471,13 +484,18 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
 
     With ``pred_state`` the n_cand cut becomes the predictive pool and the
     call returns ``(SearchResult, new_state)``.
+
+    ``live`` is an optional (n_flat,) stream-ordered tombstone mask
+    (``SearchEngine.with_live``): dead lanes are ANDed out of the lane
+    masks, so estimates, histograms and the collection treat them as
+    unprobed lanes.  It is an input tensor, never baked into anything.
     """
     if fused is None:
         fused = on_cuda(qs.device)
     ivf = index.ivf
     b = qs.shape[0]
     order = layout.order
-    probed, lane_valid, _ = _routing(ivf, layout, qs, n_probe)
+    probed, lane_valid, _ = _routing(ivf, layout, qs, n_probe, live)
     stream_codes = index.codes[order]                         # shared gather
     luts = pq_mod.adc_table(index.pq, qs)
 
@@ -635,16 +653,18 @@ def ivf_search_batch(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
                      qs: torch.Tensor, layout: ivf_mod.FlatLayout, k: int,
                      n_probe: int, use_bbc: bool = False, m: int = 128,
                      pred_state: rerank.PredictorState | None = None,
-                     pred_count: int | None = None):
+                     pred_count: int | None = None,
+                     live: torch.Tensor | None = None):
     """Batched IVF: exact distances of the probed lanes in one shared scan
     (``ops.l2_exact_batch``), then the BBC collection over a sample of the
     nearest 4 probed tiles (``use_bbc``) or a flat top-k.  With
     ``pred_state`` the selection is predictive and the call returns
     ``(SearchResult, new_state)``; distances are exact in-scan, so the
-    result is the static one for any prediction."""
+    result is the static one for any prediction.  ``live``: the
+    tombstone mask, as in ``ivf_pq_search_batch``."""
     if pred_state is not None and not use_bbc:
         raise ValueError("predictive search requires use_bbc=True")
-    probed, lane_valid, _ = _routing(index, layout, qs, n_probe)
+    probed, lane_valid, _ = _routing(index, layout, qs, n_probe, live)
     order = layout.order
     dists = ops.l2_exact_batch(vectors[order], qs)
     dists = torch.where(lane_valid, dists, INF)
@@ -749,7 +769,8 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
                             fused: bool | None = None,
                             stream: RabitqStream | None = None,
                             pred_state: rerank.PredictorState | None = None,
-                            pred_count: int | None = None):
+                            pred_count: int | None = None,
+                            live: torch.Tensor | None = None):
     """Batched IVF+RaBitQ (with or without BBC) over a (B, d) query batch.
 
     ``stream`` is the engine's build-time ``RabitqStream`` (built here when
@@ -762,7 +783,8 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
 
     With ``pred_state`` the engine's EMA gates the inline band (-1 while
     cold: nothing certified) and the call returns ``(SearchResult,
-    new_state)``; the band and the ids do not depend on the gate."""
+    new_state)``; the band and the ids do not depend on the gate.
+    ``live``: the tombstone mask, as in ``ivf_pq_search_batch``."""
     if pred_state is not None and not use_bbc:
         raise ValueError("predictive search requires use_bbc=True")
     if fused is None:
@@ -770,7 +792,7 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
     if stream is None:
         stream = rabitq_stream(index, layout)
     ivf = index.ivf
-    probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe)
+    probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe, live)
     if use_bbc and fused:
         return _ivf_rabitq_fused_batch(index, stream, qs, layout, probed,
                                        lane_valid, d2, k, n_probe, m, eps0,
@@ -1044,10 +1066,12 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
                        m: int = 128, cap_shard: int = 1,
                        budget: int | None = None,
                        pred_state: rerank.PredictorState | None = None,
-                       pred_count: int | None = None):
+                       pred_count: int | None = None,
+                       slive: torch.Tensor | None = None):
     """Sharded batched IVF: exact distances in the local scan (the l2
     kernel), then the shard collector and the survivor collective.
-    ``layout`` and ``svecs`` (F, d) are this rank's block.
+    ``layout`` and ``svecs`` (F, d) are this rank's block; ``slive`` (F,)
+    is this rank's block of the tombstone mask (None: every lane live).
 
     With ``pred_state`` the predicted tau floors the survivor threshold and
     the summed histogram feeds the EMA; returns ``(SearchResult,
@@ -1062,7 +1086,8 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
         count = max(pred_count, k) if pred_count is not None else k
         tau_floor = _tau_full(pred_state, count, qs)
     probed, _ = _local_routing(centroids, qs, n_probe)
-    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    lane_valid = _live_lanes(
+        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
     dv = torch.where(lane_valid, ops.l2_exact_batch(svecs, qs), INF)
     n = dist.hier_psum(lane_valid.sum(dim=1), mesh)
     if use_bbc:
@@ -1098,13 +1123,15 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
                           n_cand: int, use_bbc: bool = True, m: int = 128,
                           cap_shard: int = 1, budget: int | None = None,
                           pred_state: rerank.PredictorState | None = None,
-                          pred_count: int | None = None):
+                          pred_count: int | None = None,
+                          slive: torch.Tensor | None = None):
     """Sharded batched IVF+PQ: the ADC kernel over the local codes, the
     shard collector at ``n_cand`` granularity, the exact re-rank of each
     shard's survivors on that shard, and after the gather the batched
     path's top-``n_cand``-by-estimate cut (ties by global id,
     ``_kth_value_mask``) before the top-k by exact distance.  ``layout``,
-    ``scodes`` (F, M) and ``svecs`` (F, d) are this rank's block.
+    ``scodes`` (F, M) and ``svecs`` (F, d) are this rank's block, and
+    ``slive`` (F,) its block of the tombstone mask.
 
     Predictive (``pred_state``): the collective runs at ``pred_count``
     granularity with the predicted tau as a floor, and the pool is cut only
@@ -1120,7 +1147,8 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     bud = _shard_budget(budget, count, s, shard_flat, 2.0)
     tau_floor = _tau_full(pred_state, count, qs) if predictive else None
     probed, _ = _local_routing(centroids, qs, n_probe)
-    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    lane_valid = _live_lanes(
+        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
     luts = pq_mod.adc_table(pq_cb, qs)
     est = _sqrt_est(ops.pq_adc_batch(scodes, luts), lane_valid)
     ghist = None
@@ -1199,9 +1227,11 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
                               budget: int | None = None,
                               fused: bool | None = None,
                               pred_state: rerank.PredictorState | None = None,
-                              pred_count: int | None = None):
+                              pred_count: int | None = None,
+                              slive: torch.Tensor | None = None):
     """Sharded batched IVF+RaBitQ.  ``layout`` and ``stream`` (this rank's
-    ``RabitqStream`` block) are the local shard.
+    ``RabitqStream`` block) are the local shard, ``slive`` (F,) its block
+    of the tombstone mask.
 
     BBC: codebooks over the sampled upper bounds; the summed ub histogram
     thresholds at k (tau_ub), and a lane survives iff its lower bound's
@@ -1231,7 +1261,8 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
                         4.0)
     count = k if pred_count is None else max(pred_count, k)
     probed, d2 = _local_routing(centroids, qs, n_probe)
-    lane_valid = ivf_mod.probe_mask(layout, probed, centroids.shape[0])
+    lane_valid = _live_lanes(
+        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
     ghist = None
     n_second = torch.zeros(b, dtype=torch.int32, device=qs.device)
 

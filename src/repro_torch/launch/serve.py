@@ -20,7 +20,7 @@ itself (gloo with ``--device cpu``, NCCL on cards 0..N-1 with CUDA) over a
 prints the summary.
 
 ``--mode async`` serves an open-loop request stream through the
-micro-batching subsystem (``repro_torch.serving``) on one device: a seeded
+micro-batching subsystem (``repro_torch.serving``): a seeded
 synthetic trace (``--trace poisson|bursty`` at ``--rate`` req/s, deadline
 ``--deadline-ms`` after each arrival, k drawn from ``--k-choices``) flows
 through admission control and deadline-aware batch assembly onto one
@@ -28,7 +28,9 @@ warmed engine per (k, n_probe) bucket, batches of ``--max-batch``.  The
 last line is the JAX CLI's async summary plus ``"device"``; with
 ``--check-parity`` every completed request's ids are held against a direct
 engine call and the exit code is 1 on any mismatch or when nothing was
-checked.
+checked.  With ``--shards N`` it serves the sharded engines: rank 0 runs
+the event loop and drives the other ranks in lock step
+(``serving.lockstep``), and only rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --check-parity                                 # the card
@@ -36,10 +38,10 @@ checked.
       --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
       --queries 24 --k-choices 50,120 --max-batch 4 --check-parity
 
-``--mode static`` and ``--mode async`` with every ``--method`` of the JAX
-CLI are ported; ``--mode net``, ``--tuned``, the replica tier
-(``--replicas``, ``--faults``) and sharded async serving raise, naming the
-ROADMAP item that brings them.
+``--mode static`` and ``--mode async`` (sharded or not) with every
+``--method`` of the JAX CLI are ported; ``--mode net``, ``--tuned`` and the
+replica tier (``--replicas``, ``--faults``) raise, naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ from repro_torch.core import distributed
 from repro_torch.data import synthetic
 from repro_torch.index import engine, flat, search
 from repro_torch.kernels.platform import resolve_device
-from repro_torch.serving.state import HAND_TUNED
+from repro_torch.serving import lockstep
+from repro_torch.serving.state import HAND_TUNED, ServingState
 
 METHODS = ("ivfpq", "ivfpq_bbc", "ivfrabitq", "ivfrabitq_bbc", "flat")
 RECALL_SAMPLE = 8   # queries with exact ground truth for the recall estimate
@@ -162,25 +165,41 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
                    else "cpu")}
 
 
-def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
-              dev: torch.device) -> tuple[dict, int]:
-    """The micro-batching event loop over ``repro_torch.serving``, on one
-    device: the reference's ``run_async`` without its replica tier.
-    Returns the summary and the exit code."""
-    from repro_torch.serving import batcher as sv_batcher
-    from repro_torch.serving import queue as sv_queue
-    from repro_torch.serving import server as sv_server
-    from repro_torch.serving.state import ServingState
-
+def check_async(args) -> None:
+    """The async mode's flag refusals, made before any rank starts."""
     if args.method == "flat":
         raise SystemExit("--mode async does not apply to the flat baseline")
-    tau_pred_on = args.tau_pred == "on"
-    if tau_pred_on and not args.method.endswith("bbc"):
+    if args.tau_pred == "on" and not args.method.endswith("bbc"):
         raise SystemExit("--tau-pred on requires a *_bbc method")
-    if tau_pred_on and args.check_parity:
+    if args.tau_pred == "on" and args.check_parity:
         raise SystemExit(
             "--check-parity compares against non-predictive direct calls; "
             "run it with --tau-pred off")
+
+
+def serving_state(args, index, dev: torch.device, mesh=None,
+                  leader: bool = True) -> ServingState:
+    """The async mode's ``ServingState``: on one device, or on a mesh as
+    rank 0's ``LockstepState`` (``leader``) or a following rank's state."""
+    kw = dict(use_bbc=args.method.endswith("bbc"),
+              tau_pred=args.tau_pred == "on", pred_count=args.pred_count)
+    if mesh is None:
+        return ServingState(index, device=dev, **kw)
+    if leader:
+        return lockstep.LockstepState(index, mesh=mesh, **kw)
+    return ServingState(index, mesh=mesh, **kw)
+
+
+def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
+              dev: torch.device, mesh=None) -> tuple[dict, int]:
+    """The micro-batching event loop over ``repro_torch.serving``: the
+    reference's ``run_async`` without its replica tier.  With ``mesh`` this
+    is rank 0 of the sharded deployment, driving the other ranks' engines
+    in lock step until its last engine call.  Returns the summary and the
+    exit code."""
+    from repro_torch.serving import batcher as sv_batcher
+    from repro_torch.serving import queue as sv_queue
+    from repro_torch.serving import server as sv_server
 
     n_probe = min(args.n_probe, args.n_clusters)
     ks = tuple(int(s) for s in args.k_choices.split(",")) \
@@ -190,9 +209,7 @@ def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
         rate=args.rate, deadline=args.deadline_ms / 1e3, n_probe=n_probe,
         pattern=args.trace, burst=args.burst,
         recall_target=args.recall_target)
-    state = ServingState(index, use_bbc=args.method.endswith("bbc"),
-                         tau_pred=tau_pred_on, pred_count=args.pred_count,
-                         device=dev)
+    state = serving_state(args, index, dev, mesh)
     srv = sv_server.Server(
         state, ceilings=sv_batcher.k_ceilings(ks), batch=args.max_batch,
         admission=not args.no_admission,
@@ -217,6 +234,8 @@ def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
     parity = n_checked = None
     if args.check_parity:
         parity, n_checked = sv_server.parity_vs_direct(state, outcomes)
+    if mesh is not None:
+        state.stop()
     summary.update({
         "mode": "async", "method": args.method, "trace": args.trace,
         "rate": args.rate, "deadline_ms": args.deadline_ms,
@@ -242,12 +261,13 @@ def corpus(args, dev: torch.device):
     return torch.from_numpy(x_np).to(dev), torch.from_numpy(qs_np).to(dev)
 
 
-def serve_rank(args, dev: torch.device) -> dict | None:
+def serve_rank(args, dev: torch.device) -> tuple[dict, int] | None:
     """One rank of the sharded deployment, inside an initialised process
     group: rank 0 makes the corpus and builds the index, every rank gets
     the queries and the index from rank 0 (none assumes that its own build
-    would equal rank 0's), and all serve together.  Returns rank 0's
-    summary, None elsewhere."""
+    would equal rank 0's), and all serve together (``--mode async``: rank
+    0's event loop, the others following it in lock step).  Returns rank
+    0's summary and exit code, None elsewhere."""
     rank = tdist.get_rank()
     mesh = distributed.make_mesh((args.shards,), ("model",), device=dev)
     x = payload = None
@@ -262,12 +282,27 @@ def serve_rank(args, dev: torch.device) -> dict | None:
     tdist.broadcast_object_list(box, src=0, device=dev if dev.type == "cuda"
                                 else None)
     qs, index = box[0]
+    if args.mode == "async":
+        if rank == 0:
+            return run_async(args, x, qs.to(dev), index, dev, mesh=mesh)
+        lockstep.follow(serving_state(args, index, dev, mesh, leader=False))
+        return None
     out = run_static(args, x, qs.to(dev), index, dev, mesh=mesh)
-    return out if rank == 0 else None
+    return (out, 0) if rank == 0 else None
+
+
+def _report(ranked) -> int:
+    """Print rank 0's summary; returns its exit code (0 elsewhere)."""
+    if ranked is None:
+        return 0
+    out, rc = ranked
+    print(json.dumps(out), flush=True)
+    return rc
 
 
 def _spawned(rank: int, argv: list, store: str) -> None:
-    """Entry point of a rank that ``main`` spawned for ``--shards``."""
+    """Entry point of a rank that ``main`` spawned for ``--shards``; rank 0
+    leaves its exit code in ``<store>.rc``."""
     args = parse_args(argv)
     dev = torch.device("cpu") if args.device == "cpu" else \
         torch.device("cuda", rank)
@@ -279,11 +314,12 @@ def _spawned(rank: int, argv: list, store: str) -> None:
                              init_method=f"file://{store}", rank=rank,
                              world_size=args.shards)
     try:
-        out = serve_rank(args, dev)
-        if out is not None:
-            print(json.dumps(out), flush=True)
+        rc = _report(serve_rank(args, dev))
     finally:
         tdist.destroy_process_group()
+    if rank == 0:
+        with open(store + ".rc", "w") as f:
+            f.write(str(rc))
 
 
 def parse_args(argv=None):
@@ -359,10 +395,7 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 "the replica tier (--replicas > 1, --faults) is not ported "
                 "yet (ROADMAP.md queue 1, item 12)")
-        if args.shards > 1:
-            raise NotImplementedError(
-                "sharded async serving (--shards > 1 with --mode async) is "
-                "not ported yet (ROADMAP.md queue 1, item 9b)")
+        check_async(args)
     dev = resolve_device(args.device)
 
     if args.shards > 1:
@@ -377,12 +410,9 @@ def main(argv=None) -> int:
                 torch.cuda.set_device(dev)
             tdist.init_process_group("gloo" if dev.type == "cpu" else "nccl")
             try:
-                out = serve_rank(args, dev)
-                if out is not None:
-                    print(json.dumps(out), flush=True)
+                return _report(serve_rank(args, dev))
             finally:
                 tdist.destroy_process_group()
-            return 0
         if dev.type == "cuda" and torch.cuda.device_count() < args.shards:
             raise RuntimeError(f"--shards {args.shards} needs "
                                f"{args.shards} cards, this host has "
@@ -391,9 +421,11 @@ def main(argv=None) -> int:
 
         from repro_torch.launch import serve as this
         with tempfile.TemporaryDirectory() as tmp:
-            mp.spawn(this._spawned, args=(argv, os.path.join(tmp, "store")),
-                     nprocs=args.shards, join=True)
-        return 0
+            store = os.path.join(tmp, "store")
+            mp.spawn(this._spawned, args=(argv, store), nprocs=args.shards,
+                     join=True)
+            with open(store + ".rc") as f:
+                return int(f.read())
 
     x, qs = corpus(args, dev)
     t0 = time.monotonic()

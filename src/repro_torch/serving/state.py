@@ -16,11 +16,17 @@ through each call exactly as in ``launch/serve.py --tau-pred``, one state
 per bucket.  Every engine lives on the state's device: the card unless the
 caller asks for ``device="cpu"``.
 
+``mesh`` builds every bucket engine on the sharded deployment; the state
+is then one rank's, and every rank must make the same engine calls in the
+same order (``serving.lockstep`` drives the other ranks from rank 0's
+event loop).  ``live`` is a corpus-row tombstone mask applied to every
+engine built, and ``swap`` re-points the state at a rebuilt index
+(streaming ingest), carrying or resetting each bucket's predictor by the
+drift test of ``ingest.drift``.
+
 Not ported yet, and raising with the ROADMAP.md item that brings them:
-tuned operating points (``tuned``, item 11), tombstone masks and the
-generation swap with its predictor drift carry (``live``, ``swap``, item
-10), forks with cloned engines (the replica tier's respawn, item 12) and
-the sharded engine behind the serving loop (``mesh``, item 9b).
+tuned operating points (``tuned``, item 11) and forks with cloned engines
+(the replica tier's respawn, item 12).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from repro_torch.core import rerank
 from repro_torch.index import engine as engine_mod
 from repro_torch.index import search as search_mod
+from repro_torch.ingest import drift as drift_mod
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.serving.batcher import Batch, ShapeBucket
 
@@ -48,7 +55,10 @@ class ServingState:
     ``SearchEngine.build`` per (k ceiling, n_probe); prefer ``warmup`` with
     the full bucket set at server start) and cached for the state's
     lifetime.  The index (and ``vectors``, required for the plain-IVF
-    method as in ``SearchEngine.build``) is placed on ``device`` once.
+    method as in ``SearchEngine.build``) is placed on ``device`` once; with
+    ``mesh`` (a ``distributed.ShardMesh``) the engines live on the mesh's
+    device and each keeps only this rank's block of the stream, so the
+    index stays where the caller holds it.
     """
 
     def __init__(self, index: Any, *, use_bbc: bool = True,
@@ -57,39 +67,57 @@ class ServingState:
                  device=None):
         if tuned is not None:
             raise _not_ported("tuned operating points", "item 11")
-        if mesh is not None:
-            raise _not_ported("sharded async serving", "item 9b")
         if tau_pred and not use_bbc:
             raise ValueError("tau_pred serving requires use_bbc=True")
-        self.device = resolve_device(device)
-        self.kind = engine_mod.resolve_kind(index, vectors)
-        self.index = search_mod.index_to(index, self.device)
-        self.vectors = None if vectors is None else torch.as_tensor(
-            vectors, dtype=torch.float32).to(self.device)
+        if mesh is not None and device is not None and \
+                torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.use_bbc = use_bbc
         self.tau_pred = bool(tau_pred)
         self.m = m
         self.pred_count = pred_count
-        # the reference's streaming-ingest state: a tombstone mask applied
-        # to every engine (item 10); None here
+        self._place(index, vectors)
+        # streaming-ingest state: the generation counter keys engine swaps
+        # (every bucket engine carries it), ``live`` is an optional
+        # corpus-row tombstone mask applied to every built engine, and
+        # ``drift_report`` records the last swap's per-bucket predictor
+        # carry/reset decisions
+        self.generation = 0
         self.live = None
+        self.drift_report: dict[tuple[int, int], dict] = {}
         # engines depend only on (k, n_probe): two buckets that differ only
         # in batch width share one engine
         self._engines: dict[tuple[int, int], engine_mod.SearchEngine] = {}
         self._pred: dict[ShapeBucket, rerank.PredictorState] = {}
 
+    def _place(self, index: Any, vectors) -> None:
+        self.kind = engine_mod.resolve_kind(index, vectors)
+        if vectors is not None:
+            vectors = torch.as_tensor(vectors, dtype=torch.float32)
+        if self.mesh is None:
+            index = search_mod.index_to(index, self.device)
+            vectors = None if vectors is None else vectors.to(self.device)
+        self.index = index
+        self.vectors = vectors
+
     # -- engines ------------------------------------------------------------
 
     def engine(self, bucket: ShapeBucket) -> engine_mod.SearchEngine:
-        if self.live is not None:
-            raise _not_ported("tombstone masks (live)", "item 10")
         key = (bucket.k, bucket.n_probe)
         eng = self._engines.get(key)
         if eng is None:
             eng = engine_mod.SearchEngine.build(
                 self.index, k=bucket.k, n_probe=bucket.n_probe,
                 use_bbc=self.use_bbc, m=self.m, vectors=self.vectors,
-                pred_count=self.pred_count, device=self.device)
+                pred_count=self.pred_count, mesh=self.mesh,
+                device=None if self.mesh is not None else self.device,
+                generation=self.generation)
+            if self.live is not None:
+                eng = eng.with_live(self.live)
             self._engines[key] = eng
         return eng
 
@@ -117,12 +145,50 @@ class ServingState:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    # -- not ported: streaming-ingest swap ----------------------------------
+    # -- streaming-ingest swap ----------------------------------------------
 
     def swap(self, index: Any, *, vectors=None, live=None, probe_qs=None,
-             drift_threshold: float = 0.25):
-        raise _not_ported("the generation swap and its predictor drift "
-                          "carry (swap)", "item 10")
+             drift_threshold: float = 0.25) -> dict[tuple[int, int], dict]:
+        """Generation-aware engine swap (copy-on-swap): re-point this state
+        at a rebuilt ``index`` without touching any fork serving the old
+        generation.
+
+        The engine cache is REPLACED with a fresh dict, never cleared in
+        place: forks share the cache object by reference
+        (``fork(clone_engines=False)``), so old forks keep resolving the
+        OLD generation's engines while forks taken after the swap see only
+        the new one.
+
+        ``live`` is an optional corpus-row tombstone mask for the new
+        generation (deletes that landed during the merge); ``vectors``
+        replaces the corpus for the plain-IVF method.
+
+        Predictor warmth: with ``tau_pred`` on and ``probe_qs`` given, each
+        warm bucket's EMA is tested against one probe batch through the NEW
+        engine (``ingest.drift``): carried when the bucket-histogram
+        distribution shifted by at most ``drift_threshold`` (total
+        variation), cold-reset otherwise.  Returns (and stores as
+        ``drift_report``) ``{(k, n_probe): {"tv": .., "carried": ..}}``.
+        """
+        self._place(index, self.vectors if vectors is None else vectors)
+        self.live = live
+        self.generation += 1
+        old_pred = self._pred
+        self._engines = {}                      # copy-on-swap: NEW dict
+        self._pred = {}
+        report: dict[tuple[int, int], dict] = {}
+        if self.tau_pred and probe_qs is not None and old_pred:
+            qs = torch.as_tensor(probe_qs, dtype=torch.float32).to(
+                self.device)
+            for bucket, state in old_pred.items():
+                fresh = drift_mod.probe_histogram(self.engine(bucket), qs)
+                kept, tv, carried = drift_mod.carry_state(
+                    state, fresh, drift_threshold)
+                self._pred[bucket] = kept
+                report[(bucket.k, bucket.n_probe)] = {
+                    "tv": tv, "carried": carried}
+        self.drift_report = report
+        return report
 
     # -- replica hook -------------------------------------------------------
 

@@ -128,10 +128,11 @@ def _assert_single_same(jr, tr):
 
 @pytest.mark.parametrize("call", ["single", "mesh", "tuned", "live", "ivf"])
 def test_engine_unported_paths_raise(setup, call, tmp_path):
-    """What the engine still refuses (tuned points, tombstones) raises
-    naming its ROADMAP item; single-query search, once refused here, is
-    ported: on the single-device engine (``single``, ``ivf``) and on the
-    sharded one (``mesh``) it answers as the JAX engine's single call."""
+    """What the engine still refuses (tuned points) raises naming its
+    ROADMAP item; single-query search and tombstones (``live``), once
+    refused here, are ported: on the single-device engine (``single``,
+    ``ivf``) and on the sharded one (``mesh``) a single query answers as
+    the JAX engine's single call, and an all-live mask changes nothing."""
     ji, _, ti, _, qs = setup
     if call == "ivf":
         # the IVF strategy is ported; it needs the corpus vectors
@@ -149,16 +150,17 @@ def test_engine_unported_paths_raise(setup, call, tmp_path):
                                       tuned=object())
         return
     if call == "mesh":
-        # the sharded engine is ported; what it still refuses is the
-        # single-device engine's unported paths
+        # the sharded engine is ported, tombstones included: an all-live
+        # mask places this rank's block and changes no result
         tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
                                  rank=0, world_size=1)
         try:
             eng = engine.SearchEngine.build(
                 ti, k=K, n_probe=4, mesh=distributed.make_mesh((1,)))
             assert eng.mesh is not None and eng.layout is None
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                eng.with_live(np.ones(N, bool))
+            live = eng.with_live(np.ones(N, bool))
+            assert live.live.shape == eng.shard_layout.order.shape
+            assert torch.equal(live.search(qs[:2]).ids, eng.search(qs[:2]).ids)
             # a single query is the sharded engine's singleton batch
             res = eng.search(qs[0])
             want = eng.search(qs[:1])
@@ -176,9 +178,12 @@ def test_engine_unported_paths_raise(setup, call, tmp_path):
         je = jengine.SearchEngine.build(ji, k=K, n_probe=N_PROBE)
         _assert_single_same(je.search(jnp.asarray(qs[0])), eng.search(qs[0]))
         return
+    # tombstones are ported (ROADMAP.md item 10): an all-live mask serves
+    # the frozen engine's results
     eng = engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.with_live(np.ones(N, bool))
+    live = eng.with_live(np.ones(N, bool))
+    assert live.live.shape == (setup[3].n_flat,)
+    assert torch.equal(live.search(qs[:B]).ids, eng.search(qs[:B]).ids)
 
 
 def test_serve_cli_cpu(capsys):
@@ -195,7 +200,8 @@ def test_serve_cli_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mode", "async", "--replicas", "2"],
-                                  ["--shards", "2", "--mode", "async"],
+                                  ["--mode", "async", "--faults",
+                                   "crash@1:t=0.5"],
                                   ["--mode", "net"], ["--tuned", "auto"]])
 def test_serve_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

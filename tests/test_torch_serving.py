@@ -433,19 +433,41 @@ def test_engine_warmup_serves_the_bucket_shape(data):
                                        ("live", "item 10"),
                                        ("fork", "item 12")])
 def test_unported_state_paths_raise(data, what, item):
-    if what in ("tuned", "mesh"):
+    """What is still unported raises naming its item (tuned: 11, cloned
+    forks: 12); the sharded state (9b), the swap and the tombstone mask
+    (10) are ported and must no longer raise."""
+    bucket = bt.bucket_of(50, N_PROBE, CEILS, BATCH)
+    if what == "tuned":
         with pytest.raises(NotImplementedError, match=item):
-            ServingState(data["tpq"], device="cpu", **{what: object()})
+            ServingState(data["tpq"], device="cpu", tuned=object())
+        return
+    if what == "fork":
+        with pytest.raises(NotImplementedError, match=item):
+            ServingState(data["tpq"], device="cpu").fork(clone_engines=True)
+        return
+    if what == "mesh":
+        import tempfile
+
+        import torch.distributed as tdist
+        from repro_torch.core import distributed
+        with tempfile.TemporaryDirectory() as tmp:
+            tdist.init_process_group("gloo", init_method=f"file://{tmp}/s",
+                                     rank=0, world_size=1)
+            try:
+                state = ServingState(data["tpq"],
+                                     mesh=distributed.make_mesh((1,)))
+                assert state.engine(bucket).mesh is state.mesh
+            finally:
+                tdist.destroy_process_group()
         return
     state = ServingState(data["tpq"], device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "swap":
-            state.swap(data["tpq"])
-        elif what == "live":
-            state.live = torch.ones(N, dtype=torch.bool)
-            state.engine(bt.bucket_of(50, N_PROBE, CEILS, BATCH))
-        else:
-            state.fork(clone_engines=True)
+    if what == "swap":
+        state.swap(data["tpq"])
+        assert state.generation == 1
+        assert state.engine(bucket).generation == 1
+    else:
+        state.live = torch.ones(N, dtype=torch.bool)
+        assert state.engine(bucket).live is not None
 
 
 # ---------------------------- the CLI ---------------------------------------
@@ -471,7 +493,7 @@ def test_cli_async_checks_parity(capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--replicas", "2"], NotImplementedError, "item 12"),
     (["--faults", "crash@1:t=0.5"], NotImplementedError, "item 12"),
-    (["--shards", "2"], NotImplementedError, "item 9b"),
+    (["--shards", "2", "--replicas", "2"], NotImplementedError, "item 12"),
     (["--tau-pred", "on", "--check-parity"], SystemExit, "tau-pred"),
     (["--method", "flat"], SystemExit, "flat")])
 def test_cli_async_refusals(argv, exc, match):

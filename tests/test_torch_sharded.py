@@ -153,12 +153,14 @@ def test_sharded_naive_matches_reference(data, meshes, kind):
 
 
 def test_sharded_engine_refuses_what_is_not_ported(data, meshes):
-    """Tombstones and a device the mesh cannot carry are refused; a single
-    query, once refused here, is ported: the sharded engine serves it as a
-    singleton batch, as the JAX mesh engine's single call does."""
+    """Tombstones and a single query, once refused here, are ported: the
+    sharded engine takes the JAX mesh engine's mask (an all-live one
+    changes nothing) and serves a single query as a singleton batch, as
+    the JAX mesh engine's single call does."""
     je, te = _engines(data, meshes, "pq")
-    with pytest.raises(NotImplementedError):
-        te.with_live(np.ones(N, bool))
+    q8 = data["qs"][:B]
+    _assert_same(je.with_live(np.ones(N, bool)).search(jnp.asarray(q8)),
+                 te.with_live(np.ones(N, bool)).search(q8))
     q = data["qs"][0]
     jr, tr = je.search(jnp.asarray(q)), te.search(q)
     assert tr.ids.shape == (K,)
