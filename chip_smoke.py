@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-14
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-16
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 7, 8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 7,
+8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -90,6 +91,25 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 7, 8, 10):
      before, while sealed and after), deleted ids surfaced (0), seconds of
      the build, checkpoint write and verify and the rebuild; the same
      schedule merged without a crash must return the same bits;
+ 15. the replica tier: ``serve --mode async --replicas 4`` at the JAX
+     serving CLI's defaults with ``--check-parity`` and the fault schedule
+     ``crash@1:t=0.1;corrupt@2:t=0.05,dur=0.2;slow@3:t=0.0,dur=1.0,
+     factor=4`` (conserved, parity 1.0 over more than 0 requests, a
+     respawn), then the same with ``--max-wait-ms 40`` (its batches start
+     inside the corrupt window: a corrupt response detected and retried);
+     twice through the library with a fixed service model on the
+     serve-default index, tau predictor on, predictor checkpoints in a
+     temporary directory (equal outcome digests, the respawned replica's
+     predictors equal to its latest verified checkpoint); and on phase 5's
+     index on the card and on the CPU (equal digests);
+ 16. constrained tuning: ``autotune.tune_cell`` on phase 4's index (k=5000)
+     with 32 held-out queries, exact ground truth on the card, targets
+     0.95/0.9/0.8, the reference's grid, rounds=2, n_starts=2: each
+     sample's knobs, recall, cost units and ms, each point's feasibility
+     (a feasible point meets its target), a ``timed=False`` re-sweep equal
+     byte for byte, the store saved to a temporary file and reloaded
+     resolving the 0.95 point through ``SearchEngine.build(tuned=)``, and
+     the tuned and hand-default engines' ms per batch on phase 4's queries;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments) and
      over single IVF+PQ+BBC queries (phase 12):
@@ -99,10 +119,10 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 7, 8, 10):
      the band lanes' lower-bound buckets lie.
 
 Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
-of its two runs) and 14 (its searches with the segments) and read after
-each; comparison and timing launches do not count.  A launch of
-the PQ, l2, bucket or fused kernel at one query counts under its
-single-query row.  Any failed check raises and
+of its two runs), 14 (its searches with the segments), 15 (each of its
+runs on the card) and 16 (the timed sweep) and read after each;
+comparison and timing launches do not count.  A launch of the PQ, l2,
+bucket or fused kernel at one query counts under its single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
 before doing anything.  The second-to-last lines are the launch counts,
 the card's ``nvidia-smi`` name and power limit, and a JSON list of kernels;
@@ -1932,6 +1952,293 @@ def ingest_path(summary: dict, card: str, x, qs, prof: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the replica tier on the card
+# --------------------------------------------------------------------------
+
+REPLICA_FAULTS = ("crash@1:t=0.1;corrupt@2:t=0.05,dur=0.2;"
+                  "slow@3:t=0.0,dur=1.0,factor=4")
+REPLICA_ARGS = ASYNC_ARGS + ["--replicas", "4", "--faults", REPLICA_FAULTS]
+# the twin runs' fixed service model (seconds a batch) and batching cap
+REPLICA_SVC, REPLICA_MAX_WAIT = 0.015, 0.04
+
+
+def _replica_cli(summary: dict, card: str, key: str, tag: str,
+                 extra: list) -> dict:
+    """``serve --mode async --replicas 4 --faults ...`` through its entry
+    point, held to the async bars (parity 1.0 over more than 0 requests,
+    conserved) and a respawn; returns the summary's fault stats."""
+    from repro_torch.launch import serve
+    launches = _async_run(summary, card, key, tag,
+                          f"serve --mode async --replicas 4 {extra}",
+                          lambda: serve.main(REPLICA_ARGS + extra))
+    out = summary[key]
+    stats = out["fault_stats"]
+    check(out["replicas"] == 4 and out["faults"] == REPLICA_FAULTS,
+          f"{tag}: the summary names another tier")
+    check(stats["respawns"] >= 1, f"{tag}: no respawn ({stats})")
+    log(f"[{tag}] fault stats {stats}; retried {out['retried']}, hedged "
+        f"{out['hedged']}, failed {out['failed']}; digest "
+        f"{out['outcome_digest']}; {card}")
+    return launches
+
+
+def _replica_twin(state, trace_args, ks, ckpt_dir=None):
+    """One library run of the tier with the fixed service model: the
+    ``ReplicaServer`` the CLI builds, over ``state``, on the CLI's seeded
+    trace and the phase's schedule, batches capped at 40 ms so that they
+    start inside the corrupt window.  Returns (server, outcomes, the
+    respawns' restores)."""
+    import numpy as np
+    from repro_torch.serving import batcher as bt
+    from repro_torch.serving import faults as flt
+    from repro_torch.serving import queue as rq
+    from repro_torch.serving.router import ReplicaServer
+    qs, n_probe = trace_args
+    trace = rq.make_trace(np.random.default_rng(SEED), qs, ks, rate=200.0,
+                          deadline=0.5, n_probe=n_probe,
+                          recall_target=0.95)
+    srv = ReplicaServer(state, 4, ceilings=bt.k_ceilings(ks), batch=16,
+                        faults=flt.FaultSchedule.parse(REPLICA_FAULTS),
+                        service_time_fn=lambda b: REPLICA_SVC,
+                        max_wait=REPLICA_MAX_WAIT, hb_interval=0.02,
+                        respawn_delay=0.05, checkpoint_dir=ckpt_dir,
+                        checkpoint_every=1)
+    restores = []
+    respawn = srv.pool.respawn
+
+    def recorded(rid, now):
+        # what the respawn must restore: the latest checkpoint, verified
+        mgr = srv.pool._manager(rid)
+        step = None if mgr is None else mgr.latest_step()
+        rep = respawn(rid, now)
+        restores.append((rid, step, mgr, dict(rep.state._pred)))
+        return rep
+
+    srv.pool.respawn = recorded
+    return srv, srv.run_trace(trace), restores
+
+
+def replica_tier(summary: dict, card: str) -> dict:
+    """Phase 15: the replica tier on the card.  (a) ``serve --mode async
+    --replicas 4`` at the JAX CLI's defaults with the phase's fault
+    schedule and ``--check-parity``; (b) the same with ``--max-wait-ms 40``,
+    whose batches start inside the corrupt window; (c) twice through the
+    library with the fixed service model on the serve-default index, tau
+    predictor on and predictor checkpoints in a temporary directory: equal
+    digests, a detected corruption, a respawn restoring the latest
+    verified checkpoint bit for bit; (d) the same run on phase 5's index
+    on the card and on the CPU: equal digests.  Returns the launches of
+    every run."""
+    import torch
+    from repro_torch.core import rerank
+    from repro_torch.index import search
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import server as sv
+    from repro_torch.serving.replica import _pred_key
+    from repro_torch.serving.router import outcome_digest
+    from repro_torch.serving.state import ServingState
+    launches = _replica_cli(summary, card, "replica", "replica", [])
+    out = summary["replica"]
+    log(f"[replica] at the defaults every batch waits for its slack: "
+        f"{out['fault_stats']['corrupt_detected']} corrupt responses in "
+        f"the window t=0.05-0.25 s")
+    more = _replica_cli(summary, card, "replica_max_wait",
+                        "replica-max-wait", ["--max-wait-ms", "40"])
+    launches = {k: launches[k] + more[k] for k in launches}
+    stats = summary["replica_max_wait"]["fault_stats"]
+    check(stats["corrupt_detected"] >= 1 and stats["retries_sent"] >= 1,
+          f"replica-max-wait: no corrupt response detected and retried "
+          f"({stats})")
+
+    # (c) twin library runs on the serve-default index, predictor on
+    args = serve.parse_args([])
+    x, qs = serve.corpus(args, torch.device(DEV))
+    index = serve.build_index(args.method, x, args.n_clusters, args.seed,
+                              torch.device(DEV))
+    trace_args = (qs.cpu().numpy(), 64)
+    digests, twin = [], {}
+    for run in range(2):
+        state = ServingState(index, tau_pred=True, device=DEV)
+        ops.reset_launches()
+        t0 = time.monotonic()
+        srv, outcomes, restores = _replica_twin(
+            state, trace_args, (5000,),
+            ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_replica_"))
+        wall = time.monotonic() - t0
+        got = dict(ops.LAUNCHES)
+        launches = {k: launches[k] + got[k] for k in launches}
+        s = sv.summarize(outcomes)
+        check(s["conserved"] and s["requests"] == 64,
+              f"replica twin {run}: lost requests")
+        check(srv.stats["corrupt_detected"] >= 1 and
+              srv.stats["respawns"] >= 1,
+              f"replica twin {run}: stats {srv.stats}")
+        check(restores, f"replica twin {run}: no respawn recorded")
+        for rid, step, mgr, pred in restores:
+            check(step is not None and pred,
+                  f"replica twin {run}: replica {rid} respawned with no "
+                  f"checkpoint to restore")
+            mgr.verify(step)
+            like = {_pred_key(b): rerank.predictor_init(128, DEV)
+                    for b in pred}
+            tree, _ = mgr.restore(like, step)
+            for b, st in pred.items():
+                want = tree[_pred_key(b)]
+                check(torch.equal(st.ema, want.ema) and
+                      torch.equal(st.weight, want.weight),
+                      f"replica twin {run}: replica {rid}'s restored "
+                      f"predictor differs from checkpoint {step}")
+        digests.append(outcome_digest(outcomes))
+        twin = {"summary": {k: s[k] for k in (
+            "requests", "completed", "failed", "retried", "hedged",
+            "p50_ms", "p99_ms", "deadline_met_rate")},
+            "fault_stats": dict(sorted(srv.stats.items())),
+            "restored": [[rid, step, len(pred)]
+                         for rid, step, _, pred in restores],
+            "wall_s": wall, "launches": {k: v for k, v in got.items() if v}}
+    check(digests[0] == digests[1], f"replica twin digests differ: "
+          f"{digests}")
+    twin["digest"] = digests[0]
+    summary["replica_twin"] = twin
+    log(f"[replica-twin] fixed service {REPLICA_SVC * 1e3:.0f} ms, batches "
+        f"capped at {REPLICA_MAX_WAIT * 1e3:.0f} ms, tau predictor on: "
+        f"digests equal over two card runs ({digests[0]}); p50 "
+        f"{twin['summary']['p50_ms']} ms, p99 {twin['summary']['p99_ms']} "
+        f"ms (model time); stats {twin['fault_stats']}; restored from "
+        f"verified checkpoints (replica, step, buckets) {twin['restored']}; "
+        f"launches {twin['launches']}; {card}")
+
+    # (d) phase 5's index on the card and on the CPU
+    x5, qs5 = corpus(20_000, 128, 64, seed=SEED + 1)
+    pq5 = search.build_pq_index(x5, 128, seed=SEED, device=DEV)
+    dev_digests = {}
+    for dev, ix in ((DEV, pq5), ("cpu", search.index_to(pq5, "cpu"))):
+        ops.reset_launches()
+        srv, outcomes, _ = _replica_twin(
+            ServingState(ix, device=dev), (qs5.cpu().numpy(), 16), (1000,))
+        got = dict(ops.LAUNCHES)
+        if dev == DEV:
+            launches = {k: launches[k] + got[k] for k in launches}
+        check(sv.summarize(outcomes)["conserved"],
+              f"replica on phase 5's index ({dev}): lost requests")
+        dev_digests[dev] = outcome_digest(outcomes)
+    check(dev_digests[DEV] == dev_digests["cpu"],
+          f"replica digests differ between the card and the CPU: "
+          f"{dev_digests}")
+    summary["replica_cpu_card"] = dev_digests
+    log(f"[replica-parity] phase 5's index (20,000 x 128, k=1000, "
+        f"n_probe=16): the card's digest equals the CPU's "
+        f"({dev_digests[DEV]}); {card}")
+    summary["replica_launches"] = {k: v for k, v in launches.items() if v}
+    log(f"[replica] launches over the phase's runs on the card "
+        f"{summary['replica_launches']}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 16: constrained tuning on the card
+# --------------------------------------------------------------------------
+
+def tuning_path(summary: dict, card: str, eng, x, qs) -> dict:
+    """Phase 16: ``autotune.tune_cell`` on phase 4's IVF+PQ index (k=5000)
+    with 32 held-out queries of the corpus's mixture and exact ground truth
+    on the card, targets (0.95, 0.9, 0.8), the reference's grid, rounds=2,
+    n_starts=2; a ``timed=False`` re-sweep must serialise byte-identically;
+    the store, saved to a temporary file and reloaded, must resolve the
+    0.95 point through ``SearchEngine.build(tuned=)``.  Then the tuned and
+    the hand-default engines on phase 4's 64 queries.  Returns the
+    launches of the sweep."""
+    import numpy as np
+    import torch
+    from repro_torch.index import engine
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import autotune, measure
+    from repro_torch.tuning import points as tp
+    from repro_torch.data import synthetic
+    k = 5000
+    x_np = x.cpu().numpy()
+    held = synthetic.queries_from(np.random.default_rng(SEED + 16), x_np, 32)
+    t0 = time.monotonic()
+    gt = measure.ground_truth_ids(x, held, k)
+    gt_s = time.monotonic() - t0
+    fp = tp.corpus_fingerprint(x_np)
+    del x_np
+    corpus_meta = {"kind": "clustered", "fingerprint": fp}
+    ops.reset_launches()
+    t0 = time.monotonic()
+    tuned = autotune.tune_cell(eng.index, k, held, gt, corpus=corpus_meta,
+                               device=DEV)
+    sweep_s = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    again = autotune.tune_cell(eng.index, k, held, gt, corpus=corpus_meta,
+                               timed=False, device=DEV)
+    canon = tp.canonical_json(tuned["points"])
+    check(canon == tp.canonical_json(again["points"]),
+          "the timed=False re-sweep serialises differently")
+    for p in tuned["points"]:
+        check(not p.feasible or p.recall >= p.recall_target,
+              f"feasible point {p.name} below its target: {p.recall}")
+    rows = [{"knobs": s.knobs.key(), "recall": s.recall,
+             "cost_units": s.cost_units,
+             "wall_ms": None if s.wall_s is None else s.wall_s * 1e3}
+            for s in tuned["samples"]]
+    for r in rows:
+        log(f"[tune] {r['knobs']}: recall {r['recall']}, cost "
+            f"{r['cost_units']}, {r['wall_ms']:.3f} ms per batch of 32 "
+            f"(predictive)")
+    wall = {r["knobs"]: r["wall_ms"] for r in rows}
+    points = [{"target": p.recall_target, "knobs": p.knobs.key(),
+               "recall": p.recall, "feasible": p.feasible,
+               "cost_units": p.cost_units, "wall_ms": wall[p.knobs.key()]}
+              for p in tuned["points"]]
+    for p in points:
+        log(f"[tune] point @{p['target']}: {p['knobs']}, recall "
+            f"{p['recall']}, feasible {p['feasible']}, cost "
+            f"{p['cost_units']}, {p['wall_ms']:.3f} ms per batch of 32")
+    default = tuned["default"]
+    log(f"[tune] hand default {default.knobs.key()}: recall "
+        f"{default.recall}, cost {default.cost_units}, "
+        f"{default.wall_s * 1e3:.3f} ms per batch of 32 (predictive)")
+
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_")) / "points.json"
+    tp.PointStore(tuned["points"]).save(str(path))
+    store = tp.PointStore.load(str(path))
+    check(tp.canonical_json(store.points) == canon, "store round trip")
+    best = next(p for p in tuned["points"] if p.recall_target == 0.95)
+    t_eng = engine.SearchEngine.build(eng.index, k=k, tuned=store,
+                                      recall_target=0.95, device=DEV)
+    check(t_eng.tuned_from == f"{best.name} (tuned)",
+          f"tuned_from {t_eng.tuned_from}, want {best.name}")
+    check(t_eng.n_probe == best.knobs.n_probe and
+          (best.knobs.n_cand is None or t_eng.n_cand == best.knobs.n_cand),
+          "the store's point did not set the engine's knobs")
+    batches = [qs[i:i + 32] for i in range(0, 64, 32)]
+    for e in (t_eng, eng):
+        e.warmup((32,))
+    _, tuned_ms = timed_batches(t_eng.search, batches)
+    _, hand_ms = timed_batches(eng.search, batches)
+    out = {"held_out": 32, "k": k, "ground_truth_s": gt_s,
+           "sweep_s": sweep_s, "samples": rows, "points": points,
+           "default": {"knobs": default.knobs.key(),
+                       "recall": default.recall,
+                       "cost_units": default.cost_units,
+                       "wall_ms": default.wall_s * 1e3},
+           "cost_model": tuned["cost_model"],
+           "tuned_from": t_eng.tuned_from,
+           "tuned_ms_per_batch": tuned_ms, "hand_ms_per_batch": hand_ms,
+           "launches": {k_: v for k_, v in launches.items() if v},
+           "card": card}
+    summary["tuning"] = out
+    log(f"[tune] {len(rows)} configurations in {sweep_s:.1f}s (ground truth "
+        f"{gt_s:.1f}s); the 0.95 point resolves as {t_eng.tuned_from}; static "
+        f"ms per batch of 32 on phase 4's queries: tuned {tuned_ms}, hand "
+        f"default {hand_ms}; cost model {tuned['cost_model']}; launches "
+        f"{out['launches']}; {card}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh-sharded deployment
 # --------------------------------------------------------------------------
 
@@ -2641,9 +2948,9 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13,14,15,16",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-14; 8 = torch.profiler over the batches of "
+                         "11-16; 8 = torch.profiler over the batches of "
                          "4, 9 and 11 and the queries of 12; 10 = phase 9's "
                          "band anatomy)")
     ap.add_argument("--out", default="",
@@ -2748,6 +3055,13 @@ def main(argv=None) -> int:
         check(eng is not None, "phase 14 takes phase 4's corpus and needs it")
         l14 = ingest_path(summary, card, x, main_queries, prof=8 in phases)
         launches = {k: launches[k] + l14[k] for k in launches}
+    if 15 in phases:
+        l15 = replica_tier(summary, card)
+        launches = {k: launches[k] + l15[k] for k in launches}
+    if 16 in phases:
+        check(eng is not None, "phase 16 tunes phase 4's index and needs it")
+        l16 = tuning_path(summary, card, eng, x, main_queries)
+        launches = {k: launches[k] + l16[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
@@ -2787,7 +3101,7 @@ def main(argv=None) -> int:
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],
                                                rq_state)
         log(f"[band] {json.dumps(summary['band_anatomy'])}")
-    if {4, 6, 9, 11, 12, 13, 14} <= phases:
+    if {4, 6, 9, 11, 12, 13, 14, 15, 16} <= phases:
         for k, v in launches.items():
             check(v > 0, f"kernel {k} never launched on the paths")
 

@@ -33,10 +33,14 @@ Deletes are a tombstone mask, not a rebuild: ``eng.with_live(corpus_live)``
 returns an engine whose searchers AND the mask (permuted once into stream
 order, this rank's block on a mesh) into their lane masks, so a dead row
 is an unprobed lane.  The mask is a tensor input of every call; flipping
-tombstones touches neither the layout nor the quantized streams.  What
-the JAX engine also does (tuned operating points) raises
-``NotImplementedError`` naming the ROADMAP item that brings it: no request
-is quietly served through another path.
+tombstones touches neither the layout nor the quantized streams.
+
+Knobs may come from the constrained tuner's operating points:
+``SearchEngine.build(index, k, tuned=store)`` fills every knob the caller
+left unset from the point ``store`` resolves for (method, k,
+``recall_target``), re-clamped to this k and this index, and records the
+point in ``tuned_from``.  ``replica_clone()`` is a new engine object over
+the same tensors (the replica tier's respawn).
 """
 from __future__ import annotations
 
@@ -53,12 +57,6 @@ from repro_torch.index import ivf as ivf_mod
 from repro_torch.index import pq as pq_mod
 from repro_torch.index import search as search_mod
 from repro_torch.kernels.platform import resolve_device
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"{item})")
 
 
 class _IvfStrategy:
@@ -230,6 +228,10 @@ class SearchEngine:
     live: torch.Tensor | None = None
     # streaming-ingest generation of the index this engine serves
     generation: int = 0
+    # provenance of the knob values: the tuned OperatingPoint name that
+    # filled caller-unset knobs at build time, or None for hand defaults
+    # ("hand-tuned fallback" in serving summaries)
+    tuned_from: str | None = None
 
     @property
     def strategy(self):
@@ -241,11 +243,19 @@ class SearchEngine:
               pred_count: int | None = None, fused: bool | None = None,
               device=None, vectors=None, mesh=None,
               shard_budget: int | None = None, tuned=None,
+              recall_target: float = 0.95,
               generation: int = 0) -> "SearchEngine":
         """Place ``index`` (and ``vectors``, for an ``IVFIndex``) on
         ``device`` (the card unless ``device="cpu"``) and resolve the knobs
         from the method's defaults; then n_probe, n_cand and pred_count are
         clamped to what this index can give.
+
+        ``tuned`` (a ``tuning.points.PointStore``, resolved at this
+        method, ``k`` and ``recall_target``, or one ``OperatingPoint``)
+        fills the knobs the caller left unset before the defaults do;
+        explicit arguments always win.  Pools tuned at another k are
+        re-clamped onto this k (k <= pred_count <= n_cand).  Without a
+        point, ``n_probe`` is required.
 
         With ``mesh`` (a ``distributed.ShardMesh``; every rank builds
         together) the engine keeps only this rank's shard of the stream, on
@@ -257,11 +267,30 @@ class SearchEngine:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
         dev = resolve_device(device)
-        if tuned is not None:
-            raise _not_ported("tuned operating points", "item 11")
-        if n_probe is None:
-            raise ValueError("n_probe is required")
         strategy, _ = _resolve_strategy(index, vectors)
+        tuned_from = None
+        if tuned is not None:
+            from repro_torch.tuning import points as tuning_points
+            if isinstance(tuned, tuning_points.OperatingPoint):
+                point, provenance = tuned, "tuned"
+            else:
+                point, provenance = tuned.resolve(
+                    strategy.kind, k, target=recall_target)
+            if point is not None:
+                cfg = point.knobs
+                n_probe = cfg.n_probe if n_probe is None else n_probe
+                if n_cand is None and cfg.n_cand is not None:
+                    n_cand = max(cfg.n_cand, k)
+                if pred_count is None and cfg.pred_count is not None:
+                    pred_count = max(cfg.pred_count, k)
+                    if n_cand is not None:
+                        pred_count = min(pred_count, n_cand)
+                fused = cfg.fused if fused is None else fused
+                tuned_from = f"{point.name} ({provenance})"
+        if n_probe is None:
+            raise ValueError(
+                "n_probe is required when no tuned operating point "
+                "covers this (method, k) cell")
         if mesh is None:
             index = search_mod.index_to(index, dev)
         if vectors is not None:
@@ -286,6 +315,7 @@ class SearchEngine:
                 pred_count=pred_count, fused=fused, vectors=vectors,
                 device=dev, mesh=mesh, shard_layout=local, cap_shard=cap_shard,
                 shard_budget=shard_budget, generation=generation,
+                tuned_from=tuned_from,
                 shard_streams=strategy.shard_streams(index, vectors, local,
                                                      dev))
         layout = ivf_mod.flat_layout(ivf)
@@ -295,7 +325,8 @@ class SearchEngine:
                             k=k, n_probe=n_probe, n_cand=n_cand,
                             use_bbc=use_bbc, m=m, pred_count=pred_count,
                             fused=fused, vectors=vectors, stream=stream,
-                            device=dev, generation=generation)
+                            device=dev, generation=generation,
+                            tuned_from=tuned_from)
 
     def predictor_init(self) -> rerank.PredictorState:
         """Cold cross-batch threshold-predictor state for this engine."""
@@ -323,6 +354,14 @@ class SearchEngine:
         pos = order.clamp(0, corpus_live.shape[0] - 1)
         live = corpus_live.to(order.device)[pos].to(self.device)
         return dataclasses.replace(self, live=live)
+
+    def replica_clone(self) -> "SearchEngine":
+        """A new engine object over the very same tensors (the layout, the
+        RaBitQ stream, this rank's shard streams, the tombstone mask):
+        nothing is copied or moved.  The replica tier's respawn builds its
+        fresh state from these (``ServingState.fork(clone_engines=True)``);
+        the engine is immutable, so sharing is safe."""
+        return dataclasses.replace(self)
 
     @property
     def dim(self) -> int:

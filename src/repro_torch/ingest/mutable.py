@@ -25,6 +25,8 @@ mesh's on a sharded deployment, where every rank runs the same calls).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import math
 from dataclasses import dataclass
 
@@ -62,8 +64,12 @@ class MutableIndex:
     ``kind`` picks the base method ("ivf" | "ivfpq" | "ivfrabitq"); the
     engine-build knobs (``n_probe``/``n_cand``/...) are captured once and
     re-used by every generation rebuild.  ``mesh`` switches the base AND
-    the delta scans to the sharded deployment.  Tuned operating points are
-    not ported yet (``tuned`` raises, ROADMAP.md queue 1, item 11).
+    the delta scans to the sharded deployment.  ``tuned`` (a
+    ``tuning.points.PointStore`` or one ``OperatingPoint``) fills the knobs
+    left unset; a store is resolved at every generation's build with the
+    corpus fingerprint and the churn share, so a point measured before
+    the churn is flagged in ``engine.tuned_from``, never a silent stale
+    hit.
     """
 
     def __init__(self, vectors, kind: str = "ivfpq", *, k: int,
@@ -74,8 +80,6 @@ class MutableIndex:
                  tuned=None, recall_target: float = 0.95,
                  config: IngestConfig | None = None, seed: int = 0,
                  device=None):
-        if tuned is not None:
-            raise engine_mod._not_ported("tuned operating points", "item 11")
         if kind not in ("ivf", "ivfpq", "ivfrabitq"):
             raise ValueError(f"unknown kind: {kind!r}")
         if isinstance(vectors, torch.Tensor):
@@ -91,6 +95,7 @@ class MutableIndex:
         self.n_clusters = n_clusters or max(
             4, int(round(math.sqrt(len(vectors)))))
         self._recall_target = recall_target
+        self._tuned = tuned
         self._build_kw = dict(
             n_probe=n_probe, n_cand=n_cand, use_bbc=use_bbc, m=m, mesh=mesh,
             shard_budget=shard_budget, pred_count=pred_count, fused=fused)
@@ -125,14 +130,31 @@ class MutableIndex:
     def build_engine(self, x: np.ndarray, generation: int):
         """Re-cluster/re-quantize ``x`` into a generation-``generation``
         engine (the merge job's off-serving-path rebuild; also the initial
-        build)."""
+        build).  Tuned-point resolution passes the CURRENT churn fraction
+        as ``drift`` so a point solved on the pre-churn corpus is flagged
+        (never a silent stale hit): ``tuned_from`` carries the drifted
+        provenance onto the engine."""
         index = self._build_index(x, generation)
         kw = dict(self._build_kw)
         if self.kind == "ivf":
             kw["vectors"] = torch.from_numpy(x)
-        return engine_mod.SearchEngine.build(
-            index, self.k, generation=generation,
+        tuned, tuned_from = self._tuned, None
+        if tuned is not None and hasattr(tuned, "resolve"):
+            from repro_torch.tuning import points as tpoints
+            point, prov = tuned.resolve(
+                self.kind, self.k, target=self._recall_target,
+                corpus_fp=tpoints.corpus_fingerprint(x),
+                drift=self.churn_fraction())
+            tuned = point
+            if point is not None:
+                tuned_from = f"{point.name} ({prov})"
+        eng = engine_mod.SearchEngine.build(
+            index, self.k, tuned=tuned, recall_target=self._recall_target,
+            generation=generation,
             device=None if self.mesh is not None else self.device, **kw)
+        if tuned_from is not None:
+            eng = dataclasses.replace(eng, tuned_from=tuned_from)
+        return eng
 
     def _set_rows(self, x: np.ndarray, ids: np.ndarray,
                   live: np.ndarray) -> None:

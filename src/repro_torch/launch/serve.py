@@ -38,10 +38,32 @@ the event loop and drives the other ranks in lock step
       --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
       --queries 24 --k-choices 50,120 --max-batch 4 --check-parity
 
-``--mode static`` and ``--mode async`` (sharded or not) with every
-``--method`` of the JAX CLI are ported; ``--mode net``, ``--tuned`` and the
-replica tier (``--replicas``, ``--faults``) raise, naming the ROADMAP item
-that brings them.
+``--replicas N`` (N > 1, async mode) serves the trace through the
+fault-tolerant replica tier (``serving.router.ReplicaServer``): N replicas
+over the shared engines, affinity routing, health checks (``--hb-ms``),
+retries (``--retries``), hedged sends (``--hedge``) and supervisor respawn
+(``--respawn-ms``); ``--faults`` injects a deterministic fault schedule at
+the replicas' service boundary (it requires ``--replicas > 1``), and the
+summary gains ``replicas``, ``faults``, ``outcome_digest`` and
+``fault_stats``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
+      --queries 24 --k-choices 50,120 --max-batch 4 --replicas 3 \
+      --faults 'crash@1:t=0.05' --check-parity
+
+``--tuned auto`` (the default, as in the JAX CLI) fills the knobs the
+command line leaves unset from the port's own point store
+(``tuned_points_torch.json`` at the repo root, or
+``$REPRO_TORCH_TUNED_POINTS``) when it holds a point for the method; a
+path reads that store instead (the JAX package's ``tuned_points.json``
+too); ``off`` keeps the hand defaults.  The summary names the operating
+point (or ``hand-tuned fallback``) of each engine, and the replica tier's
+degrade ladder walks the store's recall/cost frontier.
+
+``--mode static`` and ``--mode async`` with every ``--method`` and flag of
+the JAX CLI are ported, except ``--mode net`` (ROADMAP.md queue 1, item
+13) and ``--replicas`` with ``--shards`` (item 12b), which raise.
 """
 from __future__ import annotations
 
@@ -62,6 +84,7 @@ from repro_torch.index import engine, flat, search
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.serving import lockstep
 from repro_torch.serving.state import HAND_TUNED, ServingState
+from repro_torch.tuning.points import PointStore
 
 METHODS = ("ivfpq", "ivfpq_bbc", "ivfrabitq", "ivfrabitq_bbc", "flat")
 RECALL_SAMPLE = 8   # queries with exact ground truth for the recall estimate
@@ -109,6 +132,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def tuned_store(args) -> PointStore | None:
+    """The point store ``--tuned`` names: None for ``off`` and for an
+    ``auto`` store that is absent or empty; an explicit path that yields
+    no point exits, as in the JAX CLI."""
+    if args.tuned == "off":
+        return None
+    store = PointStore.load(None if args.tuned == "auto" else args.tuned)
+    if args.tuned != "auto" and not len(store):
+        raise SystemExit(f"--tuned {args.tuned}: no usable point store")
+    return store if len(store) else None
+
+
 def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
                dev: torch.device, mesh=None) -> dict:
     """Serve ``qs`` in fixed batches; with ``mesh``, every rank calls this
@@ -122,10 +157,13 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
     else:
         if tau_pred_on and not args.method.endswith("bbc"):
             raise SystemExit("--tau-pred on requires a *_bbc method")
+        # n_cand / pred_count come from the tuned operating point when
+        # one covers this (method, k) cell, else the hand defaults
         eng = engine.SearchEngine.build(
             index, k=args.k, n_probe=min(args.n_probe, args.n_clusters),
             use_bbc=args.method.endswith("bbc"),
-            pred_count=args.pred_count, device=dev, mesh=mesh)
+            pred_count=args.pred_count, device=dev, mesh=mesh,
+            tuned=tuned_store(args), recall_target=args.recall_target)
         batch = max(1, args.batch)
         eng.warmup((batch, (args.queries - 1) % batch + 1),
                    predictive=tau_pred_on)
@@ -155,7 +193,8 @@ def run_static(args, x: torch.Tensor | None, qs: torch.Tensor, index,
     return {
         "mode": "static", "method": args.method, "k": args.k,
         "batch": batch, "shards": args.shards, "tau_pred": args.tau_pred,
-        "operating_point": "flat" if args.method == "flat" else HAND_TUNED,
+        "operating_point": "flat" if args.method == "flat" else
+        eng.tuned_from or HAND_TUNED,
         "qps": round(args.queries / dt, 2),
         "ms_per_query": round(1e3 * dt / args.queries, 2),
         "ms_per_batch": round(1e3 * dt / len(batches), 2),
@@ -175,6 +214,14 @@ def check_async(args) -> None:
         raise SystemExit(
             "--check-parity compares against non-predictive direct calls; "
             "run it with --tau-pred off")
+    if args.faults and args.replicas <= 1:
+        raise SystemExit("--faults requires --replicas > 1 (faults are "
+                         "injected at the replica service boundary)")
+    if args.replicas > 1 and args.shards > 1:
+        raise NotImplementedError(
+            "--replicas with --shards is not ported: the lock-step protocol "
+            "broadcasts one state's engine calls, not a pool's (ROADMAP.md "
+            "queue 1, item 12b)")
 
 
 def serving_state(args, index, dev: torch.device, mesh=None,
@@ -182,7 +229,8 @@ def serving_state(args, index, dev: torch.device, mesh=None,
     """The async mode's ``ServingState``: on one device, or on a mesh as
     rank 0's ``LockstepState`` (``leader``) or a following rank's state."""
     kw = dict(use_bbc=args.method.endswith("bbc"),
-              tau_pred=args.tau_pred == "on", pred_count=args.pred_count)
+              tau_pred=args.tau_pred == "on", pred_count=args.pred_count,
+              tuned=tuned_store(args))
     if mesh is None:
         return ServingState(index, device=dev, **kw)
     if leader:
@@ -193,10 +241,10 @@ def serving_state(args, index, dev: torch.device, mesh=None,
 def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
               dev: torch.device, mesh=None) -> tuple[dict, int]:
     """The micro-batching event loop over ``repro_torch.serving``: the
-    reference's ``run_async`` without its replica tier.  With ``mesh`` this
-    is rank 0 of the sharded deployment, driving the other ranks' engines
-    in lock step until its last engine call.  Returns the summary and the
-    exit code."""
+    reference's ``run_async``, through the replica tier with ``--replicas
+    N > 1``.  With ``mesh`` this is rank 0 of the sharded deployment,
+    driving the other ranks' engines in lock step until its last engine
+    call.  Returns the summary and the exit code."""
     from repro_torch.serving import batcher as sv_batcher
     from repro_torch.serving import queue as sv_queue
     from repro_torch.serving import server as sv_server
@@ -210,21 +258,54 @@ def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
         pattern=args.trace, burst=args.burst,
         recall_target=args.recall_target)
     state = serving_state(args, index, dev, mesh)
-    srv = sv_server.Server(
-        state, ceilings=sv_batcher.k_ceilings(ks), batch=args.max_batch,
-        admission=not args.no_admission,
-        max_wait=args.max_wait_ms / 1e3 if args.max_wait_ms else None)
+    max_wait = args.max_wait_ms / 1e3 if args.max_wait_ms else None
+    if args.replicas > 1:
+        # the fault-tolerant multi-replica tier: affinity routing, health
+        # checks, retries and hedges, supervisor respawn
+        from repro_torch.serving import faults as sv_faults
+        from repro_torch.serving.admission import DegradeLadder
+        from repro_torch.serving.router import (HedgePolicy, ReplicaServer,
+                                                RetryPolicy)
+        schedule = sv_faults.FaultSchedule.parse(args.faults) \
+            if args.faults else None
+        # degrade along the tuned recall/cost frontier when the store
+        # covers this method, instead of the hand-picked k caps
+        ladder = None
+        if state.tuned is not None:
+            frontier = state.tuned.frontier(state.kind, max(ks))
+            if len(frontier) > 1:
+                ladder = DegradeLadder.from_frontier(frontier)
+        srv = ReplicaServer(
+            state, args.replicas, ceilings=sv_batcher.k_ceilings(ks),
+            batch=args.max_batch, ladder=ladder,
+            retry=RetryPolicy(max_retries=args.retries),
+            hedge=HedgePolicy(enabled=args.hedge == "on"),
+            faults=schedule, max_wait=max_wait,
+            hb_interval=args.hb_ms / 1e3,
+            respawn_delay=args.respawn_ms / 1e3)
+    else:
+        srv = sv_server.Server(
+            state, ceilings=sv_batcher.k_ceilings(ks), batch=args.max_batch,
+            admission=not args.no_admission, max_wait=max_wait)
     n_buckets = len({(min(r.k, max(ks)), r.n_probe) for r in trace})
     t0 = time.monotonic()
     srv.warmup(trace)
     print(f"[serve] warmed {n_buckets} shape buckets in "
           f"{time.monotonic() - t0:.1f}s", flush=True)
     outcomes = srv.run_trace(trace, warmup=False)
-    # one executor: each batch finishes at its own instant
-    batches = len({(o.bucket, o.t_done) for o in outcomes if o.completed})
+    # one executor per replica: each batch finishes at its own instant
+    batches = len({(o.replica, o.bucket, o.t_done) for o in outcomes
+                   if o.completed})
     print(f"[serve] {batches} batches served", flush=True)
 
     summary = sv_server.summarize(outcomes, state=state)
+    if args.replicas > 1:
+        from repro_torch.serving.router import outcome_digest
+        summary.update({
+            "replicas": args.replicas, "faults": args.faults or "",
+            "outcome_digest": outcome_digest(outcomes),
+            "fault_stats": dict(sorted(srv.stats.items())),
+        })
     done = [o for o in outcomes if o.status != sv_server.SHED]
     idx = sample_indices(len(done), RECALL_SAMPLE)
     # None (json null), not NaN, when everything was shed
@@ -342,11 +423,15 @@ def parse_args(argv=None):
                     help="predictive early-exact re-ranking across batches")
     ap.add_argument("--pred-count", type=int, default=None,
                     help="predictive re-rank pool target (default ~2.5k)")
-    ap.add_argument("--tuned", type=str, default="off",
-                    help="tuned operating points (only 'off' is ported)")
+    ap.add_argument("--tuned", type=str, default="auto",
+                    help="tuned operating points: 'auto' loads the port's "
+                         "store (tuned_points_torch.json at the repo root, "
+                         "or $REPRO_TORCH_TUNED_POINTS) when present, "
+                         "'off' forces the hand-tuned defaults, anything "
+                         "else is a path to a point-store JSON")
     ap.add_argument("--recall-target", type=float, default=0.95,
-                    help="recall@k requirement stamped on async-mode "
-                         "requests")
+                    help="recall@k requirement: selects the tuned "
+                         "operating point and stamps async-mode requests")
     # -- async-mode knobs (the JAX CLI's, with its defaults) ----------------
     ap.add_argument("--trace", choices=("poisson", "bursty"),
                     default="poisson", help="[async] arrival pattern")
@@ -370,10 +455,28 @@ def parse_args(argv=None):
                     help="[async] verify every completed request's ids "
                          "against a direct engine call; exit 1 on any "
                          "mismatch")
+    # -- multi-replica fault-tolerance knobs (async mode) -------------------
     ap.add_argument("--replicas", type=int, default=1,
-                    help="[async] replica pool size (only 1 is ported)")
+                    help="[async] replica pool size; > 1 routes through the "
+                         "fault-tolerant tier (affinity routing, health "
+                         "checks, retries, hedges, supervisor respawn)")
     ap.add_argument("--faults", type=str, default="",
-                    help="[async] fault schedule (not ported)")
+                    help="[async] deterministic fault schedule, e.g. "
+                         "'crash@1:t=0.5;stall@0:t=0.2,dur=0.1;"
+                         "slow@2:t=0.0,dur=1.0,factor=4;corrupt@3:t=0.3,"
+                         "dur=0.2' (requires --replicas > 1)")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="[async] max retry attempts per request after a "
+                         "timeout or corrupt response (--replicas > 1)")
+    ap.add_argument("--hedge", choices=("on", "off"), default="on",
+                    help="[async] hedged second sends when deadline slack "
+                         "runs low; first response wins (--replicas > 1)")
+    ap.add_argument("--hb-ms", type=float, default=20.0,
+                    help="[async] replica heartbeat interval, ms "
+                         "(--replicas > 1)")
+    ap.add_argument("--respawn-ms", type=float, default=50.0,
+                    help="[async] supervisor respawn delay after a replica "
+                         "is marked DOWN, ms (--replicas > 1)")
     ap.add_argument("--seed", type=int, default=0,
                     help="corpus and trace RNG seed")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -387,14 +490,8 @@ def main(argv=None) -> int:
     if args.mode == "net":
         raise NotImplementedError("--mode net is not ported yet (ROADMAP.md "
                                   "queue 1, item 13)")
-    if args.tuned != "off":
-        raise NotImplementedError("--tuned is not ported yet (ROADMAP.md "
-                                  "queue 1, item 11); pass --tuned off")
+    tuned_store(args)               # an unusable --tuned path exits now
     if args.mode == "async":
-        if args.replicas > 1 or args.faults:
-            raise NotImplementedError(
-                "the replica tier (--replicas > 1, --faults) is not ported "
-                "yet (ROADMAP.md queue 1, item 12)")
         check_async(args)
     dev = resolve_device(args.device)
 

@@ -93,11 +93,11 @@ class DegradeLadder:
     — seeded fault runs replay identically.
 
     ``from_frontier`` builds the rungs from a TUNED recall/cost frontier
-    (the reference's ``PointStore.frontier``; the port's tuning is ROADMAP
-    item 11) instead of hand-picked caps: each successively deeper overload
-    rung serves the next cheaper tuned operating point, so degradation
-    walks the measured recall/latency frontier rather than blunt k-capping.
-    The multi-replica tier that applies the ladder is ROADMAP item 12.
+    (``tuning.points.PointStore.frontier``) instead of hand-picked caps:
+    each successively deeper overload rung serves the next cheaper tuned
+    operating point, so degradation walks the measured recall/latency
+    frontier rather than blunt k-capping.  The multi-replica tier
+    (``serving.router.ReplicaServer``, ``serve --replicas``) applies it.
     """
 
     rungs: tuple = ()   # ((load_factor, k_cap, np_cap[, recall_target]), …)

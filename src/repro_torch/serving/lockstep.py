@@ -111,6 +111,13 @@ class LockstepState(ServingState):
         raise ValueError("a lock-step state is not swapped; swap every "
                          "rank's ServingState together")
 
+    def fork(self, clone_engines: bool = False):
+        raise NotImplementedError(
+            "the replica tier over the sharded deployment is not ported: a "
+            "fork would neither broadcast its engine calls nor tell the "
+            "following ranks whose predictor states to thread (ROADMAP.md "
+            "queue 1, item 12b)")
+
     def stop(self) -> None:
         """Release the following ranks (the last message)."""
         _send(self.mesh, (STOP, 0, 0, 0, False, None))

@@ -22,11 +22,13 @@ same order (``serving.lockstep`` drives the other ranks from rank 0's
 event loop).  ``live`` is a corpus-row tombstone mask applied to every
 engine built, and ``swap`` re-points the state at a rebuilt index
 (streaming ingest), carrying or resetting each bucket's predictor by the
-drift test of ``ingest.drift``.
-
-Not ported yet, and raising with the ROADMAP.md item that brings them:
-tuned operating points (``tuned``, item 11) and forks with cloned engines
-(the replica tier's respawn, item 12).
+drift test of ``ingest.drift``.  ``tuned`` (a ``tuning.points.PointStore``)
+fills every bucket engine's unset knobs from the tuner's operating points;
+``operating_points()`` reports where each bucket's knobs came from.
+``fork`` gives the replica tier one state per replica over the shared
+engines (``clone_engines=True``: engine objects of its own over the same
+tensors, a respawned replica's), and ``centroids`` is the host copy of the
+routing centroids the affinity router scores against.
 """
 from __future__ import annotations
 
@@ -43,9 +45,8 @@ from repro_torch.kernels.platform import resolve_device
 from repro_torch.serving.batcher import Batch, ShapeBucket
 
 # what operating_points() reports for a bucket whose knobs are the
-# engine's hand defaults (the reference's tuning.points.HAND_TUNED)
+# engine's hand defaults
 HAND_TUNED = "hand-tuned fallback"
-_not_ported = engine_mod._not_ported
 
 
 class ServingState:
@@ -65,8 +66,6 @@ class ServingState:
                  tau_pred: bool = False, vectors=None, mesh=None,
                  m: int = 128, pred_count: int | None = None, tuned=None,
                  device=None):
-        if tuned is not None:
-            raise _not_ported("tuned operating points", "item 11")
         if tau_pred and not use_bbc:
             raise ValueError("tau_pred serving requires use_bbc=True")
         if mesh is not None and device is not None and \
@@ -80,6 +79,9 @@ class ServingState:
         self.tau_pred = bool(tau_pred)
         self.m = m
         self.pred_count = pred_count
+        # tuned operating points (a tuning.points.PointStore) every
+        # per-bucket engine build resolves its unset knobs from
+        self.tuned = tuned
         self._place(index, vectors)
         # streaming-ingest state: the generation counter keys engine swaps
         # (every bucket engine carries it), ``live`` is an optional
@@ -115,18 +117,18 @@ class ServingState:
                 use_bbc=self.use_bbc, m=self.m, vectors=self.vectors,
                 pred_count=self.pred_count, mesh=self.mesh,
                 device=None if self.mesh is not None else self.device,
-                generation=self.generation)
+                tuned=self.tuned, generation=self.generation)
             if self.live is not None:
                 eng = eng.with_live(self.live)
             self._engines[key] = eng
         return eng
 
     def operating_points(self) -> dict[str, str]:
-        """Per-bucket knob provenance for serving summaries, keyed
-        ``"k<k>/np<n_probe>"``: every built engine's knobs are the hand
-        defaults until tuning is ported (item 11)."""
-        return {f"k{k}/np{np_}": HAND_TUNED
-                for (k, np_) in sorted(self._engines)}
+        """Per-bucket knob provenance for serving summaries: which tuned
+        operating point (or the hand-tuned fallback) each built engine's
+        knobs came from, keyed ``"k<k>/np<n_probe>"``."""
+        return {f"k{k}/np{np_}": eng.tuned_from or HAND_TUNED
+                for (k, np_), eng in sorted(self._engines.items())}
 
     def warmup(self, buckets) -> "ServingState":
         """Build every bucket's engine and run its padded (B, d) batch
@@ -190,17 +192,33 @@ class ServingState:
         self.drift_report = report
         return report
 
-    # -- replica hook -------------------------------------------------------
+    # -- replica hooks ------------------------------------------------------
+
+    @property
+    def centroids(self) -> np.ndarray:
+        """Host numpy copy of the index's coarse centroids: the routing
+        geometry the affinity router scores queries against (PQ and
+        RaBitQ indexes carry them on ``.ivf``; an IVF index directly)."""
+        ivf = self.index if hasattr(self.index, "centroids") \
+            else self.index.ivf
+        return ivf.centroids.detach().cpu().numpy()
 
     def fork(self, clone_engines: bool = False) -> "ServingState":
-        """A new ``ServingState`` sharing this one's (immutable) engines,
-        the engine cache itself included, but owning FRESH per-bucket
-        predictor states.  Cloned engines (the replica tier's respawn)
-        are not ported yet."""
-        if clone_engines:
-            raise _not_ported("forks with cloned engines", "item 12")
+        """A new ``ServingState`` sharing this one's (immutable) engines
+        but owning FRESH per-bucket predictor states: each replica
+        self-tunes on the traffic slice the affinity router sends it.
+
+        With ``clone_engines=False`` (pool construction) the engine cache
+        is the SAME dict, so a bucket's one-time build is shared across
+        the pool.  With ``clone_engines=True`` (crash respawn) the fork
+        gets its own cache seeded with ``SearchEngine.replica_clone()`` of
+        every engine built so far: new engine objects over the same
+        tensors, while later builds stay private to it."""
         twin = ServingState.__new__(ServingState)
         twin.__dict__.update(self.__dict__)
+        if clone_engines:
+            twin._engines = {key: eng.replica_clone()
+                             for key, eng in self._engines.items()}
         twin._pred = {}
         return twin
 

@@ -460,8 +460,18 @@ def test_ids_monotone_churn_and_trigger(corpus):
         m.delete(ins[: N // 100])
     assert mi.churn_fraction() == jmi.churn_fraction()
     assert mi.needs_merge() and jmi.needs_merge()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _port(x, tuned=object())
+    # tuned points are ported: a store resolves at build with the corpus
+    # fingerprint (an exact match here) and the churn share (0 at build)
+    from repro_torch.tuning import knobs as tkn
+    from repro_torch.tuning import points as tpts
+    point = tpts.OperatingPoint(
+        method="ivfpq", k=K, recall_target=0.95,
+        knobs=tkn.KnobConfig(n_probe=N_PROBE), recall=1.0, cost_units=1.0,
+        feasible=True, corpus={"fingerprint": tpts.corpus_fingerprint(x)})
+    tmi = _port(x, n_probe=None, n_cand=None,
+                tuned=tpts.PointStore([point]))
+    assert tmi.engine.n_probe == N_PROBE
+    assert tmi.engine.tuned_from == f"{point.name} (tuned)"
 
 
 # ---------------------------- drift and swap --------------------------------

@@ -128,11 +128,12 @@ def _assert_single_same(jr, tr):
 
 @pytest.mark.parametrize("call", ["single", "mesh", "tuned", "live", "ivf"])
 def test_engine_unported_paths_raise(setup, call, tmp_path):
-    """What the engine still refuses (tuned points) raises naming its
-    ROADMAP item; single-query search and tombstones (``live``), once
-    refused here, are ported: on the single-device engine (``single``,
-    ``ivf``) and on the sharded one (``mesh``) a single query answers as
-    the JAX engine's single call, and an all-live mask changes nothing."""
+    """Paths once refused here are ported: single-query search and
+    tombstones (``live``) on the single-device engine (``single``,
+    ``ivf``) and on the sharded one (``mesh``), where a single query
+    answers as the JAX engine's single call and an all-live mask changes
+    nothing; and tuned operating points (``tuned``), which fill the knobs
+    the JAX engine fills from the same point, with the same provenance."""
     ji, _, ti, _, qs = setup
     if call == "ivf":
         # the IVF strategy is ported; it needs the corpus vectors
@@ -145,9 +146,20 @@ def test_engine_unported_paths_raise(setup, call, tmp_path):
         _assert_single_same(je.search(jnp.asarray(qs[0])), eng.search(qs[0]))
         return
     if call == "tuned":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.SearchEngine.build(ti, k=K, n_probe=4, device="cpu",
-                                      tuned=object())
+        from repro.tuning import knobs as jkn
+        from repro.tuning import points as jpts
+        from repro_torch.tuning import knobs as tkn
+        from repro_torch.tuning import points as tpts
+        kw = dict(method="ivfpq", k=K, recall_target=0.95, recall=1.0,
+                  cost_units=1.0, feasible=True)
+        knobs = dict(n_probe=4, n_cand=2 * K, pred_count=K + 3)
+        eng = engine.SearchEngine.build(
+            ti, k=K, device="cpu", tuned=tpts.PointStore(
+                [tpts.OperatingPoint(knobs=tkn.KnobConfig(**knobs), **kw)]))
+        je = jengine.SearchEngine.build(ji, k=K, tuned=jpts.PointStore(
+            [jpts.OperatingPoint(knobs=jkn.KnobConfig(**knobs), **kw)]))
+        assert (eng.n_probe, eng.n_cand, eng.pred_count, eng.tuned_from) \
+            == (je.n_probe, je.n_cand, je.pred_count, je.tuned_from)
         return
     if call == "mesh":
         # the sharded engine is ported, tombstones included: an all-live
@@ -199,12 +211,22 @@ def test_serve_cli_cpu(capsys):
         assert key in out
 
 
-@pytest.mark.parametrize("flag", [["--mode", "async", "--replicas", "2"],
+@pytest.mark.parametrize("flag", [["--mode", "async", "--replicas", "2",
+                                   "--shards", "2"],
                                   ["--mode", "async", "--faults",
                                    "crash@1:t=0.5"],
-                                  ["--mode", "net"], ["--tuned", "auto"]])
+                                  ["--mode", "net"],
+                                  ["--tuned", "no/such/points.json"]])
 def test_serve_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the CLI refuses raises before any work: the replica tier over
+    shards (item 12b) and ``--mode net`` (item 13) name their ROADMAP
+    items; ``--faults`` without ``--replicas > 1`` and a ``--tuned`` path
+    that holds no point exit as the JAX CLI does."""
+    if "--faults" in flag or "--tuned" in flag:
+        exc, match = SystemExit, "requires --replicas|no usable point"
+    else:
+        exc, match = NotImplementedError, "ROADMAP"
+    with pytest.raises(exc, match=match):
         serve.main(["--device", "cpu", *flag])
 
 

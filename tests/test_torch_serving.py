@@ -433,17 +433,34 @@ def test_engine_warmup_serves_the_bucket_shape(data):
                                        ("live", "item 10"),
                                        ("fork", "item 12")])
 def test_unported_state_paths_raise(data, what, item):
-    """What is still unported raises naming its item (tuned: 11, cloned
-    forks: 12); the sharded state (9b), the swap and the tombstone mask
-    (10) are ported and must no longer raise."""
+    """Every path once refused here is ported and must no longer raise:
+    the sharded state (9b), the swap and the tombstone mask (10), tuned
+    operating points (11: each bucket engine resolves its knobs from the
+    store and reports the point) and forks with cloned engines (12: new
+    engine objects over the same tensors)."""
     bucket = bt.bucket_of(50, N_PROBE, CEILS, BATCH)
     if what == "tuned":
-        with pytest.raises(NotImplementedError, match=item):
-            ServingState(data["tpq"], device="cpu", tuned=object())
+        from repro_torch.tuning import knobs as tkn
+        from repro_torch.tuning import points as tpts
+        point = tpts.OperatingPoint(
+            method="ivfpq", k=128, recall_target=0.95,
+            knobs=tkn.KnobConfig(n_probe=4, n_cand=600), recall=1.0,
+            cost_units=1.0, feasible=True)
+        state = ServingState(data["tpq"], device="cpu",
+                             tuned=tpts.PointStore([point]))
+        eng = state.engine(bucket)
+        assert eng.n_probe == N_PROBE and eng.n_cand == 600
+        assert state.operating_points() == {
+            f"k{bucket.k}/np{N_PROBE}": f"{point.name} (tuned)"}
         return
     if what == "fork":
-        with pytest.raises(NotImplementedError, match=item):
-            ServingState(data["tpq"], device="cpu").fork(clone_engines=True)
+        state = ServingState(data["tpq"], device="cpu")
+        eng = state.engine(bucket)
+        twin = state.fork(clone_engines=True)
+        clone = twin.engine(bucket)
+        assert clone is not eng and clone.layout is eng.layout
+        assert clone.index is eng.index and twin._engines is not \
+            state._engines and twin.pred_states() == {}
         return
     if what == "mesh":
         import tempfile
@@ -491,8 +508,10 @@ def test_cli_async_checks_parity(capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--replicas", "2"], NotImplementedError, "item 12"),
-    (["--faults", "crash@1:t=0.5"], NotImplementedError, "item 12"),
+    # the replica tier is ported on one device; over shards it raises
+    (["--replicas", "2", "--shards", "3"], NotImplementedError, "item 12"),
+    (["--faults", "crash@1:t=0.5", "--replicas", "2", "--shards", "2"],
+     NotImplementedError, "item 12"),
     (["--shards", "2", "--replicas", "2"], NotImplementedError, "item 12"),
     (["--tau-pred", "on", "--check-parity"], SystemExit, "tau-pred"),
     (["--method", "flat"], SystemExit, "flat")])
