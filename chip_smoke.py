@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-16
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-17
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
-Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 7,
-8, 10):
+Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
+7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -110,6 +110,20 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 7,
      byte for byte, the store saved to a temporary file and reloaded
      resolving the 0.95 point through ``SearchEngine.build(tuned=)``, and
      the tuned and hand-default engines' ms per batch on phase 4's queries;
+ 17. the socket transport with 4 worker processes on the card, at the JAX
+     serving CLI's net defaults (the serve-default corpus, k=5000, 200 Zipf
+     requests at 200/s, deadline 500 ms): (a) ``python -m
+     repro_torch.launch.serve --mode net --record <tmp> --check-replay``
+     (replay identical, 200 requests conserved; p50/p99, client p99, the
+     workers' READY service times, the codec, net_stats); through
+     ``MasterServer`` on the same spec and trace, (b) under the reference
+     bench's wire schedule with worker 0 SIGKILLed at 40% of the trace
+     (conserved, a respawn and its seconds, parity 1.0 over the
+     non-degraded completions against an in-process twin on the card), (c)
+     (b)'s transcript replayed in process on the card (equal digest, 0
+     checksum mismatches), (d) clean runs with the result cache off and on
+     (shared completions id-identical, hits above 0); the faulted and
+     fault-free client p99 and their ratio, not gated;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments) and
      over single IVF+PQ+BBC queries (phase 12):
@@ -120,7 +134,8 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 7,
 
 Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
 of its two runs), 14 (its searches with the segments), 15 (each of its
-runs on the card) and 16 (the timed sweep) and read after each;
+runs on the card), 16 (the timed sweep) and 17 (the replay and the parity
+twin in this process; the workers launch in their own) and read after each;
 comparison and timing launches do not count.  A launch of the PQ, l2,
 bucket or fused kernel at one query counts under its single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -2239,6 +2254,302 @@ def tuning_path(summary: dict, card: str, eng, x, qs) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 17: the socket transport (serve --mode net) on the card
+# --------------------------------------------------------------------------
+
+# the reference bench's wire schedule (benchmarks/bench_transport.py) and
+# its worker SIGKILL at 40% of the trace
+NET_WIRE = dict(seed=11, drop=0.02, dup=0.01, slow=0.08, truncate=0.005,
+                disconnect=0.005)
+NET_CRASH_FRAC, NET_SETTLE, NET_UP_S = 0.4, 60.0, 300.0
+NET_ARGS = ["--mode", "net"]        # the JAX CLI's net defaults
+
+
+NET_KERNELS = ("pq_adc", "l2_exact", "bucket_hist")    # #10, #11, #12
+
+
+def check_worker_launches(mode: str, launches: dict) -> None:
+    """Every kernel of the workers' path launched in the workers of one run
+    (their own counts, zeroed after the warm-up, reported on exit)."""
+    for k in NET_KERNELS:
+        check(launches.get(k, 0) > 0, f"net {mode}: the workers never "
+              f"launched {k} ({launches})")
+
+
+def _net_cli(summary: dict, card: str, tmp: str, n_req: int) -> dict:
+    """(a) ``python -m repro_torch.launch.serve --mode net --record
+    <tmp> --check-replay`` at the JAX CLI's net defaults, as a process
+    group of its own (killed whole on a timeout).  Returns the kernel
+    launches its workers reported."""
+    import signal
+    import torch
+    from repro_torch.transport import frames
+    from repro_torch.transport.wire import Transcript
+    rec = os.path.join(tmp, "net_cli.jsonl")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *NET_ARGS,
+         "--record", rec, "--check-replay"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    wall = time.monotonic() - t0
+    lines = text.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith("[serve]"):
+            log(line)
+    check(proc.returncode == 0, f"serve --mode net exited "
+          f"{proc.returncode}: {lines[-20:]}")
+    out = json.loads(lines[-1])
+    check(out["device"] == torch.cuda.get_device_name(0),
+          f"serve --mode net ran on {out['device']}")
+    check(out["replay_identical"] is True,
+          f"serve --mode net: replay digest {out['replay_digest']} != "
+          f"{out['outcome_digest']}")
+    ends = out["completed"] + out["shed"] + out["failed"] + out["rejected"]
+    check(out["conserved"] and out["requests"] == n_req and ends == n_req,
+          f"serve --mode net lost requests ({ends} of {out['requests']})")
+    tr = Transcript.load(rec)
+    ready = {e["wid"]: e["svc"] for e in tr.entries if e.get("ev") == "up"}
+    out.update(wall_s=wall, ready_svc=ready, codec=frames.default_codec(),
+               card=card)
+    check_worker_launches("cli", out["worker_launches"])
+    summary["net_cli"] = out
+    log(f"[net] serve --mode net at the JAX CLI's defaults (100,000 x 96, "
+        f"316 clusters, n_probe 64, k 5000, 4 workers, 200 Zipf requests "
+        f"at 200/s, 500 ms, cache 256): p50 {out['p50_ms']} ms, p99 "
+        f"{out['p99_ms']} ms, client p99 {out.get('client_p99_ms')} ms, "
+        f"completed {out['completed']} (client {out['client_completed']}), "
+        f"shed {out['shed']}, failed {out['failed']}, rejected "
+        f"{out['rejected']}, replay identical; READY service seconds "
+        f"{ready}; codec {out['codec']}; net_stats {out['net_stats']}; "
+        f"cache {out['cache']['results']}; wall {wall:.1f}s; workers' "
+        f"launches {out['worker_launches']}; {card}")
+    return out["worker_launches"]
+
+
+def _net_run(mode: str, spec: dict, trace, cache: bool, wire=None,
+             crash_at: float | None = None) -> dict:
+    """One library run of ``MasterServer`` over 4 worker processes on the
+    card: the trace through ``NetClient``, with worker 0 SIGKILLed
+    ``crash_at`` seconds in (then served on until its respawn reports
+    READY).  Returns the client's records, the outcomes, digest, stats,
+    transcript, timings and the workers' kernel launches."""
+    import threading
+    from repro_torch.serving.batcher import k_ceilings
+    from repro_torch.serving.router import outcome_digest
+    from repro_torch.transport.client import NetClient
+    from repro_torch.transport.core import MasterConfig
+    from repro_torch.transport.master import MasterServer
+    cfg = MasterConfig(n_workers=4, ceilings=k_ceilings(spec["ks"]),
+                       cache_size=256 if cache else 0)
+    ms = MasterServer(cfg, spec, wire=wire, record=True)
+    stop = threading.Event()
+    th = threading.Thread(target=lambda: ms.serve(until=stop.is_set),
+                          daemon=True)
+    killed: list[float] = []
+    t0 = time.monotonic()
+    try:
+        ms.start()
+        check(ms.wait_workers(timeout=NET_UP_S), f"net {mode}: workers "
+              f"never came up")
+        up_s = time.monotonic() - t0
+        th.start()
+        if crash_at is not None:
+            def killer():
+                time.sleep(crash_at)
+                p = ms.procs.get(0)
+                if p is not None and p.poll() is None:
+                    killed.append(time.monotonic())
+                    p.kill()
+            threading.Thread(target=killer, daemon=True).start()
+        t1 = time.monotonic()
+        with NetClient(ms.addr, timeout=30.0) as c:
+            records = c.run_trace(trace, settle=NET_SETTLE)
+        wall = time.monotonic() - t1
+        if crash_at is not None:
+            end = time.monotonic() + NET_UP_S
+            while ms.core.stats["respawns"] < 1 and time.monotonic() < end:
+                time.sleep(0.1)
+    finally:
+        stop.set()
+        if th.is_alive():
+            th.join(timeout=10.0)
+        ms.shutdown()
+    check(not th.is_alive(), f"net {mode}: the serve loop did not stop")
+    outcomes = ms.core.outcome_list()
+    respawn_s = None
+    ups = [e for e in ms.transcript.entries
+           if e.get("ev") == "up" and e.get("respawned")]
+    if killed and ups:
+        respawn_s = ups[0]["t"] - killed[0]
+    return {"records": records, "outcomes": outcomes,
+            "digest": outcome_digest(outcomes),
+            "stats": dict(ms.core.stats), "cfg": cfg,
+            "faults": ms.shim.fault_counts(),
+            "transcript": ms.transcript, "up_s": up_s, "wall_s": wall,
+            "respawn_s": respawn_s,
+            "worker_launches": dict(ms.worker_launches),
+            "worker_reports": ms.worker_reports,
+            "ready_svc": {e["wid"]: e["svc"] for e in ms.transcript.entries
+                          if e.get("ev") == "up"}}
+
+
+def _net_row(run: dict) -> dict:
+    from repro_torch.serving import server as sv
+    s = sv.summarize(run["outcomes"])
+    lats = sorted(r["latency_s"] for r in run["records"].values()
+                  if r["status"] in ("ok", "degraded"))
+    pct = (lambda p: None if not lats else
+           1e3 * lats[min(len(lats) - 1, int(p * len(lats)))])
+    return {"offered": s["requests"], "completed": s["completed"],
+            "degraded": sum(o.status == sv.DEGRADED
+                            for o in run["outcomes"]),
+            "shed": s["shed"], "failed": s["failed"],
+            "rejected": s["rejected"], "conserved": bool(s["conserved"]),
+            "client_replies": len(run["records"]),
+            "client_p50_ms": pct(0.5), "client_p99_ms": pct(0.99),
+            "digest": run["digest"],
+            "stats": {k: v for k, v in sorted(run["stats"].items()) if v},
+            "wire_faults": run["faults"], "workers_up_s": run["up_s"],
+            "trace_wall_s": run["wall_s"], "respawn_s": run["respawn_s"],
+            "worker_launches": run["worker_launches"],
+            "worker_reports": run["worker_reports"]}
+
+
+def net_serving(summary: dict, card: str, errs: dict) -> dict:
+    """Phase 17: the socket transport with its workers on the card.  (a)
+    the CLI at the JAX CLI's net defaults, replay identical, 200 requests
+    conserved; (b) the same spec and trace (``serve.net_spec_and_trace``)
+    through ``MasterServer`` under the reference bench's wire schedule with
+    worker 0 SIGKILLed at 40% of the trace: conserved, a respawn, parity
+    1.0 against an in-process twin on the card over the non-degraded
+    completions; (c) (b)'s transcript replayed in process on the card:
+    equal digest, no checksum mismatch; (d) clean runs with the result
+    cache off and on: shared completions id-identical, hits above 0.  #10,
+    #12 and #11 are held bitwise against their plain versions at this
+    path's shapes on the twin's engine.  Returns the launches the workers
+    of (a), (b) and (d) reported (each worker zeroes its counts after its
+    warm-up); the replay's and the twin's are reported apart."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import faults as flt
+    from repro_torch.serving.batcher import bucket_of
+    from repro_torch.transport.enginehost import (build_state_from_spec,
+                                                  make_exec_fn)
+    from repro_torch.transport.replay import replay_transcript
+    from repro_torch.transport.wire import Transcript
+    args = serve.parse_args(NET_ARGS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_net_") as tmp:
+        cli_launches = _net_cli(summary, card, tmp, args.requests)
+
+    spec, trace = serve.net_spec_and_trace(args, args.device)
+    span = trace[-1].arrival - trace[0].arrival
+    wire = flt.WireSchedule(**NET_WIRE)
+    runs = {"fault_free": _net_run("fault_free", spec, trace, cache=False),
+            "faulted": _net_run("faulted", spec, trace, cache=False,
+                                wire=wire, crash_at=span * NET_CRASH_FRAC),
+            "cached": _net_run("cached", spec, trace, cache=True)}
+    rows = {mode: _net_row(run) for mode, run in runs.items()}
+    for mode, row in rows.items():
+        ends = row["completed"] + row["shed"] + row["failed"] + \
+            row["rejected"]
+        check(row["conserved"] and row["offered"] == len(trace) and
+              ends == len(trace), f"net {mode}: lost requests ({row})")
+        check_worker_launches(mode, row["worker_launches"])
+        log(f"[net-{mode}] {json.dumps(row)}; {card}")
+    faulted = runs["faulted"]
+    check(faulted["stats"]["respawns"] >= 1,
+          f"net faulted: no respawn ({faulted['stats']})")
+    launches = {k: cli_launches.get(k, 0) + sum(
+        run["worker_launches"].get(k, 0) for run in runs.values())
+        for k in ops.LAUNCHES}
+
+    # (b) parity and (c) replay against the in-process twin on the card
+    state, ceil = build_state_from_spec(spec)
+    exec_fn = make_exec_fn(state, ceil)
+    ops.reset_launches()
+    t0 = time.monotonic()
+    res = replay_transcript(Transcript.loads(faulted["transcript"].dumps()),
+                            faulted["cfg"], state.centroids, exec_fn,
+                            strict=False)
+    replay_s = time.monotonic() - t0
+    by_rid = {r.rid: r for r in trace}
+    n_checked = n_match = 0
+    for rid, rec in faulted["records"].items():
+        if rec["status"] != "ok":       # non-degraded completions only
+            continue
+        req = by_rid[rid]
+        _, ids = exec_fn(req.q, req.k, req.n_probe)
+        n_checked += 1
+        n_match += int(np.array_equal(rec["ids"], ids))
+    twin_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(res.digest == faulted["digest"] and not res.checksum_mismatches
+          and res.core.stats == faulted["stats"],
+          f"net replay: digest {res.digest} vs {faulted['digest']}, "
+          f"{len(res.checksum_mismatches)} checksum mismatches")
+    check(n_checked > 0 and n_match == n_checked,
+          f"net faulted: parity {n_match}/{n_checked} against the twin")
+
+    # #10, #12 and #11 against their plain versions at this path's shapes:
+    # the twin's engine for the largest k, the first request at that k
+    req = max(trace, key=lambda r: r.k)
+    eng = state.engine(bucket_of(req.k, req.n_probe, ceil, 1))
+    q = torch.from_numpy(np.asarray(req.q, np.float32)).to(state.device)
+    shapes = check_pq_single(pq_single_args(eng, q), errs,
+                             f"the net path's shapes (k={eng.k})")
+
+    # (d) the result cache: id-identical on shared completions, hits
+    free, cached = runs["fault_free"]["records"], runs["cached"]["records"]
+    common = [rid for rid, r in cached.items()
+              if r["status"] in ("ok", "degraded") and
+              free.get(rid, {}).get("status") in ("ok", "degraded")]
+    hits = runs["cached"]["stats"].get("cache_hits", 0)
+    check(common and all(np.array_equal(cached[rid]["ids"],
+                                        free[rid]["ids"]) for rid in common),
+          "net cache: cached and uncached completions differ")
+    check(hits > 0, "net cache: no hit")
+    p99_free, p99_fault = rows["fault_free"]["client_p99_ms"], \
+        rows["faulted"]["client_p99_ms"]
+    summary["net"] = {
+        "rows": rows, "wire": wire.to_dict(),
+        "crash_at_s": span * NET_CRASH_FRAC,
+        "respawn_s": faulted["respawn_s"],
+        "ready_svc": faulted["ready_svc"],
+        "parity": n_match / n_checked, "parity_checked": n_checked,
+        "replay_digest": res.digest, "replay_s": replay_s,
+        "cache_common": len(common), "cache_hit_rate": hits / len(trace),
+        "p99_ratio": (p99_fault / p99_free if p99_free and p99_fault
+                      else None),
+        "kernel_shapes": shapes,
+        "worker_launches": {k: v for k, v in launches.items() if v},
+        "twin_launches": twin_launches, "card": card}
+    out = summary["net"]
+    log(f"[net-faults] wire {out['wire']}, worker 0 SIGKILLed at "
+        f"{out['crash_at_s']:.3f}s: respawned READY after "
+        f"{out['respawn_s']} s; parity {out['parity']} over {n_checked} "
+        f"non-degraded completions against the twin on the card; replay "
+        f"digest equal ({res.digest}), 0 checksum mismatches, "
+        f"{replay_s:.2f}s; faulted/fault-free client p99 "
+        f"{p99_fault} / {p99_free} ms = {out['p99_ratio']} (not gated); "
+        f"READY service seconds {out['ready_svc']}; {card}")
+    log(f"[net-cache] {len(common)} shared completions id-identical, hit "
+        f"rate {out['cache_hit_rate']}; {card}")
+    log(f"[net-launches] the workers of (a), (b) and (d): "
+        f"{out['worker_launches']}; apart, the replay and the twin in this "
+        f"process: {twin_launches}; {card}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh-sharded deployment
 # --------------------------------------------------------------------------
 
@@ -2734,35 +3045,26 @@ def fused_bq1(f):
     return est[0], bucket[0], hist[0], early[0], nmiss[0]
 
 
-def single_kernel_args(pq_eng, rq_eng, q_pq, q_rq) -> dict:
-    """The single-query kernels' arguments as phase 12's paths build them
-    for one query: #8 over the RaBitQ query's probed tiles, #10 and #12 over
-    the IVF+PQ+BBC query's probed rows, #11 over its early leg (the largest
-    l2 call of that path: n_probe x early_budget rows), #9 as the
-    predictive singleton launches it (the whole stream, one probe mask)."""
+def pq_single_args(eng, q) -> dict:
+    """#10, #12 and #11's arguments as ``search.ivf_pq_search`` builds them
+    for one (d,) query on an IVF+PQ+BBC engine: #10 and #12 over the probed
+    rows, #11 over the early leg (the largest l2 call of that path:
+    n_probe x early_budget rows)."""
     import torch
     from repro_torch.core import buffer as rb
+    from repro_torch.core import numerics
     from repro_torch.index import ivf as ivf_mod
     from repro_torch.index import pq as pq_mod
-    from repro_torch.index import rabitq as rq_mod
     from repro_torch.kernels import ops
-    ix, rix = pq_eng.index, rq_eng.index
-    # #8: ivf_rabitq_search's estimate
-    probed = ivf_mod.route(rix.ivf, q_rq, rq_eng.n_probe)
-    ids, valid = ivf_mod.gather_candidates(rix.ivf, probed)
-    safe = ids.clamp(min=0)
-    qf = rq_mod.query_factors(rix.rq, q_rq, rix.ivf.centroids[probed])
-    rqe = dict(codes=rix.rq.codes[safe], norm_o=rix.rq.norm_o[safe],
-               f_o=rix.rq.f_o[safe], v=qf.v, norm_q=qf.norm_q, valid=valid)
-    # #10, #12, #11: ivf_pq_search's estimate, buckets and early leg
-    n_probe, n_cand, m = pq_eng.n_probe, pq_eng.n_cand, pq_eng.m
-    probed = ivf_mod.route(ix.ivf, q_pq, n_probe)
+    ix = eng.index
+    n_probe, n_cand, m = eng.n_probe, eng.n_cand, eng.m
+    probed = ivf_mod.route(ix.ivf, q, n_probe)
     ids, valid = ivf_mod.gather_candidates(ix.ivf, probed)
     cap = ids.shape[1]
     flat_ids, flat_valid = ids.reshape(-1), valid.reshape(-1)
     codes = ix.codes[flat_ids.clamp(min=0)]
-    lut = pq_mod.adc_table(ix.pq, q_pq)
-    est = torch.sqrt(torch.clamp(torch.where(
+    lut = pq_mod.adc_table(ix.pq, q)
+    est = numerics.sqrt_rn(torch.clamp(torch.where(
         flat_valid, ops.pq_adc(codes, lut), float("inf")), min=0.0))
     sample = torch.where(valid[:4], est.reshape(n_probe, cap)[:4],
                          float("inf")).reshape(1, -1)
@@ -2771,11 +3073,55 @@ def single_kernel_args(pq_eng, rq_eng, q_pq, q_rq) -> dict:
     early_budget = min(((early_budget + 127) // 128) * 128, cap)
     e_ids = ids[:, :early_budget].clamp(min=0)
     x = ix.vectors[e_ids.reshape(-1)]
+    torch.cuda.synchronize()
+    return dict(pq=dict(codes=codes, lut=lut),
+                bh=(est, flat_valid, cb.d_min, cb.delta, cb.ew_map, m),
+                l2=(x, q))
+
+
+def check_pq_single(a, errs: dict, where: str) -> dict:
+    """#10, #12 and #11 bitwise against their plain versions on
+    ``pq_single_args``'s tensors.  Returns the shapes checked."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    c, lt = a["pq"]["codes"], a["pq"]["lut"]
+    check(torch.equal(ops.pq_adc(c, lt), ref.pq_adc(c, lt)),
+          f"pq_adc at {where}")
+    x, q = a["l2"]
+    check(torch.equal(ops.l2_exact(x, q), ref.l2_exact(x, q)),
+          f"l2_exact at {where}")
+    bh = a["bh"]
+    check(all(torch.equal(x_, y_) for x_, y_ in
+              zip(ops.bucket_hist(*bh), ref.bucket_hist(*bh))),
+          f"bucket_hist at {where}")
+    for k in NET_KERNELS:
+        errs[k] = max(errs.get(k, 0.0), 0.0)
+    shapes = {"pq_adc": list(c.shape), "l2_exact": list(x.shape),
+              "bucket_hist": [bh[0].shape[0], bh[5]]}
+    log(f"[kernels] pq_adc (n, M), l2_exact (n, d), bucket_hist (n, m) "
+        f"bitwise at {where}: {shapes}")
+    return shapes
+
+
+def single_kernel_args(pq_eng, rq_eng, q_pq, q_rq) -> dict:
+    """The single-query kernels' arguments as phase 12's paths build them
+    for one query: #8 over the RaBitQ query's probed tiles, #10, #12 and
+    #11 as ``pq_single_args`` builds them, #9 as the predictive singleton
+    launches it (the whole stream, one probe mask)."""
+    import torch
+    from repro_torch.index import ivf as ivf_mod
+    from repro_torch.index import rabitq as rq_mod
+    rix = rq_eng.index
+    # #8: ivf_rabitq_search's estimate
+    probed = ivf_mod.route(rix.ivf, q_rq, rq_eng.n_probe)
+    ids, valid = ivf_mod.gather_candidates(rix.ivf, probed)
+    safe = ids.clamp(min=0)
+    qf = rq_mod.query_factors(rix.rq, q_rq, rix.ivf.centroids[probed])
+    rqe = dict(codes=rix.rq.codes[safe], norm_o=rix.rq.norm_o[safe],
+               f_o=rix.rq.f_o[safe], v=qf.v, norm_q=qf.norm_q, valid=valid)
     fused = main_path_kernel_args(pq_eng, q_pq[None])
     torch.cuda.synchronize()
-    return dict(rqe=rqe, pq=dict(codes=codes, lut=lut),
-                bh=(est, flat_valid, cb.d_min, cb.delta, cb.ew_map, m),
-                l2=(x, q_pq), fused=fused)
+    return dict(rqe=rqe, fused=fused, **pq_single_args(pq_eng, q_pq))
 
 
 def timing_single(a, errs: dict) -> dict:
@@ -2808,11 +3154,10 @@ def timing_single(a, errs: dict) -> dict:
     out["rabitq_est"]["work"]["device_ms_all_padding"] = device_ms(
         lambda: ops.rabitq_est_tiles(*pad, eps0=RQ_EPS0), "rabitq_est_kernel")
 
+    check_pq_single(a, errs, "phase 12's shapes")
     c, lt = a["pq"]["codes"], a["pq"]["lut"]
     n, m_sub = c.shape
     k_codes = lt.shape[1]
-    check(torch.equal(ops.pq_adc(c, lt), ref.pq_adc(c, lt)),
-          "pq_adc at phase 12's shapes")
     out["pq_adc"] = dict(
         ms=cuda_ms(lambda: ops.pq_adc(c, lt), 20),
         plain_ms=cuda_ms(lambda: ref.pq_adc(c, lt), 3, warm=1),
@@ -2822,8 +3167,6 @@ def timing_single(a, errs: dict) -> dict:
 
     x, q = a["l2"]
     n, d = x.shape
-    check(torch.equal(ops.l2_exact(x, q), ref.l2_exact(x, q)),
-          "l2_exact at phase 12's shapes")
     out["l2_exact"] = dict(
         ms=cuda_ms(lambda: ops.l2_exact(x, q), 20),
         plain_ms=cuda_ms(lambda: ref.l2_exact(x, q), 5, warm=1),
@@ -2834,9 +3177,6 @@ def timing_single(a, errs: dict) -> dict:
 
     bh = a["bh"]
     n, m, n_ew = bh[0].shape[0], bh[5], bh[4].shape[-1]
-    check(all(torch.equal(x_, y_) for x_, y_ in
-              zip(ops.bucket_hist(*bh), ref.bucket_hist(*bh))),
-          "bucket_hist at phase 12's shapes")
     out["bucket_hist"] = dict(
         ms=cuda_ms(lambda: ops.bucket_hist(*bh), 20),
         plain_ms=cuda_ms(lambda: ref.bucket_hist(*bh), 3, warm=1),
@@ -2948,9 +3288,10 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,9,11,12,13,14,15,16",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-16; 8 = torch.profiler over the batches of "
+                         "11-17; 8 = torch.profiler over the batches of "
                          "4, 9 and 11 and the queries of 12; 10 = phase 9's "
                          "band anatomy)")
     ap.add_argument("--out", default="",
@@ -3062,6 +3403,9 @@ def main(argv=None) -> int:
         check(eng is not None, "phase 16 tunes phase 4's index and needs it")
         l16 = tuning_path(summary, card, eng, x, main_queries)
         launches = {k: launches[k] + l16[k] for k in launches}
+    if 17 in phases:
+        l17 = net_serving(summary, card, errs)
+        launches = {k: launches[k] + l17[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "

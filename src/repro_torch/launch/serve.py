@@ -61,9 +61,25 @@ too); ``off`` keeps the hand defaults.  The summary names the operating
 point (or ``hand-tuned fallback``) of each engine, and the replica tier's
 degrade ladder walks the store's recall/cost frontier.
 
-``--mode static`` and ``--mode async`` with every ``--method`` and flag of
-the JAX CLI are ported, except ``--mode net`` (ROADMAP.md queue 1, item
-13) and ``--replicas`` with ``--shards`` (item 12b), which raise.
+``--mode net`` serves a Zipf trace of ``--requests`` requests through the
+multi-process socket front end (``repro_torch.transport``): a master
+spawns ``--workers`` worker processes, each building the engine from one
+spec on ``--device`` and answering singleton requests, with a result cache
+of ``--net-cache`` entries in the master, seeded wire faults
+(``--wire-faults``), a recorded transcript (``--record``) and an in-process
+replay that must reproduce the outcome digest (``--check-replay``).  With
+``--serve-forever`` it listens on ``--addr`` until SIGTERM or SIGINT, then
+drains.  The last line is the JAX CLI's net summary plus ``"device"``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode net \
+      --check-replay                                 # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode net \
+      --device cpu --n 4096 --d 16 --n-probe 8 --k-choices 10,100 \
+      --workers 2 --requests 40 --check-replay
+
+Every mode, ``--method`` and flag of the JAX CLI is ported, except
+``--replicas`` with ``--shards`` (ROADMAP.md queue 1, item 12b), which
+raises.
 """
 from __future__ import annotations
 
@@ -335,6 +351,157 @@ def run_async(args, x: torch.Tensor, qs: torch.Tensor, index,
     return summary, rc
 
 
+def _parse_net_addr(spec: str):
+    """'' -> the master's default; 'unix:/path' -> Unix socket;
+    'host:port' -> TCP."""
+    from repro_torch.transport.master import tcp_addr, unix_addr
+    if not spec:
+        return None
+    if spec.startswith("unix:"):
+        return unix_addr(spec[len("unix:"):])
+    host, _, port = spec.rpartition(":")
+    try:
+        return tcp_addr(host or "127.0.0.1", int(port))
+    except ValueError:
+        raise SystemExit(f"--addr {spec!r}: want 'unix:/path' or "
+                         f"'host:port'")
+
+
+def net_spec_and_trace(args, device: str):
+    """``--mode net``'s engine spec on ``device`` and its Zipf trace of
+    ``--requests`` singleton requests, from the parsed arguments: the
+    reference's ``run_net`` derivation (clusters capped at n / 64, n_probe
+    at the clusters, the query pool and trace seeded from ``seed + 1``)."""
+    from repro_torch.serving.queue import make_zipf_trace
+    from repro_torch.transport.enginehost import build_spec, make_dataset
+    ks = tuple(int(s) for s in args.k_choices.split(",")) \
+        if args.k_choices else (args.k,)
+    n_clusters = min(args.n_clusters, max(args.n // 64, 16))
+    n_probe = min(args.n_probe, n_clusters)
+    spec = build_spec(n=args.n, d=args.d, seed=args.seed, ks=ks,
+                      n_probe=n_probe, n_clusters=n_clusters, device=device)
+    rng = np.random.default_rng(args.seed + 1)
+    pool = synthetic.queries_from(rng, make_dataset(spec),
+                                  max(args.requests // 8, 4))
+    trace = make_zipf_trace(rng, pool, args.requests, ks, rate=args.rate,
+                            deadline=args.deadline_ms / 1e3, n_probe=n_probe)
+    return spec, trace
+
+
+def run_net(args) -> int:
+    """The multi-process socket front end (``repro_torch.transport``): the
+    reference's ``run_net``.  Every worker and the replay build the engine
+    from one spec on ``--device``; for a CUDA spec the master builds the
+    kernels once before it spawns the workers.  Returns the exit code: 1
+    when the workers do not come up or the replay's digest differs."""
+    import signal
+    import threading
+
+    from repro_torch.serving import faults as sv_faults
+    from repro_torch.serving import server as sv_server
+    from repro_torch.serving.batcher import k_ceilings
+    from repro_torch.serving.router import outcome_digest
+    from repro_torch.transport.client import NetClient
+    from repro_torch.transport.core import MasterConfig
+    from repro_torch.transport.enginehost import (build_state_from_spec,
+                                                  make_exec_fn)
+    from repro_torch.transport.master import MasterServer
+    from repro_torch.transport.replay import replay_transcript
+
+    addr = _parse_net_addr(args.addr)
+    dev = resolve_device(args.device)   # no worker starts for a missing card
+    spec, trace = net_spec_and_trace(args, dev.type)
+    ks = tuple(spec["ks"])
+    wire = sv_faults.WireSchedule.parse(args.wire_faults) \
+        if args.wire_faults else None
+    cfg = MasterConfig(n_workers=args.workers, ceilings=k_ceilings(ks),
+                       cache_size=args.net_cache,
+                       hb_interval=args.hb_ms / 1e3)
+    ms = MasterServer(cfg, spec, addr=addr, wire=wire,
+                      record=bool(args.record) or args.check_replay)
+    want_drain = threading.Event()
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    records: dict[int, dict] = {}
+    client_thread = None
+    try:
+        t0 = time.monotonic()
+        ms.start()
+        if not ms.wait_workers(timeout=300.0):
+            print(json.dumps({"error": "workers failed to come up"}))
+            return 1
+        print(f"[serve] {args.workers} workers ready in "
+              f"{time.monotonic() - t0:.1f}s on {ms.addr}", flush=True)
+        for sig in handlers:
+            signal.signal(sig, lambda s, f: want_drain.set())
+        if not args.serve_forever:
+            def _drive():
+                try:
+                    with NetClient(ms.addr) as c:
+                        records.update(c.run_trace(trace))
+                finally:
+                    want_drain.set()
+            client_thread = threading.Thread(target=_drive, daemon=True)
+            client_thread.start()
+        else:
+            print(json.dumps({"event": "listening", "addr": ms.addr}),
+                  flush=True)
+        while not ms.stopped:
+            if want_drain.is_set():
+                ms.drain()
+            if ms._drain_started is not None and (
+                    ms.core.idle() or ms.clock.now() - ms._drain_started
+                    > ms.drain_timeout):
+                ms.shutdown()
+                break
+            ms.step()
+        if client_thread is not None:
+            client_thread.join(timeout=10.0)
+    finally:
+        ms.shutdown()
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+
+    outcomes = ms.core.outcome_list()
+    summary = sv_server.summarize(outcomes)
+    summary.update({
+        "mode": "net", "workers": args.workers,
+        "k_choices": list(ks), "rate": args.rate,
+        "wire_faults": args.wire_faults or "",
+        "outcome_digest": outcome_digest(outcomes),
+        "net_stats": {k: v for k, v in sorted(ms.core.stats.items()) if v},
+        "cache": ms.core.cache_stats(),
+        # the card's kernel launches, as the workers reported them
+        "worker_launches": {k: v for k, v in ms.worker_launches.items()
+                            if v},
+    })
+    if records:
+        done = [r for r in records.values()
+                if r["status"] in ("ok", "degraded")]
+        summary["client_completed"] = len(done)
+        lat = sorted(r["latency_s"] for r in done)
+        if lat:
+            summary["client_p99_ms"] = round(
+                1e3 * lat[min(int(0.99 * len(lat)), len(lat) - 1)], 2)
+    rc = 0
+    if args.check_replay:
+        state, ceil = build_state_from_spec(spec)
+        res = replay_transcript(ms.transcript, cfg, state.centroids,
+                                make_exec_fn(state, ceil))
+        summary["replay_digest"] = res.digest
+        summary["replay_identical"] = \
+            res.digest == summary["outcome_digest"]
+        if not summary["replay_identical"]:
+            rc = 1
+    if args.record:
+        ms.transcript.save(args.record)
+        summary["transcript"] = args.record
+    summary["device"] = (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu")
+    print(json.dumps(summary))
+    return rc
+
+
 def corpus(args, dev: torch.device):
     rng = np.random.default_rng(args.seed)
     x_np = synthetic.clustered(rng, args.n, args.d)
@@ -413,7 +580,10 @@ def parse_args(argv=None):
     ap.add_argument("--n-clusters", type=int, default=316)
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--mode", choices=("static", "async", "net"),
-                    default="static")
+                    default="static",
+                    help="static = fixed-batch loop; async = deadline-aware "
+                         "micro-batching over an open-loop trace; net = "
+                         "the multi-process socket front end")
     ap.add_argument("--batch", type=int, default=32,
                     help="queries per engine call")
     ap.add_argument("--shards", type=int, default=1,
@@ -477,6 +647,32 @@ def parse_args(argv=None):
     ap.add_argument("--respawn-ms", type=float, default=50.0,
                     help="[async] supervisor respawn delay after a replica "
                          "is marked DOWN, ms (--replicas > 1)")
+    # -- net-mode knobs (--mode net; the JAX CLI's, with its defaults) ------
+    ap.add_argument("--workers", type=int, default=4,
+                    help="[net] worker subprocesses to spawn and supervise")
+    ap.add_argument("--net-cache", type=int, default=256,
+                    help="[net] exact-key result cache capacity in the "
+                         "master (0 = off)")
+    ap.add_argument("--wire-faults", type=str, default="",
+                    help="[net] seeded wire-fault schedule, e.g. "
+                         "'drop=0.02,dup=0.01,slow=0.1,slow_ms=2:8,"
+                         "disconnect=0.005,seed=7'")
+    ap.add_argument("--record", type=str, default="",
+                    help="[net] write the run's record/replay transcript "
+                         "to this path")
+    ap.add_argument("--check-replay", action="store_true",
+                    help="[net] after the run, replay the transcript "
+                         "in-process on --device and exit 1 unless the "
+                         "outcome digest is byte-identical")
+    ap.add_argument("--serve-forever", action="store_true",
+                    help="[net] keep serving until SIGTERM/SIGINT, then "
+                         "drain gracefully and exit 0")
+    ap.add_argument("--addr", type=str, default="",
+                    help="[net] listen address: 'unix:/path' or "
+                         "'host:port' (default: a Unix socket in a "
+                         "fresh run dir)")
+    ap.add_argument("--requests", type=int, default=200,
+                    help="[net] trace length for the built-in driver")
     ap.add_argument("--seed", type=int, default=0,
                     help="corpus and trace RNG seed")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -488,8 +684,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
 
     if args.mode == "net":
-        raise NotImplementedError("--mode net is not ported yet (ROADMAP.md "
-                                  "queue 1, item 13)")
+        return run_net(args)
     tuned_store(args)               # an unusable --tuned path exits now
     if args.mode == "async":
         check_async(args)

@@ -13,7 +13,8 @@ from repro_torch.serving.clock import (Clock, ManualClock,  # noqa: F401
                                        SystemClock)
 from repro_torch.serving.queue import (Request, RequestQueue,  # noqa: F401
                                        bursty_arrivals, make_trace,
-                                       poisson_arrivals)
+                                       make_zipf_trace, poisson_arrivals,
+                                       zipf_query_ids)
 from repro_torch.serving.server import (Outcome, Server,  # noqa: F401
                                         parity_vs_direct, summarize,
                                         trim_topk)

@@ -2,8 +2,7 @@
 
 Every serving component is written against an explicit ``now`` so the
 discrete-event tests own the timeline.  A front end on wall time (the
-reference's socket tier, not ported yet: ROADMAP.md queue 1, item 13)
-must share the exact code paths the discrete-event tests exercise, so
+socket tier, ``repro_torch.transport``) must share the exact code paths the discrete-event tests exercise, so
 instead of scattering ``time.time()`` through the loop, time comes from
 ONE injected clock object:
 

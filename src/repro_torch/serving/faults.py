@@ -60,8 +60,7 @@ KINDS = (CRASH, STALL, SLOW, CORRUPT)
 #
 # Process faults above model what a REPLICA does wrong; these model what the
 # NETWORK does wrong, applied per frame at the proxy shim between the master
-# and each worker connection (the reference's ``repro.transport``; the
-# port's transport is ROADMAP.md queue 1, item 13):
+# and each worker connection (``repro_torch.transport``'s ``WireShim``):
 #
 # ==========  ==============================================================
 # kind        effect at the shim

@@ -20,8 +20,8 @@ only know what is OBSERVABLE from outside the service boundary:
 seeded fault runs replay the exact same health transitions.
 
 Time handling: every method takes an explicit ``now`` — the discrete-event
-loops own their timeline.  Wall-clock callers (the socket front end; the
-port's is ROADMAP.md queue 1, item 13) instead inject a monotonic
+loops own their timeline.  Wall-clock callers (the socket front end,
+``repro_torch.transport``) instead inject a monotonic
 :class:`~.clock.Clock` at construction and omit ``now``; the two never
 mix inside one view, so the identical code path serves both regimes
 without a single direct ``time.time()`` call.  The port's copy of the

@@ -18,8 +18,9 @@ the same numpy generator and seed give the JAX package's trace element by
 element: the draws are the same calls in the same order.  Queries stay
 numpy arrays until the serving state moves a batch to its device.
 
-The Zipf traces of the reference (``make_zipf_trace``) serve its socket
-front end, which is not ported yet (ROADMAP.md queue 1, item 13).
+``make_zipf_trace`` draws a head-heavy stream over a pool of distinct
+queries, the traffic the socket front end's result cache is for
+(``repro_torch.transport``).
 """
 from __future__ import annotations
 
@@ -242,5 +243,52 @@ def make_trace(
                 n_probe=n_probe, arrival=float(times[i]),
                 deadline=float(times[i]) + deadline,
                 recall_target=recall_target)
+        for i in range(n)
+    ]
+
+
+def zipf_query_ids(rng: np.random.Generator, n: int, pool: int,
+                   alpha: float = 1.1) -> np.ndarray:
+    """``n`` draws from a Zipf(``alpha``) distribution over a pool of
+    ``pool`` distinct queries (rank-frequency, rank 0 hottest), by explicit
+    inverse CDF over the truncated support (not ``rng.zipf``, whose support
+    is unbounded), so identical (seed, n, pool, alpha) give an identical
+    stream."""
+    if pool < 1:
+        raise ValueError(f"pool must be >= 1, got {pool}")
+    if alpha <= 0:
+        raise ValueError(f"alpha must be > 0, got {alpha}")
+    weights = 1.0 / np.power(np.arange(1, pool + 1, dtype=np.float64), alpha)
+    cdf = np.cumsum(weights / weights.sum())
+    return np.searchsorted(cdf, rng.random(n), side="right").astype(np.int64)
+
+
+def make_zipf_trace(
+    rng: np.random.Generator,
+    pool_queries: np.ndarray,       # (pool, d) distinct query vectors
+    n: int,
+    ks: int | Sequence[int],
+    *,
+    rate: float,
+    deadline: float,
+    n_probe: int,
+    alpha: float = 1.1,
+    t0: float = 0.0,
+) -> list[Request]:
+    """Seeded head-heavy trace: ``n`` Poisson arrivals whose query vectors
+    repeat from ``pool_queries`` with Zipf(``alpha``) rank-frequency.  ``k``
+    is sampled per pool entry (not per request), so a repeated query
+    repeats with the same retrieval parameters: the exact-key regime a
+    result cache can serve."""
+    pool = len(pool_queries)
+    picks = zipf_query_ids(rng, n, pool, alpha)
+    times = poisson_arrivals(rng, n, rate, t0)
+    ks_pool = (np.full(pool, ks, np.int64) if np.isscalar(ks)
+               else np.asarray(rng.choice(np.asarray(ks, np.int64), pool)))
+    return [
+        Request(rid=i, q=np.asarray(pool_queries[picks[i]]),
+                k=int(ks_pool[picks[i]]), n_probe=n_probe,
+                arrival=float(times[i]),
+                deadline=float(times[i]) + deadline)
         for i in range(n)
     ]

@@ -2,6 +2,7 @@
 package, its entry points refuse to fall back to the CPU when CUDA is
 missing, TF32 is off, and every kernel source carries its note."""
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +15,7 @@ from repro_torch.index import engine, search  # noqa: E402
 from repro_torch.kernels import _build, ops, platform  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving.state import ServingState  # noqa: E402
+from repro_torch.transport import enginehost, worker  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -50,7 +52,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         search.build_pq_index(x, 4)
@@ -66,6 +68,18 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--mode", "async", "--n", "300", "--d", "16",
                     "--n-clusters", "4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", "net", "--n", "300", "--d", "16",
+                    "--n-clusters", "4", "--workers", "1"])
+    spec = {"wid": 0, "addr": {"family": "unix",
+                               "path": str(tmp_path / "none.sock")},
+            "engine": enginehost.build_spec(n=300, d=16, ks=(10,))}
+    assert spec["engine"]["device"] == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker.WorkerApp(spec)
+    (tmp_path / "worker.json").write_text(json.dumps(spec))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker.main(["worker", str(tmp_path / "worker.json")])
     assert engine.SearchEngine.build(idx, k=10, n_probe=2,
                                      device="cpu").device.type == "cpu"
     assert ServingState(idx, device="cpu").device.type == "cpu"

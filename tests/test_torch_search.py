@@ -215,15 +215,17 @@ def test_serve_cli_cpu(capsys):
                                    "--shards", "2"],
                                   ["--mode", "async", "--faults",
                                    "crash@1:t=0.5"],
-                                  ["--mode", "net"],
+                                  ["--mode", "net", "--addr", "nowhere"],
                                   ["--tuned", "no/such/points.json"]])
 def test_serve_cli_unported_flags_raise(flag):
     """What the CLI refuses raises before any work: the replica tier over
-    shards (item 12b) and ``--mode net`` (item 13) name their ROADMAP
-    items; ``--faults`` without ``--replicas > 1`` and a ``--tuned`` path
-    that holds no point exit as the JAX CLI does."""
-    if "--faults" in flag or "--tuned" in flag:
-        exc, match = SystemExit, "requires --replicas|no usable point"
+    shards (item 12b) names its ROADMAP item; ``--faults`` without
+    ``--replicas > 1``, a ``--mode net`` address that is neither
+    ``unix:/path`` nor ``host:port``, and a ``--tuned`` path that holds no
+    point exit as the JAX CLI does."""
+    if "--faults" in flag or "--tuned" in flag or "--addr" in flag:
+        exc, match = SystemExit, \
+            "requires --replicas|no usable point|unix:/path"
     else:
         exc, match = NotImplementedError, "ROADMAP"
     with pytest.raises(exc, match=match):

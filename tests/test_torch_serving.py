@@ -11,6 +11,8 @@ completed request's id set equals the reference's on the same index
 (carried across with ``convert``; PQ and IVF) and the port's own direct
 engine call at its bucket (every method).
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -497,7 +499,6 @@ SMALL = ["--device", "cpu", "--n", "4000", "--d", "32", "--n-clusters", "32",
 def test_cli_async_checks_parity(capsys):
     assert serve.main(["--mode", "async", *SMALL, "--check-parity"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
-    import json
     summary = json.loads(out[-1])
     assert summary["parity"] == 1.0 and summary["parity_checked"] > 0
     assert summary["completed"] + summary["shed"] == 16
@@ -520,6 +521,22 @@ def test_cli_async_refusals(argv, exc, match):
         serve.main(["--mode", "async", *SMALL, *argv])
 
 
-def test_cli_net_mode_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.main(["--mode", "net", *SMALL])
+def test_cli_net_mode_names_its_item(capsys):
+    """``--mode net`` (ROADMAP.md queue 1, item 13) serves: one worker
+    process on the CPU, a short Zipf trace, the replay identical, and the
+    summary carries the reference's keys (its ``summarize`` keys and its
+    net keys) plus ``device`` and the workers' card launches (none here).
+    The name dates from when the mode raised naming its item; it is kept
+    so the test's history stays one line."""
+    rc = serve.main(["--mode", "net", *SMALL, "--workers", "1",
+                     "--requests", "16", "--check-replay"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["replay_identical"] and out["conserved"]
+    assert out["requests"] == 16 and out["client_completed"] == 16
+    want = set(jserver.summarize([])) | {
+        "mode", "workers", "k_choices", "rate", "wire_faults",
+        "outcome_digest", "net_stats", "cache", "client_completed",
+        "client_p99_ms", "replay_digest", "replay_identical"}
+    assert want <= set(out) and out["device"] == "cpu"
+    assert out["worker_launches"] == {}
+    assert out["mode"] == "net" and out["k_choices"] == [50, 120]
