@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-17
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-19
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
 Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
-7, 8, 10):
+18, 19, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -124,6 +124,27 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      checksum mismatches), (d) clean runs with the result cache off and on
      (shared completions id-identical, hits above 0); the faulted and
      fault-free client p99 and their ratio, not gated;
+ 18. the replica tier over the sharded deployment, on a one-rank NCCL mesh:
+     (a) ``serve --mode async --replicas 4`` with phase 15's fault schedule
+     through ``serve_rank`` (``--shards 1``): parity 1.0, conserved, a
+     respawn; (b) phase 15(c)'s library run over a ``LockstepState`` and
+     without a mesh (tau predictor on, predictor checkpoints): equal
+     outcome digests, every request ending once, the respawn restoring a
+     checkpoint; (c) a rolling swap of the sharded pool onto the index with
+     5% of its rows tombstoned, then the trace again: parity 1.0, no
+     deleted id served;
+ 19. the model substrate: (a) the full-width ``smollm-135m`` in bf16
+     (random weights from a seeded generator): a prefill of B=4 x 128
+     tokens filling the caches, then 16 decode steps, each step's logits
+     equal to ``forward``'s within twice bf16's own cost (bf16 against fp32
+     forward on the same weights; at least 2^-4), and within 1e-3 in fp32;
+     parameters, ms per prefill, ms per decoded token, the model's peak
+     memory (weights, caches, activations: over what earlier phases hold); (b)
+     the ten ``smoke()`` configs in fp32: forward, prefill and one decode
+     step on the card equal to the CPU within rtol=atol=1e-4; (c)
+     ``examples/torch_serve_retrieval.py`` at its defaults (the full-width
+     encoder, 20,000 documents, IVF+RaBitQ, k=1000): recall@1000, and the
+     RaBitQ kernels it takes must show launches;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments) and
      over single IVF+PQ+BBC queries (phase 12):
@@ -134,8 +155,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
 
 Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
 of its two runs), 14 (its searches with the segments), 15 (each of its
-runs on the card), 16 (the timed sweep) and 17 (the replay and the parity
-twin in this process; the workers launch in their own) and read after each;
+runs on the card), 16 (the timed sweep), 17 (the replay and the parity
+twin in this process; the workers launch in their own), 18 (each of its
+runs) and 19 (the retrieval example) and read after each;
 comparison and timing launches do not count.  A launch of the PQ, l2,
 bucket or fused kernel at one query counts under its single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -147,6 +169,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import gc
 import json
 import os
 import subprocess
@@ -1975,6 +1998,11 @@ REPLICA_FAULTS = ("crash@1:t=0.1;corrupt@2:t=0.05,dur=0.2;"
 REPLICA_ARGS = ASYNC_ARGS + ["--replicas", "4", "--faults", REPLICA_FAULTS]
 # the twin runs' fixed service model (seconds a batch) and batching cap
 REPLICA_SVC, REPLICA_MAX_WAIT = 0.015, 0.04
+# phase 18: the least (min, mean) id-set overlap of the sharded tau run
+# with the mesh-less one.  The reference's own runs part there as well
+# (min 0.9936, mean 0.99955 at 60,000 rows on the CPU); a sharded result
+# that lost or garbled ids falls far below.
+REPLICA_SHARDED_OVERLAP = (0.98, 0.995)
 
 
 def _replica_cli(summary: dict, card: str, key: str, tag: str,
@@ -2546,6 +2574,364 @@ def net_serving(summary: dict, card: str, errs: dict) -> dict:
     log(f"[net-launches] the workers of (a), (b) and (d): "
         f"{out['worker_launches']}; apart, the replay and the twin in this "
         f"process: {twin_launches}; {card}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 18: the replica tier over the sharded deployment
+# --------------------------------------------------------------------------
+
+def replica_sharded(summary: dict, card: str, kind: str = "cuda") -> dict:
+    """Phase 18: the replica tier over a ``LockstepState`` on a one-rank
+    mesh (NCCL on the card).  (a) ``serve --mode async --replicas 4
+    --faults ... --check-parity`` through ``serve_rank`` with ``--shards
+    1``: parity 1.0, conserved, a respawn; (b) the library run of phase
+    15(c) (fixed service model, tau predictor on, predictor checkpoints)
+    over a ``LockstepState``, over the same sharded engines without the
+    lock-step protocol, and without a mesh: the first two digests equal;
+    against the third the schedule, the assignment log and the stats
+    equal, and the id sets overlap by at least ``REPLICA_SHARDED_OVERLAP``
+    (its ids are the batched engine's, whose exact distances are summed in
+    another order, so near-equal ones trade places, and whose predictor
+    works on another pool, so the sets part a little: the reference's own
+    sharded and mesh-less runs part the same way,
+    ``tests/test_torch_replica_k5000.py``); every request ending once, the
+    respawn restoring a checkpoint; (c) a rolling
+    swap of the sharded pool onto the same index with 5% of its rows
+    tombstoned (the index's tensors go out through the lock-step swap),
+    then the trace again: every replica on the new generation, parity 1.0,
+    no deleted id served.  Returns the launches of every run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import batcher as bt
+    from repro_torch.serving import lockstep
+    from repro_torch.serving import queue as rq
+    from repro_torch.serving import server as sv
+    from repro_torch.serving.router import ReplicaServer, outcome_digest
+    from repro_torch.serving.state import ServingState
+    dev = torch.device(DEV, 0) if kind == "cuda" else torch.device("cpu")
+    m = mesh(kind)
+
+    def cli():
+        args = serve.parse_args(REPLICA_ARGS + ["--shards", "1"])
+        out, rc = serve.serve_rank(args, dev)
+        print(json.dumps(out))
+        return rc
+
+    launches = _async_run(summary, card, "replica_sharded", "replica-sharded",
+                          "serve --mode async --replicas 4 --shards 1", cli)
+    out = summary["replica_sharded"]
+    check(out["shards"] == 1 and out["replicas"] == 4 and
+          out["faults"] == REPLICA_FAULTS, "replica-sharded: the summary "
+          "names another tier")
+    check(out["fault_stats"]["respawns"] >= 1,
+          f"replica-sharded: no respawn ({out['fault_stats']})")
+    log(f"[replica-sharded] fault stats {out['fault_stats']}; digest "
+        f"{out['outcome_digest']}; {card}")
+
+    args = serve.parse_args([])
+    x, qs = serve.corpus(args, dev)
+    index = serve.build_index(args.method, x, args.n_clusters, args.seed, dev)
+    trace_args = (qs.cpu().numpy(), 64)
+    runs, twin = {}, {}
+    states = {"lock step": lambda: lockstep.LockstepState(
+                  index, mesh=m, tau_pred=True),
+              "sharded": lambda: ServingState(index, mesh=m, tau_pred=True),
+              "no mesh": lambda: ServingState(index, tau_pred=True,
+                                              device=dev)}
+    for name, make in states.items():
+        state = make()
+        ops.reset_launches()
+        srv, outcomes, restores = _replica_twin(
+            state, trace_args, (5000,),
+            ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_replica_"))
+        got = dict(ops.LAUNCHES)
+        launches = {k: launches[k] + got[k] for k in launches}
+        outcomes = sorted(outcomes, key=lambda o: o.request.rid)
+        rids = [o.request.rid for o in outcomes]
+        check(len(rids) == 64 and len(set(rids)) == 64,
+              f"replica-sharded twin ({name}): {len(rids)} outcomes over "
+              f"{len(set(rids))} requests")
+        check(sv.summarize(outcomes)["conserved"] and
+              srv.stats["respawns"] >= 1 and restores and
+              all(step is not None and pred
+                  for _, step, _, pred in restores),
+              f"replica-sharded twin ({name}): stats {srv.stats}, restores "
+              f"{[(r, s, len(p)) for r, s, _, p in restores]}")
+        runs[name] = {
+            "digest": outcome_digest(outcomes),
+            "assignments": list(srv.assignments),
+            "schedule": [(o.request.rid, o.status, o.replica, o.retries,
+                          o.hedged, round(o.t_done, 9), o.k_effective)
+                         for o in outcomes],
+            "ids": [None if o.ids is None else set(o.ids.tolist())
+                    for o in outcomes]}
+        twin[name] = {"digest": runs[name]["digest"],
+                      "fault_stats": dict(sorted(srv.stats.items())),
+                      "restored": [[r, s, len(p)]
+                                   for r, s, _, p in restores],
+                      "launches": {k: v for k, v in got.items() if v}}
+        if name == "lock step":
+            state.stop()
+    lock, shard, alone = runs["lock step"], runs["sharded"], runs["no mesh"]
+    check(lock["digest"] == shard["digest"],
+          f"replica-sharded: the lock-step digest {lock['digest']} is not "
+          f"the sharded engines' own {shard['digest']}")
+    for what in ("assignments", "schedule"):
+        check(lock[what] == alone[what],
+              f"replica-sharded: the {what} differ from the run without a "
+              f"mesh")
+    check(twin["lock step"]["fault_stats"] == twin["no mesh"]["fault_stats"],
+          "replica-sharded: the stats differ from the run without a mesh")
+    overlap = [len(a & b) / max(len(b), 1)
+               for a, b in zip(lock["ids"], alone["ids"])
+               if a is not None and b is not None]
+    twin["id_overlap_vs_no_mesh"] = [min(overlap), sum(overlap) /
+                                     len(overlap)]
+    check(min(overlap) >= REPLICA_SHARDED_OVERLAP[0] and
+          twin["id_overlap_vs_no_mesh"][1] >= REPLICA_SHARDED_OVERLAP[1],
+          f"replica-sharded: id-set overlap with the run without a mesh "
+          f"{twin['id_overlap_vs_no_mesh']} under the bound "
+          f"{list(REPLICA_SHARDED_OVERLAP)}")
+    twin["digest_equals_no_mesh"] = lock["digest"] == alone["digest"]
+    summary["replica_sharded_twin"] = twin
+    log(f"[replica-sharded-twin] tau predictor on, fixed service "
+        f"{REPLICA_SVC * 1e3:.0f} ms: over the lock-step protocol the digest "
+        f"equals the same sharded engines' without it ({lock['digest']}); "
+        f"against the card without a mesh the schedule, assignment log and "
+        f"stats are equal, the digest "
+        f"{'equal' if twin['digest_equals_no_mesh'] else 'not'} (id-set "
+        f"overlap min {min(overlap):.4f}, mean "
+        f"{twin['id_overlap_vs_no_mesh'][1]:.4f}, bound "
+        f"{list(REPLICA_SHARDED_OVERLAP)}: the sharded engine sums its "
+        f"exact distances in another order and predicts on its own pool, "
+        f"as the reference's does); every request ended once; stats "
+        f"{twin['lock step']['fault_stats']}; restored (replica, step, "
+        f"buckets) {twin['lock step']['restored']}; {card}")
+
+    # (c) a rolling swap of the sharded pool, then the trace again
+    state = lockstep.LockstepState(index, mesh=m)
+    srv = ReplicaServer(state, 4, ceilings=bt.k_ceilings((5000,)), batch=16,
+                        service_time_fn=lambda b: REPLICA_SVC,
+                        max_wait=REPLICA_MAX_WAIT, hb_interval=0.02,
+                        respawn_delay=0.05)
+    trace = rq.make_trace(np.random.default_rng(SEED), trace_args[0],
+                          (5000,), rate=200.0, deadline=0.5, n_probe=64,
+                          recall_target=0.95)
+    ops.reset_launches()
+    srv.run_trace(trace)
+    n = x.shape[0]
+    live = np.ones(n, bool)
+    live[np.random.default_rng(SEED).choice(n, n // 20, replace=False)] = \
+        False
+    t0 = time.monotonic()
+    srv.pool.rolling_swap(index, live=live,
+                          warm_buckets=srv._trace_buckets(trace))
+    swap_s = time.monotonic() - t0
+    after = srv.run_trace(trace, warmup=False)
+    parity, n_checked = sv.parity_vs_direct(state, after)
+    state.stop()
+    got = dict(ops.LAUNCHES)
+    launches = {k: launches[k] + got[k] for k in launches}
+    served = np.concatenate([o.ids for o in after if o.ids is not None])
+    check([r.generation for r in srv.pool] == [1] * 4,
+          "replica-sharded swap: a replica stayed on the old generation")
+    check(parity == 1.0 and n_checked > 0,
+          f"replica-sharded swap: parity {parity} over {n_checked}")
+    check(bool(live[served].all()), "replica-sharded swap: a deleted id "
+          "was served")
+    summary["replica_sharded_swap"] = {
+        "parity": parity, "checked": n_checked, "swap_s": swap_s,
+        "launches": {k: v for k, v in got.items() if v}}
+    log(f"[replica-sharded-swap] rolling swap onto the index with "
+        f"{n // 20} rows tombstoned in {swap_s:.2f}s; parity {parity} over "
+        f"{n_checked}, 0 deleted ids served; {card}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 19: the model substrate and the retrieval pipeline
+# --------------------------------------------------------------------------
+
+LM_B, LM_PROMPT, LM_STEPS = 4, 128, 16
+SMOKE_TOL = 1e-4
+
+
+def lm_decode(summary: dict, card: str) -> None:
+    """Phase 19(a): the full-width ``smollm-135m`` in bf16, random weights
+    from a seeded ``torch.Generator``: a prefill of B=4 x 128 tokens that
+    fills the caches, then 16 decode steps.  Each step's logits (and the
+    prefill's last) must equal ``forward``'s at that position within the
+    bf16 bound: twice what bf16 itself costs there (``forward`` in bf16
+    against ``forward`` on the same weights in fp32), and no less than
+    2^-4.  The same in fp32 must agree within 1e-3."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as model_mod
+    cfg = configs.get("smollm-135m")
+    m = model_mod.build(cfg)
+    # the model's own memory: earlier phases' tensors are still held, and
+    # those left in reference cycles are freed first, so that none is
+    # freed under the measurement
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = m.init(torch.Generator().manual_seed(SEED), device=DEV)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_B, LM_PROMPT + LM_STEPS))).to(DEV)
+    pos = torch.zeros(LM_B, dtype=torch.long, device=DEV)
+
+    def serve(model, p):
+        """Prefill then decode; the logits of each position, stacked."""
+        caches = model.init_caches(LM_B, LM_PROMPT + LM_STEPS, device=DEV)
+        last, caches = model.prefill_caches(
+            p, {"tokens": tokens[:, :LM_PROMPT]}, caches)
+        outs = [last]
+        for i in range(LM_STEPS):
+            logits, caches = model.decode_step(p, {
+                "token": tokens[:, LM_PROMPT + i],
+                "pos": pos + LM_PROMPT + i}, caches)
+            outs.append(logits)
+        return torch.stack(outs, dim=1).float()
+
+    with torch.inference_mode():
+        got = serve(m, params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        full = m.forward(params, {"tokens": tokens}).float()
+        want = full[:, LM_PROMPT - 1:]
+        prefill_ms = cuda_ms(lambda: m.prefill_caches(
+            params, {"tokens": tokens[:, :LM_PROMPT]},
+            m.init_caches(LM_B, LM_PROMPT + LM_STEPS, device=DEV)), reps=5)
+        total_ms = cuda_ms(lambda: serve(m, params), reps=3)
+        # the same weights in fp32
+        m32 = model_mod.build(dataclasses.replace(cfg, dtype=torch.float32))
+        p32 = m32.init(None, device=DEV)
+        for a, b in zip(params.parameters(), p32.parameters()):
+            b.data.copy_(a.float())
+        full32 = m32.forward(p32, {"tokens": tokens}).float()
+        got32 = serve(m32, p32)
+    err = (got - want).abs().amax(dim=(0, 2)).tolist()
+    bf16_cost = float((full - full32).abs().max())
+    bound = max(2 * bf16_cost, 2.0 ** -4)
+    err32 = float((got32 - full32[:, LM_PROMPT - 1:]).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    decode_ms = (total_ms - prefill_ms) / LM_STEPS
+    out = {"params": model_mod.param_count(params), "dtype": "bfloat16",
+           "batch": LM_B, "prompt": LM_PROMPT, "steps": LM_STEPS,
+           "max_abs_err_by_step": err, "bound": bound,
+           "bf16_vs_fp32": bf16_cost, "fp32_max_abs_err": err32,
+           "argmax_agree": agree, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms, "peak_mib": peak / 2 ** 20,
+           "param_mib": sum(p.numel() * p.element_size()
+                            for p in params.parameters()) / 2 ** 20,
+           "card": card}
+    summary["lm_decode"] = out
+    log(f"[lm] {cfg.arch_id} full width ({cfg.n_layers} layers, "
+        f"d={cfg.d_model}, vocab {cfg.vocab}), bf16, {out['params']:,} "
+        f"parameters: prefill B={LM_B} x "
+        f"{LM_PROMPT} in {prefill_ms:.3f} ms, {decode_ms:.3f} ms per decoded "
+        f"token (B={LM_B}), peak {out['peak_mib']:.1f} MiB over the "
+        f"weights, caches and activations (weights {out['param_mib']:.1f} "
+        f"MiB); decode vs "
+        f"forward max |d logit| {max(err):.5f} (bound {bound:.5f} = max(2 x "
+        f"bf16's own cost {bf16_cost:.5f}, 2^-4)), argmax agreement "
+        f"{agree:.4f}; fp32 {err32:.2e} (bound 1e-3); {card}")
+    check(max(err) <= bound, f"lm: decode differs from forward by "
+          f"{max(err)} > {bound} (by step {err})")
+    check(err32 <= 1e-3, f"lm: fp32 decode differs from forward by {err32}")
+
+
+def smoke_configs_on_card(summary: dict, card: str) -> None:
+    """Phase 19(b): the ten ``smoke()`` configs in fp32 (TF32 off) on the
+    same weights on the card and on the CPU: forward, prefill and one
+    decode step within rtol=atol=1e-4."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec
+    from repro_torch.models import model as model_mod
+    rows = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get(arch, smoke=True)
+        m = model_mod.build(cfg)
+        cpu = m.init(torch.Generator().manual_seed(SEED), device="cpu")
+        gpu = copy.deepcopy(cpu).to(DEV)
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 32))}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (2, cfg.n_frames, cfg.d_model)).astype(np.float32)
+        step = {"token": rng.integers(0, cfg.vocab, (2,)),
+                "pos": np.array([0, 1])}
+        res = {}
+        for dev, p in (("cpu", cpu), (DEV, gpu)):
+            b = {k: torch.from_numpy(np.array(v)).to(dev)
+                 for k, v in batch.items()}
+            s = {k: torch.from_numpy(np.array(v)).to(dev)
+                 for k, v in step.items()}
+            with torch.inference_mode():
+                if cfg.family == "encdec":
+                    s["enc_out"] = encdec.encode(p, cfg, b["frames"])
+                logits, caches = m.decode_step(
+                    p, s, m.init_caches(2, 8, device=dev))
+                res[dev] = [m.forward(p, b), m.prefill(p, b), logits,
+                            *caches.values()]
+        errs = []
+        for a, b in zip(res["cpu"], res[DEV]):
+            b = b.cpu().float()
+            a = a.float()
+            errs.append(float((a - b).abs().max()))
+            check(bool(torch.allclose(b, a, rtol=SMOKE_TOL, atol=SMOKE_TOL)),
+                  f"{arch}: the card differs from the CPU by {errs[-1]}")
+        rows[arch] = max(errs)
+    summary["smoke_configs"] = rows
+    log(f"[lm-smoke] ten smoke configs, fp32: the card equals the CPU "
+        f"(forward, prefill, one decode step and its caches) within "
+        f"rtol=atol=1e-4; max |d| by arch "
+        f"{ {k: float(f'{v:.3g}') for k, v in rows.items()} }; {card}")
+
+
+def retrieval(summary: dict, card: str) -> dict:
+    """Phase 19(c): ``examples/torch_serve_retrieval.py`` at its defaults
+    on the card (the full-width ``smollm-135m`` encoder, 20,000 documents,
+    IVF+RaBitQ over 141 clusters, k=1000, n_probe=100, 4 queries).  Its
+    recall@1000 is printed; the RaBitQ kernels the engine takes must show
+    launches.  Returns the run's launches."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_retrieval", ROOT / "examples" / "torch_serve_retrieval.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ops.reset_launches()
+    out = example.run([])
+    launches = dict(ops.LAUNCHES)
+    check(out["device"] == torch.cuda.get_device_name(0),
+          f"retrieval ran on {out['device']}")
+    check(out["launches"] == {k: v for k, v in launches.items() if v},
+          "retrieval: the example's launches are not the counters'")
+    rq_kernels = ("fused_rabitq_scan_batch", "rabitq_est")
+    check(any(launches[k] > 0 for k in rq_kernels),
+          f"retrieval: no RaBitQ kernel launched ({out['launches']})")
+    out["card"] = card
+    summary["retrieval"] = out
+    log(f"[retrieval] {out['arch']} (d={out['d_model']}, {out['dtype']}, "
+        f"{out['params']:,} parameters) over {out['n_docs']:,} documents: "
+        f"recall@{out['k']} {out['recall_at_k']:.4f}, n_reranked "
+        f"{out['n_reranked']}, corpus embedding {out['embed_ms']:.1f} ms, "
+        f"queries {out['query_embed_ms']:.2f} ms, search "
+        f"{out['search_ms']:.3f} ms; launches {out['launches']}; {card}")
     return launches
 
 
@@ -3289,9 +3675,9 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-17; 8 = torch.profiler over the batches of "
+                         "11-19; 8 = torch.profiler over the batches of "
                          "4, 9 and 11 and the queries of 12; 10 = phase 9's "
                          "band anatomy)")
     ap.add_argument("--out", default="",
@@ -3406,6 +3792,14 @@ def main(argv=None) -> int:
     if 17 in phases:
         l17 = net_serving(summary, card, errs)
         launches = {k: launches[k] + l17[k] for k in launches}
+    if 18 in phases:
+        l18 = replica_sharded(summary, card)
+        launches = {k: launches[k] + l18[k] for k in launches}
+    if 19 in phases:
+        lm_decode(summary, card)
+        smoke_configs_on_card(summary, card)
+        l19 = retrieval(summary, card)
+        launches = {k: launches[k] + l19[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "

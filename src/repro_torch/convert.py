@@ -11,6 +11,10 @@ Keys of ``arrays``, for both: ``ivf_centroids`` (C, d) f32, ``member_ids``
 ``pq_centroids`` (M, K, dsub) f32 and ``codes`` (N, M) uint8; RaBitQ adds
 ``rot`` (d, d) f32, ``codes`` (N, d) int8 +-1, ``norm_o`` and ``f_o``
 (N,) f32.
+
+``lm_params_from_numpy`` does the same for a model: the reference's
+parameter pytree, numpy leaves with the layers stacked on a leading axis,
+becomes the port's modules (``models.model.build(cfg).init``).
 """
 from __future__ import annotations
 
@@ -18,12 +22,14 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.index import pq as pq_mod
 from repro_torch.index import rabitq as rq_mod
 from repro_torch.index import search as search_mod
 from repro_torch.kernels.platform import resolve_device
+from repro_torch.models import model as model_mod
 
 IVF_FIELDS = ("ivf_centroids", "member_ids", "member_valid",
               "cluster_sizes", "vectors")
@@ -77,3 +83,55 @@ def rabitq_index_from_numpy(arrays: Mapping[str, np.ndarray], device=None):
     index = search_mod.RabitqIndex(ivf=ivf, rq=rq,
                                    vectors=t("vectors", np.float32))
     return index, ivf_mod.flat_layout(ivf)
+
+
+def _load_tree(mod: nn.Module, tree: Mapping) -> None:
+    """Copy ``tree``'s leaves into ``mod``'s parameters of the same names;
+    a ``ModuleList`` takes its entries from the leading axis."""
+    names = {n for n, _ in mod.named_parameters(recurse=False)} | {
+        n for n, _ in mod.named_children()}
+    if set(tree) != names:
+        raise KeyError(f"{type(mod).__name__}: the tree has {sorted(tree)}, "
+                       f"the module {sorted(names)}")
+    for name, val in tree.items():
+        child = getattr(mod, name)
+        if isinstance(child, nn.ModuleList):
+            _load_stack(child, val)
+        elif isinstance(child, nn.Module):
+            _load_tree(child, val)
+        else:
+            a = np.asarray(val)
+            if a.dtype.name == "bfloat16":      # numpy has no bfloat16
+                a = a.astype(np.float32)
+            if tuple(a.shape) != tuple(child.shape):
+                raise ValueError(f"{name}: shape {a.shape}, the module's "
+                                 f"{tuple(child.shape)}")
+            child.data.copy_(torch.from_numpy(np.array(a)))
+
+
+def _load_stack(mods: nn.ModuleList, tree) -> None:
+    for i, mod in enumerate(mods):
+        sub = _index_leaves(tree, i, len(mods))
+        if isinstance(mod, nn.ModuleList):
+            _load_stack(mod, sub)
+        else:
+            _load_tree(mod, sub)
+
+
+def _index_leaves(tree, i: int, n: int):
+    if isinstance(tree, Mapping):
+        return {k: _index_leaves(v, i, n) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.shape[0] != n:
+        raise ValueError(f"a stacked leaf has {a.shape[0]} layers, the "
+                         f"module {n}")
+    return a[i]
+
+
+def lm_params_from_numpy(tree: Mapping, cfg, device=None) -> nn.Module:
+    """The reference's parameter pytree (nested dicts of numpy arrays, the
+    layers stacked on a leading axis) as the port's parameters of
+    ``cfg`` on ``device``: every name and shape must match."""
+    params = model_mod.build(cfg).init(None, device=device)
+    _load_tree(params, tree)
+    return params

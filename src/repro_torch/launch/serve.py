@@ -45,12 +45,18 @@ retries (``--retries``), hedged sends (``--hedge``) and supervisor respawn
 (``--respawn-ms``); ``--faults`` injects a deterministic fault schedule at
 the replicas' service boundary (it requires ``--replicas > 1``), and the
 summary gains ``replicas``, ``faults``, ``outcome_digest`` and
-``fault_stats``:
+``fault_stats``.  With ``--shards`` the pool is rank 0's: its replicas
+are forks of rank 0's ``LockstepState``, whose engine calls, forks,
+predictor restores and swaps every other rank makes in lock step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
       --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
       --queries 24 --k-choices 50,120 --max-batch 4 --replicas 3 \
       --faults 'crash@1:t=0.05' --check-parity
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode async \
+      --device cpu --n 4000 --d 32 --n-clusters 32 --n-probe 8 \
+      --queries 24 --k-choices 50,120 --max-batch 4 --shards 2 \
+      --replicas 2 --faults 'crash@1:t=0.05' --check-parity
 
 ``--tuned auto`` (the default, as in the JAX CLI) fills the knobs the
 command line leaves unset from the port's own point store
@@ -77,9 +83,7 @@ drains.  The last line is the JAX CLI's net summary plus ``"device"``:
       --device cpu --n 4096 --d 16 --n-probe 8 --k-choices 10,100 \
       --workers 2 --requests 40 --check-replay
 
-Every mode, ``--method`` and flag of the JAX CLI is ported, except
-``--replicas`` with ``--shards`` (ROADMAP.md queue 1, item 12b), which
-raises.
+Every mode, ``--method`` and flag of the JAX CLI is ported.
 """
 from __future__ import annotations
 
@@ -233,11 +237,6 @@ def check_async(args) -> None:
     if args.faults and args.replicas <= 1:
         raise SystemExit("--faults requires --replicas > 1 (faults are "
                          "injected at the replica service boundary)")
-    if args.replicas > 1 and args.shards > 1:
-        raise NotImplementedError(
-            "--replicas with --shards is not ported: the lock-step protocol "
-            "broadcasts one state's engine calls, not a pool's (ROADMAP.md "
-            "queue 1, item 12b)")
 
 
 def serving_state(args, index, dev: torch.device, mesh=None,

@@ -227,6 +227,14 @@ class Replica:
         self.ws.reset(now)
 
 
+def _release(state) -> None:
+    """Drop a fork the pool replaced; a state without the hook (the
+    reference's duck-typed contract) needs nothing."""
+    release = getattr(state, "release", None)
+    if release is not None:
+        release()
+
+
 class ReplicaPool:
     """N replicas over one shared engine-build cache, plus respawn."""
 
@@ -354,7 +362,6 @@ class ReplicaPool:
         report: dict[tuple[int, int], dict] = {}
         for rid, replica in enumerate(self.replicas):
             old_states = replica.state.pred_states()
-            ns = self.base.fork()
             carried = {}
             for bucket, st in old_states.items():
                 key = (bucket.k, bucket.n_probe)
@@ -371,8 +378,9 @@ class ReplicaPool:
                 entry["carried"] = entry["carried"] and ok
                 entry["replicas"].append(
                     {"rid": rid, "tv": tv, "carried": ok})
-            ns._pred = carried
-            replica.swap_state(ns)
+            old = replica.state
+            replica.swap_state(self.base.fork(pred_states=carried))
+            _release(old)
             if on_step is not None:
                 on_step(rid)
         self.base.drift_report = report
@@ -384,7 +392,9 @@ class ReplicaPool:
         """Supervisor restart after a crash fault: fresh state fork (shared
         build artifacts via ``SearchEngine.replica_clone``), predictor
         states restored through the checksummed checkpoint path."""
-        state = self.base.fork(clone_engines=True)
-        state._pred = dict(self._restore_pred(rid))
+        old = self.replicas[rid].state
+        state = self.base.fork(clone_engines=True,
+                               pred_states=self._restore_pred(rid))
         self.replicas[rid].reset(state, now)
+        _release(old)
         return self.replicas[rid]

@@ -203,7 +203,8 @@ class ServingState:
             else self.index.ivf
         return ivf.centroids.detach().cpu().numpy()
 
-    def fork(self, clone_engines: bool = False) -> "ServingState":
+    def fork(self, clone_engines: bool = False,
+             pred_states=None) -> "ServingState":
         """A new ``ServingState`` sharing this one's (immutable) engines
         but owning FRESH per-bucket predictor states: each replica
         self-tunes on the traffic slice the affinity router sends it.
@@ -213,14 +214,28 @@ class ServingState:
         the pool.  With ``clone_engines=True`` (crash respawn) the fork
         gets its own cache seeded with ``SearchEngine.replica_clone()`` of
         every engine built so far: new engine objects over the same
-        tensors, while later builds stay private to it."""
-        twin = ServingState.__new__(ServingState)
+        tensors, while later builds stay private to it.  ``pred_states``
+        seeds the fork's predictor states (``restore_pred``)."""
+        twin = type(self).__new__(type(self))
         twin.__dict__.update(self.__dict__)
         if clone_engines:
             twin._engines = {key: eng.replica_clone()
                              for key, eng in self._engines.items()}
         twin._pred = {}
+        if pred_states:
+            twin.restore_pred(pred_states)
         return twin
+
+    def restore_pred(self, states) -> None:
+        """Set this state's per-bucket predictor states (a respawn's
+        checkpoint restore, a rolling swap's carried states); on a mesh
+        every rank takes them (``serving.lockstep``)."""
+        self._pred = dict(states)
+
+    def release(self) -> None:
+        """A replica's fork that the pool replaced (a respawn, a rolling
+        swap) is dropped; on a mesh every rank drops it
+        (``serving.lockstep``).  Nothing to do here."""
 
     # -- predictor states ---------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Structural rules of the PyTorch port: it imports neither JAX nor the JAX
+"""Structural rules of the PyTorch port: it (its models, configs and
+``examples/torch_*.py`` included) imports neither JAX nor the JAX
 package, its entry points refuse to fall back to the CPU when CUDA is
 missing, TF32 is off, and every kernel source carries its note."""
 import ast
@@ -21,7 +22,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imports(path: Path) -> set[str]:
@@ -39,6 +40,26 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_repro(path):
     bad = _imports(path) & {"jax", "jaxlib", "repro"}
     assert not bad, f"{path} imports {bad}"
+
+
+def test_models_and_configs_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("layers", "moe", "ssm", "transformer", "encdec", "model"):
+        assert f"src/repro_torch/models/{mod}.py" in names
+    assert "src/repro_torch/configs/smollm_135m.py" in names
+    assert "examples/torch_serve_retrieval.py" in names
+
+
+def test_model_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch import configs
+    from repro_torch.models import model as model_mod
+    m = model_mod.build(configs.get("smollm-135m", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        m.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        m.init_caches(2, 8)
+    assert m.init(0, device="cpu").embed.device.type == "cpu"
+    assert m.init(device="meta").embed.device.type == "meta"
 
 
 def test_tf32_is_off():

@@ -100,9 +100,9 @@ class _StubState:
     def centroids(self):
         return self._cents
 
-    def fork(self, clone_engines=False):
+    def fork(self, clone_engines=False, pred_states=None):
         twin = copy.copy(self)
-        twin._pred = {}
+        twin._pred = dict(pred_states or {})
         return twin
 
     def warmup(self, buckets):

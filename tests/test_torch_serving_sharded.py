@@ -207,8 +207,10 @@ def test_sharded_async_equals_single_device(setup, ranks, kind, tau):
 
 
 def test_lockstep_refuses_misuse(setup, tmp_path):
-    """The leader needs a mesh and rank 0, threads only each bucket's own
-    predictor state, and is not swapped; a follower needs a mesh."""
+    """The leader needs a mesh and rank 0 and threads only each bucket's
+    own predictor state (or a cold one, a drift probe's); a follower needs
+    a mesh.  A swap, which the leader once refused, is made (on a one-rank
+    mesh nobody follows) and returns the new generation."""
     import torch.distributed as tdist
     from repro_torch.core import distributed
     with pytest.raises(ValueError, match="mesh"):
@@ -224,11 +226,15 @@ def test_lockstep_refuses_misuse(setup, tmp_path):
         bucket = ShapeBucket(k=64, batch=BATCH, n_probe=N_PROBE)
         eng = state.engine(bucket)
         assert eng.k == 64 and eng.mesh is mesh
+        cold = eng.predictor_init()
         with pytest.raises(ValueError, match="own predictor"):
-            eng.search_batch(setup["qs"][:BATCH],
-                             pred_state=eng.predictor_init())
-        with pytest.raises(ValueError, match="swap"):
-            state.swap(setup["pq"])
+            eng.search_batch(setup["qs"][:BATCH], pred_state=cold._replace(
+                weight=cold.weight + 1))
+        _, warm = eng.search_batch(setup["qs"][:BATCH], pred_state=cold)
+        assert float(warm.weight) > 0
+        assert state.swap(setup["pq"]) == {} and state.generation == 1
+        eng = state.engine(bucket)
+        assert eng.generation == 1
         res = eng.search_batch(setup["qs"][:BATCH])
         assert res.ids.shape == (BATCH, 64)
         state.stop()
@@ -258,10 +264,18 @@ def test_cli_async_two_shards(method):
     assert sum(line.startswith("{") for line in lines) == 1
 
 
-def test_cli_async_sharded_flag_checks_run_before_any_rank():
+def test_cli_async_sharded_flag_checks_run_before_any_rank(capfd):
+    """A refused flag exits before any rank starts; ``--replicas`` with
+    ``--shards`` (item 12b), which once raised here, serves: rank 0's
+    replica pool over the two gloo ranks, parity 1.0."""
     with pytest.raises(SystemExit, match="flat"):
         serve.main(["--mode", "async", "--device", "cpu", "--shards", "2",
                     "--method", "flat"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        serve.main(["--mode", "async", "--device", "cpu", "--shards", "2",
-                    "--replicas", "2"])
+    assert serve.main(["--mode", "async", "--device", "cpu", "--shards", "2",
+                       "--replicas", "2", "--n", "3000", "--d", "16",
+                       "--n-clusters", "16", "--n-probe", "4", "--queries",
+                       "12", "--k-choices", "20,60", "--max-batch", "4",
+                       "--deadline-ms", "30000", "--check-parity"]) == 0
+    out = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+    assert out["shards"] == 2 and out["replicas"] == 2
+    assert out["parity"] == 1.0 and out["conserved"]
