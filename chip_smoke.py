@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-19
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-20
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
 Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
-18, 19, 7, 8, 10):
+18, 19, 20, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -146,9 +146,10 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      encoder, 20,000 documents, IVF+RaBitQ, k=1000): recall@1000, and the
      RaBitQ kernels it takes must show launches;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
-     (sharded IVF+PQ) and 14 (the mutable index with its segments) and
-     over single IVF+PQ+BBC queries (phase 12):
-     device time by operator and the device's idle share;
+     (sharded IVF+PQ) and 14 (the mutable index with its segments), over
+     single IVF+PQ+BBC queries (phase 12) and over three train steps of
+     phase 20(a): device time by kernel and operator and the device's
+     idle share;
  10. (only when asked for, after 9) the band anatomy of one RaBitQ batch:
      the band threshold, the static and warm predictive gates, and where
      the band lanes' lower-bound buckets lie.
@@ -157,7 +158,8 @@ Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
 of its two runs), 14 (its searches with the segments), 15 (each of its
 runs on the card), 16 (the timed sweep), 17 (the replay and the parity
 twin in this process; the workers launch in their own), 18 (each of its
-runs) and 19 (the retrieval example) and read after each;
+runs), 19 (the retrieval example) and 20 (which must launch none) and
+read after each;
 comparison and timing launches do not count.  A launch of the PQ, l2,
 bucket or fused kernel at one query counts under its single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -172,6 +174,7 @@ import atexit
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2936,6 +2939,219 @@ def retrieval(summary: dict, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 20: the training path
+# --------------------------------------------------------------------------
+
+# 20(a): full-width smollm-135m in bf16, one loss chunk of B x S tokens
+TRAIN_KW = dict(arch="smollm-135m", smoke=False, batch=8, seq=1024,
+                steps=30, ckpt_every=10)
+TRAIN_FAIL_AT = 25
+# 20(b): tests/test_torch_train_step.py's optimizer (eps 1e-4 bounds the
+# first step's sensitivity to gradient rounding: lr x |dg| / eps)
+SMOKE_OPT = dict(lr_peak=1e-3, warmup_steps=2, total_steps=10, eps=1e-4)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def train_full(summary: dict, card: str) -> None:
+    """Phase 20(a): ``launch.train`` on the full-width ``smollm-135m``
+    (bf16, ``remat``, seeded init) over ``TokenPipeline`` batches of
+    B=8 x S=1024: 30 steps with a checkpoint every 10, then the same run
+    through ``run_with_restarts`` with a failure injected at step 25 (a
+    restart from the step-21 checkpoint).  The runs' final losses must
+    agree within rtol 1e-5 (bitwise equality is reported), the loss must
+    fall (mean of the last five steps under the first five's) and every
+    step must be finite.  Reports ms per step (median of steps 5-29; each
+    step ends in the loss's read-back, so the card is synchronised),
+    tokens/s, model FLOPs (6 N D) and the analytic step FLOPs per second
+    and their share of the H100's bf16 peak, the peak memory over what
+    earlier phases hold, and the seconds to restore, write and verify one
+    checkpoint of the run's state."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+    kw = dict(TRAIN_KW, device=DEV)
+    cfg = configs.get(kw["arch"], smoke=kw["smoke"])
+    b, s, steps = kw["batch"], kw["seq"], kw["steps"]
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.monotonic()
+        run1 = train_mod.train(ckpt_dir=f"{tmp}/straight", **kw)
+        run1_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        ckpt_bytes = _dir_bytes(f"{tmp}/straight") / 3     # keep_last=3
+        shutil.rmtree(f"{tmp}/straight")
+        t0 = time.monotonic()
+        run2 = train_mod.run_with_restarts(ckpt_dir=f"{tmp}/restarted",
+                                           fail_at=TRAIN_FAIL_AT, **kw)
+        run2_s = time.monotonic() - t0
+        # one checkpoint of the run's state: restore run 2's last (its
+        # checksums verified first), write it again, verify the copy
+        params = model_mod.build(cfg).init(None, device=DEV)
+        t0 = time.monotonic()
+        params, opt_state, at = train_mod.restore_checkpoint(
+            CheckpointManager(f"{tmp}/restarted"), params,
+            adamw.init(params))
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        mgr = CheckpointManager(f"{tmp}/copy")
+        t0 = time.monotonic()
+        mgr.save(at, train_mod.checkpoint_tree(params, opt_state), wait=True)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        mgr.verify(at)
+        verify_s = time.monotonic() - t0
+        del params, opt_state
+    resumed = run1["losses"][run2["start"]:]
+    bitwise = run1["final_loss"] == run2["final_loss"]
+    n_bitwise = sum(a == b_ for a, b_ in zip(resumed, run2["losses"]))
+    first, last = (float(np.mean(run1["losses"][:5])),
+                   float(np.mean(run1["losses"][-5:])))
+    step_ms = 1e3 * float(np.median(run1["step_times"][5:]))
+    mflops = roofline.model_flops(cfg, "train", s, b)
+    aflops = roofline.analytic_flops(cfg, "train", s, b)
+    n_params = model_mod.param_count(model_mod.build(cfg).init(
+        device="meta"))
+    dtype = str(cfg.dtype).removeprefix("torch.")
+    out = {"arch": cfg.arch_id, "params": n_params,
+           "dtype": dtype, "remat": cfg.remat, "batch": b, "seq": s,
+           "steps": steps, "losses": run1["losses"],
+           "restarted_losses": run2["losses"], "start": run2["start"],
+           "final_loss": run1["final_loss"],
+           "restarted_final_loss": run2["final_loss"],
+           "restart_bitwise": bitwise,
+           "resumed_steps_bitwise": f"{n_bitwise}/{len(resumed)}",
+           "ms_per_step": step_ms, "first_step_ms":
+               1e3 * run1["step_times"][0],
+           "tokens_per_s": b * s / (step_ms * 1e-3),
+           "model_flops": mflops, "analytic_flops": aflops,
+           "model_flops_per_s": mflops / (step_ms * 1e-3),
+           "analytic_flops_per_s": aflops / (step_ms * 1e-3),
+           "model_flops_share": mflops / (step_ms * 1e-3)
+           / roofline.PEAK_FLOPS,
+           "analytic_flops_share": aflops / (step_ms * 1e-3)
+           / roofline.PEAK_FLOPS,
+           "peak_mib": peak / 2 ** 20, "ckpt_mib": ckpt_bytes / 2 ** 20,
+           "restore_s": restore_s, "write_s": write_s, "verify_s": verify_s,
+           "run_s": [run1_s, run2_s], "card": card}
+    summary["train"] = out
+    log(f"[train] {cfg.arch_id} full width ({cfg.n_layers} layers, d="
+        f"{cfg.d_model}, vocab {cfg.vocab}), {dtype}, remat {cfg.remat}, "
+        f"{n_params:,} "
+        f"parameters, B={b} x S={s}: {step_ms:.2f} ms per step (median "
+        f"of steps 5-{steps - 1}; first step {out['first_step_ms']:.0f} ms), "
+        f"{out['tokens_per_s']:,.0f} tokens/s, model FLOPs "
+        f"{mflops:.4g} a step = {out['model_flops_per_s'] / 1e12:.1f} "
+        f"TFLOP/s ({100 * out['model_flops_share']:.2f}% of the 989 TFLOP/s "
+        f"bf16 peak), analytic {aflops:.4g} = "
+        f"{out['analytic_flops_per_s'] / 1e12:.1f} TFLOP/s "
+        f"({100 * out['analytic_flops_share']:.2f}%); peak "
+        f"{out['peak_mib']:.1f} MiB over earlier phases; {card}")
+    log(f"[train-restart] loss {first:.4f} (steps 0-4) -> {last:.4f} (steps "
+        f"{steps - 5}-{steps - 1}); failure at {TRAIN_FAIL_AT}, resumed at "
+        f"{run2['start']}: final {run1['final_loss']!r} straight, "
+        f"{run2['final_loss']!r} restarted, bitwise {bitwise} "
+        f"({n_bitwise}/{len(resumed)} resumed steps bitwise); checkpoint "
+        f"{out['ckpt_mib']:.1f} MiB: restore {restore_s:.2f} s, write "
+        f"{write_s:.2f} s, verify {verify_s:.2f} s; runs {run1_s:.1f} s / "
+        f"{run2_s:.1f} s")
+    check(run2["start"] > 0, "train: the restarted run did not resume")
+    check(all(np.isfinite(run1["losses"] + run2["losses"])),
+          "train: a step's loss is not finite")
+    check(bool(np.isclose(run2["final_loss"], run1["final_loss"],
+                          rtol=1e-5, atol=0)),
+          f"train: restarted final loss {run2['final_loss']} against "
+          f"{run1['final_loss']}")
+    check(last < first, f"train: the loss did not fall ({first} -> {last})")
+
+
+def smoke_train_on_card(summary: dict, card: str) -> None:
+    """Phase 20(b): the ten ``smoke()`` configs in fp32 (TF32 off), seeded
+    weights, ``tests/test_arch_smoke.py``'s batch at B=4 x 32: one
+    ``make_train_step`` on the card equals the same step on the CPU, and
+    two microbatches on the card equal one, within rtol=atol=1e-4 on the
+    loss, ``grad_norm`` and every updated parameter."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+    rows = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get(arch, smoke=True)
+        m = model_mod.build(cfg)
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)),
+                 "targets": rng.integers(0, cfg.vocab, (4, 32))}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = rng.standard_normal(
+                (4, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (4, cfg.n_frames, cfg.d_model)).astype(np.float32)
+
+        def step(dev, mb):
+            p = m.init(torch.Generator().manual_seed(SEED), device=dev)
+            b = {k: torch.from_numpy(np.array(v)).to(dev)
+                 for k, v in batch.items()}
+            fn = model_mod.make_train_step(m, adamw.AdamWConfig(**SMOKE_OPT),
+                                           mb)
+            p, _, met = fn(p, adamw.init(p), b)
+            return ([met[k].float().cpu() for k in ("loss", "grad_norm",
+                                                    "lr")]
+                    + [t.detach().float().cpu() for t in p.parameters()])
+
+        cpu, gpu, gpu2 = step("cpu", 1), step(DEV, 1), step(DEV, 2)
+        errs = []
+        for what, got in (("card vs CPU", gpu), ("2 microbatches", gpu2)):
+            for a, g in zip(cpu if what == "card vs CPU" else gpu, got):
+                errs.append(float((a - g).abs().max()))
+                check(bool(torch.allclose(g, a, rtol=SMOKE_TOL,
+                                          atol=SMOKE_TOL)),
+                      f"{arch} train step, {what}: differs by {errs[-1]}")
+        rows[arch] = max(errs)
+    summary["smoke_train"] = rows
+    log(f"[train-smoke] ten smoke configs, fp32: one train step on the card "
+        f"equals the CPU's, and two microbatches equal one, within "
+        f"rtol=atol=1e-4 (loss, grad_norm, lr, every updated parameter); "
+        f"max |d| by arch { {k: float(f'{v:.3g}') for k, v in rows.items()} }"
+        f"; {card}")
+
+
+def train_example(summary: dict, card: str) -> None:
+    """Phase 20(c): ``examples/torch_train_lm.py`` at its defaults on the
+    card (smoke ``smollm-135m``, 60 steps of 8 x 64 tokens, a checkpoint
+    every 20): a finite final loss below the first step's."""
+    import importlib.util
+    import math
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = example.run([])
+    check(out["device"] == torch.cuda.get_device_name(0),
+          f"train example ran on {out['device']}")
+    check(math.isfinite(out["final_loss"])
+          and out["final_loss"] < out["first_loss"],
+          f"train example: loss {out['first_loss']} -> {out['final_loss']}")
+    summary["train_example"] = out
+    log(f"[train-example] examples/torch_train_lm.py: loss "
+        f"{out['first_loss']:.4f} -> {out['final_loss']:.4f}; {card}")
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh-sharded deployment
 # --------------------------------------------------------------------------
 
@@ -3633,41 +3849,76 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
     """torch.profiler over a few warm main-path batches (``single``: one
     (d,) query per call, ``batches`` of them): device time by operator (per
     call) and the device's busy share of the window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
     qb = [qs[i] if single else qs[i * b:(i + 1) * b]
           for i in range(batches)]
     eng.search(qb[0])
+    return profile_calls([lambda q=q: eng.search(q) for q in qb], "batch")
+
+
+def profile_calls(calls, unit: str) -> dict:
+    """torch.profiler over ``calls`` (warm): device time by kernel and by
+    operator per call, and the device's busy share of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    n = len(calls)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for q in qb:
-            eng.search(q)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     cuda_type = torch.autograd.DeviceType.CUDA
     busy_ms = sum(e.device_time for e in prof.events()
                   if e.device_type == cuda_type) / 1e3
-    out = {"wall_ms_per_batch": wall_ms / batches,
-           "device_busy_ms_per_batch": busy_ms / batches,
+    out = {f"wall_ms_per_{unit}": wall_ms / n,
+           f"device_busy_ms_per_{unit}": busy_ms / n,
            "device_idle_share": 1.0 - busy_ms / wall_ms}
-    log(f"[profile] wall {out['wall_ms_per_batch']:.3f} ms/batch, device "
-        f"busy {out['device_busy_ms_per_batch']:.3f} ms/batch, idle share "
+    log(f"[profile] wall {wall_ms / n:.3f} ms/{unit}, device busy "
+        f"{busy_ms / n:.3f} ms/{unit}, idle share "
         f"{out['device_idle_share']:.3f}")
     # device kernels by name, and the PyTorch operators that launched them
     # (an operator's self device time is the time of its own kernels)
     for label, keep in (("kernels", lambda ev: ev.device_type == cuda_type),
                         ("operators", lambda ev: ev.key.startswith("aten::"))):
-        rows = sorted(((ev.key, ev.self_device_time_total / 1e3 / batches,
-                        ev.count / batches) for ev in prof.key_averages()
+        rows = sorted(((ev.key, ev.self_device_time_total / 1e3 / n,
+                        ev.count / n) for ev in prof.key_averages()
                        if keep(ev) and ev.self_device_time_total > 0),
                       key=lambda r: -r[1])[:15]
-        out[label] = [{"name": k, "device_ms_per_batch": t,
-                       "calls_per_batch": c} for k, t, c in rows]
+        out[label] = [{"name": k, f"device_ms_per_{unit}": t,
+                       f"calls_per_{unit}": c} for k, t, c in rows]
         for k, t, c in rows:
             log(f"[profile] {label[:-1]:8s} {t:9.4f} ms {c:6.1f}x  {k[:90]}")
     return out
+
+
+def profile_train(steps: int = 3) -> dict:
+    """Phase 8 with 20: torch.profiler over ``steps`` warm train steps of
+    phase 20(a)'s model and batch (full-width bf16 ``smollm-135m``, B=8 x
+    S=1024, one ``TokenPipeline`` batch)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+    cfg = configs.get(TRAIN_KW["arch"], smoke=TRAIN_KW["smoke"])
+    m = model_mod.build(cfg)
+    params = m.init(torch.Generator().manual_seed(SEED), device=DEV)
+    state = [params, adamw.init(params)]
+    step = model_mod.make_train_step(m, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_KW["steps"]))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in TokenPipeline(
+        cfg.vocab, TRAIN_KW["batch"], TRAIN_KW["seq"],
+        seed=SEED).batch_at(0).items()}
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    for _ in range(2):
+        one()
+    log(f"[profile] {steps} train steps of phase 20(a):")
+    return profile_calls([one] * steps, "step")
 
 
 # --------------------------------------------------------------------------
@@ -3675,11 +3926,11 @@ def profile(eng, qs, b: int = 32, batches: int = 3,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19",
+                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19,20",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-19; 8 = torch.profiler over the batches of "
-                         "4, 9 and 11 and the queries of 12; 10 = phase 9's "
-                         "band anatomy)")
+                         "11-20; 8 = torch.profiler over the batches of "
+                         "4, 9 and 11, the queries of 12 and the train "
+                         "steps of 20; 10 = phase 9's band anatomy)")
     ap.add_argument("--out", default="",
                     help="also write the summary JSON to this path")
     args = ap.parse_args(argv)
@@ -3800,6 +4051,16 @@ def main(argv=None) -> int:
         smoke_configs_on_card(summary, card)
         l19 = retrieval(summary, card)
         launches = {k: launches[k] + l19[k] for k in launches}
+    if 20 in phases:
+        # the training path takes none of the twelve kernels: a launch
+        # here would be a stray search
+        ops.reset_launches()
+        train_full(summary, card)
+        smoke_train_on_card(summary, card)
+        train_example(summary, card)
+        l20 = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"[train] kernel launches over phase 20: {l20 or 'none'}")
+        check(not l20, f"phase 20 launched search kernels: {l20}")
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
@@ -3819,8 +4080,9 @@ def main(argv=None) -> int:
                                    rq_queries[0]), errs))
         summary["timing"] = times
     if 8 in phases:
-        check(eng is not None or rq_eng is not None,
-              "phase 8 profiles the paths of phases 4, 9 and 11: needs one")
+        check(eng is not None or rq_eng is not None or 20 in phases,
+              "phase 8 profiles the paths of phases 4, 9, 11 and 20: needs "
+              "one")
         if eng is not None:
             summary["profile"] = profile(eng, main_queries)
         if rq_eng is not None:
@@ -3834,6 +4096,8 @@ def main(argv=None) -> int:
             log("[profile] single IVF+PQ+BBC queries (phase 12):")
             summary["profile_single"] = profile(eng, main_queries,
                                                 batches=8, single=True)
+        if 20 in phases:
+            summary["profile_train"] = profile_train()
     if 10 in phases:
         check(rq_eng is not None, "phase 10 reads phase 9's engine")
         summary["band_anatomy"] = band_anatomy(rq_eng, rq_queries[:32],

@@ -17,6 +17,13 @@ package's manager writes for the same arrays, and either manager restores
 the other's checkpoint.  ``None`` is an empty subtree, as in JAX.  The
 reference's ``treedef`` string needs JAX to produce and is never read on
 restore, so the port does not write it.
+
+A bfloat16 leaf is written as the reference writes one: its 16 bits as a
+``'<V2'`` ``.npy`` (numpy has no bfloat16) and ``"dtype": "bfloat16"`` in
+the manifest, so its file, digest and manifest entry are the reference's
+for the same bits.  ``restore`` reads a 2-byte void leaf as bfloat16 (the
+only 2-byte void either manager writes), and an int16 or uint16 leaf as
+bfloat16 bits when ``like``'s leaf is bfloat16.
 """
 from __future__ import annotations
 
@@ -87,11 +94,55 @@ def _unflatten(like, leaves: list):
     return leaves.pop(0)
 
 
+_BF16_VOID = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of the leaf (never a view of the caller's buffer)."""
+    """A host copy of the leaf (never a view of the caller's buffer); a
+    bfloat16 tensor becomes its bits as 2-byte voids."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_VOID)
+        return t.numpy()
     return np.array(leaf)
+
+
+def _save_leaf(path: str, leaf: np.ndarray) -> str:
+    """``np.save`` the leaf; returns the manifest's dtype string.  2-byte
+    voids (bfloat16 bits) get the header the reference's numpy writes for
+    a bfloat16 array (``'<V2'``; numpy's own would read ``'|V2'``)."""
+    if leaf.dtype != _BF16_VOID:
+        np.save(path, leaf)
+        return str(leaf.dtype)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False, "shape": leaf.shape})
+        f.write(np.ascontiguousarray(leaf).tobytes())
+    return "bfloat16"
+
+
+def _from_host(arr: np.ndarray, like) -> torch.Tensor:
+    """The leaf read from disk as a tensor typed like ``like`` (a tensor:
+    its dtype and device; else its numpy dtype, on the CPU), with its own
+    shape (``np.ascontiguousarray`` would make a 0-d leaf 1-d)."""
+    is_tensor = isinstance(like, torch.Tensor)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize != 2:
+        raise ValueError(f"a {arr.dtype.itemsize}-byte void leaf is not "
+                         f"bfloat16 bits; cannot restore it")
+    if arr.dtype.kind == "V" or (
+            is_tensor and like.dtype == torch.bfloat16
+            and arr.dtype in (np.int16, np.uint16)):
+        bits = torch.from_numpy(np.asarray(arr, order="C").view(np.int16))
+        if is_tensor:
+            return bits.view(torch.bfloat16).to(device=like.device,
+                                                dtype=like.dtype)
+        arr = bits.view(torch.bfloat16).float().numpy()
+    if is_tensor:
+        return torch.from_numpy(np.asarray(arr, order="C")).to(
+            device=like.device, dtype=like.dtype)
+    return torch.from_numpy(np.asarray(
+        arr.astype(np.asarray(like).dtype, copy=False), order="C"))
 
 
 class CheckpointManager:
@@ -133,12 +184,12 @@ class CheckpointManager:
         digests = []
         for i, (key, leaf) in enumerate(host):
             fname = f"leaf_{i:05d}.npy"
-            np.save(os.path.join(tmp, fname), leaf)
+            dtype = _save_leaf(os.path.join(tmp, fname), leaf)
             digest = _file_sha256(os.path.join(tmp, fname))
             digests.append(digest)
             manifest["leaves"][key] = {
                 "file": fname, "shape": list(leaf.shape),
-                "dtype": str(leaf.dtype), "index": i, "sha256": digest,
+                "dtype": dtype, "index": i, "sha256": digest,
             }
         # order-stable over the leaf digests: a garbled leaf and a
         # manifest/leaf mismatch both fail verification
@@ -226,11 +277,5 @@ class CheckpointManager:
             want = tuple(np.shape(leaf_like))
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: ckpt {arr.shape} vs want {want}")
-            if isinstance(leaf_like, torch.Tensor):
-                t = torch.from_numpy(np.ascontiguousarray(arr)).to(
-                    device=leaf_like.device, dtype=leaf_like.dtype)
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(
-                    arr.astype(np.asarray(leaf_like).dtype, copy=False)))
-            leaves.append(t)
+            leaves.append(_from_host(arr, leaf_like))
         return _unflatten(like, leaves), step

@@ -1,1 +1,2 @@
-"""Synthetic corpora."""
+"""Synthetic corpora (``data.synthetic``) and the synthetic token stream
+(``data.pipeline``)."""

@@ -8,7 +8,7 @@ self-attention + cross-attention + GELU MLP, learned positions.  The
 layers are ``nn.ModuleList``s run in a loop.  Decode caches hold the
 decoder's self-attention keys and values, stacked over its layers and
 updated in place at ``pos``; the cross-attention reads the encoder output
-the caller passes (``enc_out``).
+the caller passes (``enc_out``).  ``loss`` is the training objective.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params, full, normal
-from repro_torch.models.transformer import LMConfig
+from repro_torch.models.transformer import LMConfig, chunked_nll
 
 POS_DEC = 40960     # rows of the learned decoder position table
 
@@ -158,6 +158,14 @@ def prefill_last_logits(params, cfg: LMConfig, frames, tokens):
     enc = encode(params, cfg, frames)
     x = _dec_hidden(params, cfg, enc, tokens)
     return x[:, -1, :] @ params["unembed"]
+
+
+def loss(params, cfg: LMConfig, frames, tokens, targets):
+    """Mean next-token cross-entropy of the teacher-forced decoder, over
+    sequence chunks as ``transformer.lm_loss`` computes it."""
+    enc = encode(params, cfg, frames)
+    x = _dec_hidden(params, cfg, enc, tokens)
+    return chunked_nll(x, targets, params["unembed"])
 
 
 def init_decode_caches(cfg: LMConfig, batch: int, max_seq: int,

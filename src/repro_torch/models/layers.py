@@ -27,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class Params(nn.Module):
@@ -40,8 +41,19 @@ class Params(nn.Module):
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A serving parameter (no gradient)."""
+    """A parameter, made without a gradient so that serving records no
+    autograd graph; ``model.make_train_step`` turns gradients on for the
+    module it trains."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def recompute(fn, *args):
+    """``fn(*args)``; while autograd records, its activations are not kept
+    but recomputed in the backward (``torch.utils.checkpoint``: the
+    reference's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def normal(gen: torch.Generator | None, shape, dtype, device,
@@ -126,9 +138,10 @@ FLASH_THRESHOLD = 2048  # attend in query chunks at/above this length
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, q_chunk: int = 512) -> torch.Tensor:
     """``attention_scores`` over query chunks: the same function, with the
-    live logits bounded to (B, H, q_chunk, S_k) for long sequences."""
-    outs = [attention_scores(q[:, i:i + q_chunk], k, v, causal=causal,
-                             q_offset=i)
+    live logits bounded to (B, H, q_chunk, S_k) for long sequences.  While
+    autograd records, each chunk's logits are recomputed in the backward
+    (the reference's flash blocks are rematerialised too)."""
+    outs = [recompute(attention_scores, q[:, i:i + q_chunk], k, v, causal, i)
             for i in range(0, q.shape[1], q_chunk)]
     return torch.cat(outs, dim=1)
 

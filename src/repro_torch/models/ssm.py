@@ -9,7 +9,9 @@ depthwise conv on (x, B, C) and a gated RMSNorm output.
 The scan uses the SSD block decomposition with chunk length L: the
 intra-chunk term is an (L x L) masked "attention" per head, the
 inter-chunk term carries the (B, H, P, N) state from chunk to chunk (a
-Python loop over the chunks: the reference's ``lax.scan``).  Decode is the
+Python loop over the chunks: the reference's ``lax.scan``; while autograd
+records, each chunk is recomputed in the backward, as the reference's
+``jax.checkpoint`` on the scan body does).  Decode is the
 recurrence ``h <- h * exp(dt*A) + dt * (x ⊗ B);  y = C·h + D*x``.
 """
 from __future__ import annotations
@@ -119,27 +121,35 @@ def ssd_chunked(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                                    device=xh.device))
     ys = []
     for c in range(nc):
-        xcs, bcs, ccs, dtcs = xc[:, c], bc[:, c], cc[:, c], dtc[:, c]
-        lcs = torch.cumsum(da[:, c], dim=1)        # (B, L, H)
-        # intra-chunk (masked attention form)
-        cb = torch.einsum("bin,bjn->bij", ccs, bcs)            # (B, L, L)
-        dmat = lcs[:, :, None, :] - lcs[:, None, :, :]         # (B, L, L, H)
-        mat = torch.where(causal[None, :, :, None],
-                          torch.exp(dmat) * dtcs[:, None, :, :],
-                          torch.zeros((), device=xh.device))
-        mat = mat * cb[..., None]
-        y_intra = torch.einsum("bijh,bjhp->bihp", mat, xcs)
-        # inter-chunk (carry the state in)
-        y_inter = torch.einsum("bin,bhpn->bihp", ccs, hstate)
-        y_inter = y_inter * torch.exp(lcs)[:, :, :, None]
-        # state update
-        total = lcs[:, -1, :]                      # (B, H)
-        decay_to_end = torch.exp(total[:, None, :] - lcs)      # (B, L, H)
-        contrib = torch.einsum("bjhp,bjn->bhpn",
-                               xcs * (dtcs * decay_to_end)[..., None], bcs)
-        hstate = hstate * torch.exp(total)[:, :, None, None] + contrib
-        ys.append(y_intra + y_inter)
+        # the reference's per-chunk remat: the (B, L, L, H) intra-chunk
+        # tensors are recomputed in the backward, not kept per chunk
+        hstate, y = L.recompute(_ssd_chunk, hstate, xc[:, c], bc[:, c],
+                                cc[:, c], da[:, c], dtc[:, c], causal)
+        ys.append(y)
     return torch.stack(ys, dim=1).reshape(b, s, h, p), hstate
+
+
+def _ssd_chunk(hstate, xcs, bcs, ccs, dacs, dtcs, causal):
+    """One chunk of the SSD scan: (the state after it, its output)."""
+    lcs = torch.cumsum(dacs, dim=1)                # (B, L, H)
+    # intra-chunk (masked attention form)
+    cb = torch.einsum("bin,bjn->bij", ccs, bcs)                # (B, L, L)
+    dmat = lcs[:, :, None, :] - lcs[:, None, :, :]             # (B, L, L, H)
+    mat = torch.where(causal[None, :, :, None],
+                      torch.exp(dmat) * dtcs[:, None, :, :],
+                      torch.zeros((), device=xcs.device))
+    mat = mat * cb[..., None]
+    y_intra = torch.einsum("bijh,bjhp->bihp", mat, xcs)
+    # inter-chunk (carry the state in)
+    y_inter = torch.einsum("bin,bhpn->bihp", ccs, hstate)
+    y_inter = y_inter * torch.exp(lcs)[:, :, :, None]
+    # state update
+    total = lcs[:, -1, :]                          # (B, H)
+    decay_to_end = torch.exp(total[:, None, :] - lcs)          # (B, L, H)
+    contrib = torch.einsum("bjhp,bjn->bhpn",
+                           xcs * (dtcs * decay_to_end)[..., None], bcs)
+    hnew = hstate * torch.exp(total)[:, :, None, None] + contrib
+    return hnew, y_intra + y_inter
 
 
 def ssm_forward(p, x: torch.Tensor, dims: SSMDims, chunk: int = 128,

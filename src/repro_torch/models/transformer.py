@@ -10,6 +10,7 @@ once per segment.  VLMs prepend projected ``patch_embeds``.
 
 Modes:
   forward(tokens | patches)       -> logits             (forward compute)
+  lm_loss(tokens, targets)        -> mean next-token NLL (training)
   prefill_last_logits(tokens)     -> last logits        (the reference's)
   prefill(tokens, caches)         -> last logits, caches (fills the caches)
   decode_step(token, caches, pos) -> logits, caches     (one step)
@@ -18,7 +19,11 @@ Decode caches are the reference's dict of layer-stacked tensors, updated
 in place at ``pos`` and returned.  ``kv_quant`` keeps an int8 KV cache
 with a per-position scale, quantising only the new position each step.
 The reference's sharding hints (``shard.constrain``) are no-ops without a
-mesh and are left out; ``remat`` does not apply to serving.
+mesh and are left out.  With ``cfg.remat`` each layer (for the hybrid,
+the shared attention block, as the reference wraps them) runs under
+``torch.utils.checkpoint`` while autograd records, so its activations are
+recomputed in the backward; serving records nothing and recomputes
+nothing.
 """
 from __future__ import annotations
 
@@ -218,6 +223,11 @@ def _mlp_half(lp, h, cfg: LMConfig):
     return h + L.swiglu(lp["mlp"], z)
 
 
+def _maybe_remat(cfg: LMConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``cfg.remat``."""
+    return L.recompute(fn, *args) if cfg.remat else fn(*args)
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -248,16 +258,17 @@ def _hidden(params, cfg: LMConfig, tokens, patch_embeds=None,
     x, positions = _embed(params, cfg, tokens, patch_embeds)
     if cfg.family in ("dense", "moe", "vlm"):
         for i, lp in enumerate(params["layers"]):
-            x = _attn_layer(lp, x, cfg, positions, caches, i)
+            x = _maybe_remat(cfg, _attn_layer, lp, x, cfg, positions, caches,
+                             i)
     elif cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
-            x = _ssm_layer(lp, x, cfg, caches, (i,))
+            x = _maybe_remat(cfg, _ssm_layer, lp, x, cfg, caches, (i,))
     elif cfg.family == "hybrid":
         for i, seg in enumerate(params["layers"]):
             for j, lp in enumerate(seg):
                 x = _ssm_layer(lp, x, cfg, caches, (i, j))
-            x = _attn_layer(params["shared_attn"], x, cfg, positions, caches,
-                            i)
+            x = _maybe_remat(cfg, _attn_layer, params["shared_attn"], x, cfg,
+                             positions, caches, i)
     else:
         raise ValueError(cfg.family)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -277,6 +288,40 @@ def prefill(params, cfg: LMConfig, tokens, caches: dict | None = None,
 def prefill_last_logits(params, cfg: LMConfig, tokens, patch_embeds=None):
     """The whole-sequence backbone, logits of the LAST position only."""
     return prefill(params, cfg, tokens, None, patch_embeds)[0]
+
+
+LOSS_CHUNK = 1024  # sequence chunk for the cross-entropy (bounds (B,c,V) temp)
+
+
+def _chunk_ll(xc, tc, unembed):
+    """Sum of the targets' log-probabilities over one chunk, in fp32."""
+    logp = torch.log_softmax((xc @ unembed).float(), dim=-1)
+    return torch.gather(logp, -1, tc[..., None].long()).sum()
+
+
+def chunked_nll(x, targets, unembed):
+    """Mean negative log-likelihood of ``targets`` (B, S) under ``x @
+    unembed`` (x: (B, S, d)), over sequence chunks of ``LOSS_CHUNK`` (the
+    whole sequence when it does not divide), summed in chunk order.  Each
+    chunk's (B, c, V) logits are recomputed in the backward, not kept."""
+    b, s, _ = x.shape
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        chunk = s
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        tot = tot + L.recompute(_chunk_ll, x[:, c:c + chunk],
+                                targets[:, c:c + chunk], unembed)
+    return -tot / (b * s)
+
+
+def lm_loss(params, cfg: LMConfig, tokens, targets, patch_embeds=None):
+    """Mean next-token cross-entropy of ``targets`` (B, S); a vlm's patch
+    positions are left out."""
+    x = _hidden(params, cfg, tokens, patch_embeds)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:, :]
+    return chunked_nll(x, targets, params["unembed"])
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,9 @@ gives the same leaf files, the same per-leaf sha256 digests and the same
 whole-checkpoint checksum; each manager restores the other's checkpoint.
 Verification runs before any leaf is deserialized, a corrupt leaf or
 manifest raises ``CorruptCheckpointError``, retention keeps the last
-``keep_last`` steps, and an async write lands the same bytes.
+``keep_last`` steps, and an async write lands the same bytes.  A bfloat16
+leaf is written in the reference's bytes (its file, sha256 and manifest
+entry), and the port restores the reference's bfloat16 leaf bit for bit.
 """
 import json
 from typing import NamedTuple
@@ -87,6 +89,7 @@ def test_each_restores_the_others(tmp_path):
     assert step == 1 and isinstance(got["nested"]["pred"], Pair)
     assert list(got) == list(tree)
     assert torch.equal(got["vectors"], torch.from_numpy(tree["vectors"]))
+    assert got["count"].shape == got["nested"]["z"][1].shape == ()
     assert got["nested"]["a"][0].dtype == torch.bool
     assert torch.equal(got["nested"]["z"][0],
                        torch.from_numpy(tree["nested"]["z"][0]))
@@ -172,3 +175,63 @@ def test_save_copies_leaves_before_returning(tmp_path):
     tm.wait()
     assert torch.equal(tm.restore({"t": torch.zeros(1000)})[0]["t"],
                        torch.ones(1000))
+
+
+def _bf16_bits(rng, shape):
+    """bfloat16 values as their 16 bits, every pattern but NaNs."""
+    bits = rng.integers(0, 1 << 16, shape).astype(np.uint16)
+    exp_all_ones = (bits & 0x7F80) == 0x7F80
+    return np.where(exp_all_ones, bits & 0xFF7F, bits).astype(np.uint16)
+
+
+def test_bf16_leaf_has_the_references_bytes(tmp_path):
+    bits = _bf16_bits(np.random.default_rng(3), (7, 5))
+    jtree = {"w": jnp.asarray(bits).view(jnp.bfloat16),
+             "step": np.array(4, np.int32)}
+    ttree = {"w": torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16),
+             "step": torch.tensor(4, dtype=torch.int32)}
+    jmanager.CheckpointManager(str(tmp_path / "jax")).save(2, jtree)
+    manager.CheckpointManager(str(tmp_path / "port")).save(2, ttree)
+    jm, tm = _manifest(tmp_path / "jax", 2), _manifest(tmp_path / "port", 2)
+    assert tm["leaves"] == jm["leaves"] and tm["checksum"] == jm["checksum"]
+    assert tm["leaves"]["w"]["dtype"] == "bfloat16"
+    for meta in tm["leaves"].values():
+        a = (tmp_path / "port" / "step_00000002" / meta["file"]).read_bytes()
+        b = (tmp_path / "jax" / "step_00000002" / meta["file"]).read_bytes()
+        assert a == b
+    # restored bit for bit, from either manager's files
+    like = {"w": torch.zeros(7, 5, dtype=torch.bfloat16),
+            "step": torch.zeros((), dtype=torch.int32)}
+    for d in ("jax", "port"):
+        got, _ = manager.CheckpointManager(str(tmp_path / d)).restore(like)
+        assert got["w"].dtype == torch.bfloat16
+        assert torch.equal(got["w"].view(torch.int16),
+                           torch.from_numpy(bits.view(np.int16)))
+        assert got["step"].dtype == torch.int32 and int(got["step"]) == 4
+        assert got["step"].shape == ()
+    # a bfloat16 leaf into an fp32 tensor: the same values, exactly
+    got, _ = manager.CheckpointManager(str(tmp_path / "jax")).restore(
+        {"w": torch.zeros(7, 5), "step": np.zeros((), np.int32)})
+    assert torch.equal(got["w"], ttree["w"].float())
+
+
+def test_bf16_from_int_bits_and_other_voids(tmp_path):
+    bits = _bf16_bits(np.random.default_rng(4), (6,))
+    tm = manager.CheckpointManager(str(tmp_path))
+    tm.save(1, {"w": bits.view(np.int16)})
+    got, _ = tm.restore({"w": torch.zeros(6, dtype=torch.bfloat16)})
+    assert torch.equal(got["w"].view(torch.int16),
+                       torch.from_numpy(bits.view(np.int16)))
+    # an int16 leaf restored into an int16 tensor stays an integer
+    got, _ = tm.restore({"w": torch.zeros(6, dtype=torch.int16)})
+    assert torch.equal(got["w"], torch.from_numpy(bits.view(np.int16)))
+    np.save(tmp_path / "step_00000001" / "leaf_00000.npy",
+            np.zeros(6, np.uint32).view("V4"))
+    m = _manifest(tmp_path, 1)
+    digest = manager._file_sha256(
+        str(tmp_path / "step_00000001" / "leaf_00000.npy"))
+    m["leaves"]["w"]["sha256"] = digest
+    m["checksum"] = manager.hashlib.sha256(digest.encode()).hexdigest()
+    (tmp_path / "step_00000001" / "manifest.json").write_text(json.dumps(m))
+    with pytest.raises(ValueError, match="4-byte void"):
+        tm.restore({"w": torch.zeros(6, dtype=torch.bfloat16)})

@@ -50,6 +50,27 @@ def test_models_and_configs_are_covered():
     assert "examples/torch_serve_retrieval.py" in names
 
 
+def test_training_path_is_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for path in ("data/pipeline.py", "optim/__init__.py", "optim/adamw.py",
+                 "launch/train.py", "launch/roofline.py", "convert.py",
+                 "checkpoint/manager.py"):
+        assert f"src/repro_torch/{path}" in names
+    assert "examples/torch_train_lm.py" in names
+
+
+def test_training_raises_without_cuda(no_cuda, tmp_path):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train(arch="smollm-135m", steps=2, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run_with_restarts(arch="smollm-135m", steps=2,
+                                ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "2", "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())        # nothing trained or written
+
+
 def test_model_entry_points_raise_without_cuda(no_cuda):
     from repro_torch import configs
     from repro_torch.models import model as model_mod
