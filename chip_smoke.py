@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-20
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-21
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
 Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
-18, 19, 20, 7, 8, 10):
+18, 19, 20, 21, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -145,6 +145,23 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      ``examples/torch_serve_retrieval.py`` at its defaults (the full-width
      encoder, 20,000 documents, IVF+RaBitQ, k=1000): recall@1000, and the
      RaBitQ kernels it takes must show launches;
+ 21. the mesh, the sharding constraint, the dry run and the search
+     examples: (a) phase 20's train step (full-width bf16 ``smollm-135m``,
+     B=8 x 1024) on a one-rank NCCL ``DeviceMesh`` (1, 1) with parameters,
+     optimizer state and batch as DTensors, bitwise equal to the step
+     without a mesh (loss, grad_norm, lr, every parameter), and both
+     steps' ms in turns; (b) the same cell through ``launch/dryrun.py`` at
+     mesh (1, 1) on meta, its argument bytes equal to the card's bytes of
+     (a)'s parameters, optimizer state and batch, its temporary bytes
+     beside (a)'s peak; (c) dry-run cells on the (16, 16) mesh
+     (``smollm-135m`` x the four shapes, ``granite-moe-1b-a400m`` x
+     ``train_4k``), each ``ok`` or the reference's ``skip``, the dense
+     prefill's counted FLOPs equal to the analytic model; (b) and (c) run
+     in spawned processes on the host's cores (no card) while (d) runs
+     ``examples/torch_quickstart.py`` (recall@2000 >= 0.95 on each query;
+     #10-#12 must launch) and ``examples/torch_distributed_search.py`` on
+     the one-rank NCCL group (overlap 1.0, the reference's cost-model
+     bytes; #1, #2 and #6 must launch);
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments), over
      single IVF+PQ+BBC queries (phase 12) and over three train steps of
@@ -158,8 +175,8 @@ Kernel launch counts are zeroed before phases 4, 9, 6, 12, 11, 13 (each
 of its two runs), 14 (its searches with the segments), 15 (each of its
 runs on the card), 16 (the timed sweep), 17 (the replay and the parity
 twin in this process; the workers launch in their own), 18 (each of its
-runs), 19 (the retrieval example) and 20 (which must launch none) and
-read after each;
+runs), 19 (the retrieval example), 20 (which must launch none) and 21
+(each example) and read after each;
 comparison and timing launches do not count.  A launch of the PQ, l2,
 bucket or fused kernel at one query counts under its single-query row.  Any failed check raises and
 the script exits non-zero without the last line.  Without CUDA it exits 2
@@ -3152,6 +3169,305 @@ def train_example(summary: dict, card: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 21: the mesh and the sharding constraint, the dry run, the examples
+# --------------------------------------------------------------------------
+
+# 21(c): the dry-run cells held here (the whole matrix runs on the CPU)
+DRY_CELLS = [("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+             ("smollm-135m", "decode_32k"), ("smollm-135m", "long_500k"),
+             ("granite-moe-1b-a400m", "train_4k")]
+
+
+def _dry_cell(job: tuple) -> dict:
+    """One dry-run cell in a spawned process (a fake group of its own; no
+    card): ``(arch, shape name, mesh shape or None, shape or None,
+    microbatches)``."""
+    import math
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    arch, shape_name, mesh_shape, shape, n_mb = job
+    ops.reset_launches()
+    torch.set_num_threads(1)
+    dryrun.fake_world()
+    mesh = None
+    if mesh_shape is not None:
+        mesh = DeviceMesh("cpu", torch.arange(math.prod(mesh_shape))
+                          .reshape(mesh_shape),
+                          mesh_dim_names=("data", "model"))
+    t0 = time.monotonic()
+    out = dryrun.run_cell(arch, shape_name, mesh=mesh, shape=shape,
+                          n_microbatches=n_mb)
+    out["wall_s"] = time.monotonic() - t0
+    out["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    return out
+
+
+def _allocated(tensors) -> int:
+    """Bytes of the card's storages behind ``tensors`` (a DTensor's local
+    shard), each storage once."""
+    from torch.distributed.tensor import DTensor
+    seen = {}
+    for t in tensors:
+        t = t.to_local() if isinstance(t, DTensor) else t
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def mesh_step(summary: dict, card: str) -> dict:
+    """Phase 21(a): one train step of phase 20's model and batch
+    (full-width bf16 ``smollm-135m`` with ``remat``, B=8 x S=1024, one
+    microbatch, seeded weights) on a one-rank NCCL ``DeviceMesh`` (1, 1)
+    ("data", "model"): parameters, optimizer state and batch as DTensors
+    placed by ``launch/mesh.py``'s specs, ``shard.constrain`` active.  Its
+    loss, grad_norm, lr and every updated parameter must equal the same
+    step without a mesh bitwise; then three more steps of each, in turns,
+    timed (host clock, each ending in the loss's read-back).  None of the
+    twelve search kernels may launch in any of these steps (the counts are
+    zeroed first and read after).  Returns the card's bytes of the mesh
+    step's parameters, optimizer state and batch and the step's peak
+    memory over them."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import sharding as shard
+    from repro_torch.optim import adamw
+    ops.reset_launches()
+    mesh("cuda")                 # the one-rank NCCL default group
+    torch.cuda.set_device(0)
+    dmesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                       mesh_dim_names=("data", "model"))
+    cfg = configs.get(TRAIN_KW["arch"], smoke=TRAIN_KW["smoke"])
+    b, s = TRAIN_KW["batch"], TRAIN_KW["seq"]
+    m = model_mod.build(cfg)
+    step = model_mod.make_train_step(m, adamw.AdamWConfig(
+        warmup_steps=10, total_steps=TRAIN_KW["steps"]))
+    batch_np = TokenPipeline(cfg.vocab, b, s, seed=SEED).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()}
+
+    plain = [m.init(torch.Generator().manual_seed(SEED), device=DEV)]
+    plain.append(adamw.init(plain[0]))
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    p = m.init(torch.Generator().manual_seed(SEED), device=DEV)
+    specs = mesh_mod.param_specs(p, cfg, dmesh)
+    o = mesh_mod.distribute_opt_state(adamw.init(p), specs, dmesh)
+    mesh_mod.distribute_params(p, specs, dmesh)
+    db = mesh_mod.distribute_batch(
+        batch, mesh_mod.batch_specs(cfg, dmesh, b, "train"), dmesh)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    args_bytes = _allocated(list(p.parameters()) + [o.step]
+                            + list(o.m.values()) + list(o.v.values())
+                            + list(db.values()))
+    sharded = [p, o]
+
+    def plain_step():
+        plain[0], plain[1], met = step(plain[0], plain[1], batch)
+        return met
+
+    def mesh_step_():
+        with shard.use_mesh(dmesh):
+            sharded[0], sharded[1], met = step(sharded[0], sharded[1], db)
+        return {k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in met.items()}
+
+    want = plain_step()
+    torch.cuda.reset_peak_memory_stats()
+    got = mesh_step_()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    diffs = {k: float((want[k].float() - got[k].float()).abs().max())
+             for k in ("loss", "grad_norm", "lr")}
+    same = all(torch.equal(want[k], got[k]) for k in want)
+    n_same = 0
+    for (name, a), (_, g) in zip(plain[0].named_parameters(),
+                                 sharded[0].named_parameters()):
+        g = g.full_tensor()
+        n_same += bool(torch.equal(a, g))
+        diffs[name] = float((a.float() - g.float()).abs().max())
+    n_params = len(diffs) - 3
+    times = {"plain": [], "mesh": []}
+    for _ in range(3):
+        for name, fn in (("plain", plain_step), ("mesh", mesh_step_)):
+            t0 = time.monotonic()
+            float(fn()["loss"])
+            times[name].append(1e3 * (time.monotonic() - t0))
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    out = {"loss": float(want["loss"]), "metrics_bitwise": same,
+           "params_bitwise": f"{n_same}/{n_params}",
+           "max_abs_diff": max(diffs.values()),
+           "plain_ms": times["plain"], "mesh_ms": times["mesh"],
+           "args_bytes": args_bytes,
+           "args_allocated_delta": held - before,
+           "peak_bytes": peak, "launches": launched, "card": card}
+    summary["mesh_step"] = out
+    log(f"[mesh-step] {cfg.arch_id} full width, B={b} x S={s}, one train "
+        f"step on a one-rank NCCL DeviceMesh (1, 1) against the same step "
+        f"without a mesh: loss {out['loss']!r}, metrics bitwise {same}, "
+        f"parameters bitwise {n_same}/{n_params}, max |d| "
+        f"{out['max_abs_diff']}; ms per step (3 each, in turns) plain "
+        f"{[round(t, 2) for t in times['plain']]}, mesh "
+        f"{[round(t, 2) for t in times['mesh']]}; card bytes of the "
+        f"parameters, optimizer state and batch {args_bytes:,} "
+        f"(memory_allocated delta {held - before:,}), step peak "
+        f"{peak:,} over them; search kernel launches over the steps: "
+        f"{launched or 'none'}; {card}")
+    check(not launched, f"mesh step launched search kernels: {launched}")
+    check(same and n_same == n_params,
+          f"mesh step: not bitwise equal to the mesh-less step ({diffs})")
+    del plain, sharded, p, o, db
+    gc.collect()
+    return out
+
+
+def dry_run_cells(summary: dict, card: str, pool_result, step: dict) -> None:
+    """Phase 21(b) and (c): the dry-run records the spawned processes
+    made.  (b) phase 21(a)'s cell at mesh (1, 1) on meta, one microbatch:
+    its argument bytes must equal the card's bytes of (a)'s parameters,
+    optimizer state and batch; its temporary bytes are printed beside
+    (a)'s peak, with the ratio, not gated.  (c) ``DRY_CELLS`` on the
+    single-pod mesh: each must be ``ok`` (``long_500k`` of a full-attention
+    arch ``skip``, as the reference's); the dense prefill cell's counted
+    FLOPs must equal ``roofline.analytic_flops``; every cell's roofline
+    terms, collective bytes, counted/analytic ratio and rank 0's FLOPs
+    over the even share are printed.  No cell may launch a search kernel
+    (each process zeroes the counts before its cell)."""
+    recs = pool_result.get(timeout=900)
+    one, cells = recs[0], recs[1:]
+    check(one["status"] == "ok", f"dry run at mesh (1, 1): {one}")
+    for r in recs:
+        check(not r["launches"], f"dry run {r['arch']} x {r['shape']} "
+              f"launched search kernels: {r['launches']}")
+    mem = one["memory"]
+    summary["dry_run_one"] = one
+    log(f"[dryrun-1x1] smollm-135m train B={TRAIN_KW['batch']} x "
+        f"S={TRAIN_KW['seq']}, mesh (1, 1), meta: arguments "
+        f"{mem['argument_size_in_bytes']:,} bytes (card: "
+        f"{step['args_bytes']:,}), temp {mem['temp_size_in_bytes']:,} "
+        f"(card peak over the arguments {step['peak_bytes']:,}, ratio "
+        f"{mem['temp_size_in_bytes'] / max(step['peak_bytes'], 1):.4f}); "
+        f"{one['wall_s']:.1f} s; {card}")
+    check(mem["argument_size_in_bytes"] == step["args_bytes"],
+          f"dry run arguments {mem['argument_size_in_bytes']} bytes, the "
+          f"card's {step['args_bytes']}")
+    rows = []
+    for (arch, shape), r in zip(DRY_CELLS, cells):
+        want = ("skip" if shape == "long_500k" and arch == "smollm-135m"
+                else "ok")
+        check(r["status"] == want, f"dry run {arch} x {shape}: {r}")
+        if r["status"] != "ok":
+            log(f"[dryrun] {arch} x {shape} x single: skip ({r['reason']})")
+            rows.append(r)
+            continue
+        rf, mem = r["roofline"], r["memory"]
+        if (arch, shape) == ("smollm-135m", "prefill_32k"):
+            check(rf["counted_over_analytic"] == 1.0,
+                  f"dry run {arch} x {shape}: counted FLOPs "
+                  f"{rf['counted_flops_global']} against analytic "
+                  f"{rf['analytic_flops_per_chip'] * r['n_chips']}")
+        log(f"[dryrun] {arch} x {shape} x single ({r['n_chips']} ranks): "
+            f"compute {rf['compute_s']:.6g} s, memory {rf['memory_s']:.6g} "
+            f"s, collective {rf['collective_s']:.6g} s -> "
+            f"{rf['dominant']}; counted/analytic FLOPs "
+            f"{rf['counted_over_analytic']:.6f}, rank 0 over the even share "
+            f"{rf['local_over_even_share']:.4f}; collective bytes per chip "
+            f"{rf['collective_bytes_per_chip']:,.0f} "
+            f"{rf['collective_breakdown']} ops {rf['collective_op_counts']}; "
+            f"args {mem['argument_size_in_bytes']:,} temp "
+            f"{mem['temp_size_in_bytes']:,} bytes (fits 80 GB "
+            f"{mem['fits_hbm']}); launches {r['launches'] or 'none'}; "
+            f"{r['wall_s']:.1f} s")
+        rows.append(r)
+    summary["dry_run"] = rows
+
+
+def example_runs(summary: dict, card: str) -> dict:
+    """Phase 21(d): ``examples/torch_quickstart.py`` (recall@2000 >= 0.95
+    on each query; it must launch #10, #11 and #12) and
+    ``examples/torch_distributed_search.py`` on the one-rank NCCL group
+    (overlap 1.0 with the single engine, the reference's cost-model bytes
+    36743 and 112000; it must launch #2 and #6 for the sharded engine and
+    #1 for the single one).  Returns the two runs' launches."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import ops
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for name, needs in (("torch_quickstart", ("pq_adc", "l2_exact",
+                                              "bucket_hist")),
+                        ("torch_distributed_search", (
+                            "pq_adc_batch", "shard_collect_batch",
+                            "fused_scan_batch"))):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        ops.reset_launches()
+        t0 = time.monotonic()
+        out = example.run([])
+        out["seconds"] = time.monotonic() - t0
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        launches = {k: launches[k] + ops.LAUNCHES[k] for k in launches}
+        check(out["device"] == torch.cuda.get_device_name(0),
+              f"{name} ran on {out['device']}")
+        for k in needs:
+            check(got.get(k, 0) > 0, f"{name}: kernel {k} never launched "
+                  f"({got})")
+        out["launches"] = got
+        summary[name] = out
+        if name == "torch_quickstart":
+            rec = [q["recall"] for q in out["queries"]]
+            log(f"[example] {name}: recall@{out['k']} {rec}, second pass "
+                f"{[q['n_second_pass'] for q in out['queries']]}; "
+                f"{out['seconds']:.1f} s; launches {got}; {card}")
+            check(min(rec) >= 0.95, f"{name}: recall {rec}")
+        else:
+            log(f"[example] {name}: {out['ranks']} rank(s), id-set overlap "
+                f"{out['overlap']:.4f}, cost model ({out['cost_shards']} "
+                f"shards) {out['ratio']:.1f}x less on the wire "
+                f"({out['bbc_bytes_per_link']:.0f} vs "
+                f"{out['naive_bytes_per_link']:.0f} bytes/link per query); "
+                f"{out['seconds']:.1f} s; launches {got}; {card}")
+            check(out["overlap"] == 1.0, f"{name}: overlap {out['overlap']}")
+            check((out["bbc_bytes_per_link"], out["naive_bytes_per_link"])
+                  == (36743.0, 112000),
+                  f"{name}: cost model {out['bbc_bytes_per_link']} / "
+                  f"{out['naive_bytes_per_link']}")
+    return launches
+
+
+def phase21(summary: dict, card: str) -> dict:
+    """Phase 21: (a) first, alone; then the dry-run cells of (b) and (c)
+    in spawned processes on the host's cores while (d) runs the examples
+    on the card; then (b) and (c) are read.  Returns (d)'s launches."""
+    import multiprocessing
+    t0 = time.monotonic()
+    step = mesh_step(summary, card)
+    one = ("smollm-135m", "train_4k", (1, 1),
+           dict(mode="train", seq=TRAIN_KW["seq"], batch=TRAIN_KW["batch"]),
+           1)
+    jobs = [one] + [(a, s_, None, None, 8) for a, s_ in DRY_CELLS]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(jobs)) as pool:
+        result = pool.map_async(_dry_cell, jobs, chunksize=1)
+        launches = example_runs(summary, card)
+        dry_run_cells(summary, card, result, step)
+    summary["phase21_s"] = time.monotonic() - t0
+    log(f"[phase21] {summary['phase21_s']:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 11: the mesh-sharded deployment
 # --------------------------------------------------------------------------
 
@@ -3926,9 +4242,10 @@ def profile_train(steps: int = 3) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19,20",
+                    default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19,20,"
+                            "21",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-20; 8 = torch.profiler over the batches of "
+                         "11-21; 8 = torch.profiler over the batches of "
                          "4, 9 and 11, the queries of 12 and the train "
                          "steps of 20; 10 = phase 9's band anatomy)")
     ap.add_argument("--out", default="",
@@ -4061,6 +4378,9 @@ def main(argv=None) -> int:
         l20 = {k: v for k, v in ops.LAUNCHES.items() if v}
         log(f"[train] kernel launches over phase 20: {l20 or 'none'}")
         check(not l20, f"phase 20 launched search kernels: {l20}")
+    if 21 in phases:
+        l21 = phase21(summary, card)
+        launches = {k: launches[k] + l21[k] for k in launches}
     times = {}
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "

@@ -1,21 +1,34 @@
-"""The analytic cost model of a model step: FLOPs, model FLOPs, active
-parameters and HBM bytes from a config's shapes.
+"""Roofline terms of a model step: the analytic cost model (FLOPs, model
+FLOPs, active parameters and HBM bytes from a config's shapes) and the
+collective bytes a sharded step sends.
 
-The port of the analytic half of the JAX package's
-``repro.launch.roofline`` (plain arithmetic on a config, the same
-numbers); its other half, the collective bytes parsed from a compiled
-dry run's HLO text, has no torch counterpart and waits for the port of
-``launch/dryrun.py`` and ``launch/mesh.py``.  FLOPs come from the
-inventory of every matrix product the models compute; memory bytes from
-a traffic model of the weights, the optimizer state and each layer's
-major intermediates.
+The port of the JAX package's ``repro.launch.roofline``.  The analytic
+half is plain arithmetic on a config, the same numbers.  The other half
+differs by design.  The reference parses the compiled HLO text of a dry
+run (``_shape_bytes``, ``_group_size``, ``collective_bytes``) and scales
+the collectives inside while loops by estimated trip counts
+(``collective_bytes_nested``, ``depth_trips_for``), because the text
+shows a loop body once.  The port runs the step eagerly on ``DTensor``s
+(``launch/dryrun.py``), so every loop trip issues its collectives, and
+``CollectiveCounter`` counts them as they are issued: no HLO, no parser,
+no nesting multiplier.  The byte rule is the reference's: an all-gather
+operand is its output over the group, a reduce-scatter operand the
+unscattered input, any other the input.  ``LiveBytes`` tracks the peak of
+the step's live buffers in place of XLA's ``memory_analysis``.
 
 The peaks are one NVIDIA H100 SXM's, from NVIDIA's data sheet (dense
-rates at the 700 W power limit), not a measurement.
+rates at the 700 W power limit), not a measurement.  ``LINK_BW`` is
+NVLink's, which holds within one 8-card NVLink domain only: a 256-card
+axis crosses nodes and their slower network.
 """
 from __future__ import annotations
 
+import weakref
+from typing import Any
+
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 PEAK_FLOPS = 989e12        # bf16 dense tensor-core FLOP/s, one H100 SXM
 HBM_BW = 3.35e12           # HBM3 bytes/s, one H100 SXM
@@ -260,3 +273,186 @@ def active_param_count(cfg) -> int:
         dec = dec_n * (2 * attn + 2 * d * ff)
         return enc + dec
     raise ValueError(cfg.family)
+
+
+# --------------------------------------------------------------------------
+# What a sharded step sends and holds, counted as it runs
+# --------------------------------------------------------------------------
+
+def _local_only(types) -> bool:
+    """True when no ``DTensor`` takes part: the dispatch modes below see
+    the per-rank ops DTensor issues, not the DTensor-level ones."""
+    from torch.distributed.tensor import DTensor
+    return not any(issubclass(t, DTensor) for t in types)
+
+
+# op name (``_c10d_functional`` unless named) -> the reference's kind
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",      # ``_dtensor`` namespace
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Operand bytes of every collective the ranks' ops issue while the
+    mode is on, by kind: ``counts()`` gives the reference's
+    ``collective_bytes`` dict (its five kinds, ``broadcast``, which HLO
+    does not have, ``total`` and ``op_counts``).  An all-gather's operand
+    is the shard it sends (its output over the group) and a
+    reduce-scatter's the unscattered input, as the reference counts them.
+    On a CPU mesh (the dry run's fake group) DTensor moves a shard between
+    dimensions by an all-gather and a local chunk, not an all-to-all: the
+    same operand bytes, counted as an all-gather."""
+
+    KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute", "broadcast")
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = dict.fromkeys(self.KINDS, 0)
+        self.ops = dict.fromkeys(self.KINDS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not _local_only(types):
+            return NotImplemented
+        ns = func.namespace
+        kind = (_COLLECTIVES.get(func._opname)
+                if ns in ("_c10d_functional", "_dtensor") else None)
+        if kind is not None:
+            self.bytes[kind] += sum(
+                t.numel() * t.element_size()
+                for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor))
+            self.ops[kind] += 1
+        return func(*args, **(kwargs or {}))
+
+    def counts(self) -> dict:
+        out: dict = dict(self.bytes)
+        out["total"] = sum(self.bytes.values())
+        out["op_counts"] = dict(self.ops)
+        return out
+
+
+class Flops(TorchDispatchMode):
+    """FLOPs of a step on a mesh, by ``torch.utils.flop_counter``'s
+    formulas.  By default each ``DTensor`` op counts once at its global
+    shape (the whole mesh's work, as ``FlopCounterMode`` counts it), and
+    an op a model runs on its local shards itself (``shard.by_queries``)
+    counts times the number of ranks that split it (``shard.split()``).
+    With ``per_rank`` it counts the ops this rank runs on its shards (the
+    per-rank ops DTensor issues): the counterpart of the reference's
+    per-device HLO FLOPs; over the even share (the global count over the
+    ranks) it is the work a layout repeats on every rank.  The global
+    counter goes on top of the mode stack, where it sees ``DTensor`` ops,
+    the per-rank one below ``LiveBytes``, where DTensor's own ops reach
+    it."""
+
+    def __init__(self, per_rank: bool = False):
+        super().__init__()
+        self.per_rank = per_rank
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        from repro_torch.models import sharding as shard
+        whole = not _local_only(types)
+        if whole and self.per_rank:
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            n = count(*args, **kwargs, out_val=out)
+            self.flops += n if whole or self.per_rank else n * shard.split()
+        return out
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak, over the mode's lifetime, of the bytes held by the buffers
+    that the step's ops made and that are still alive: each op's output
+    (a ``DTensor``'s local shard on this rank), each storage counted once,
+    from the op that made it until it is freed.  Storages of ``held``
+    (the step's inputs) are not counted, and neither are the tensors that
+    DTensor makes at global shape to infer an op's output (the mode sees
+    the ``DTensor`` op and not what runs inside it).  With meta tensors
+    nothing is allocated: it is the step's transient memory, the
+    counterpart of XLA's ``temp_size_in_bytes``."""
+
+    def __init__(self, held=()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._refs: dict = {}
+        self._held = {id(_local(t).untyped_storage()) for t in held}
+
+    def _free(self, key: int, nbytes: int) -> None:
+        self._refs.pop(key, None)
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = _local(t).untyped_storage()
+            key = id(st)
+            if key in self._refs or key in self._held:
+                continue
+            nbytes = st.nbytes()
+            self._refs[key] = weakref.ref(
+                st, lambda _, k=key, n=nbytes: self._free(k, n))
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+        return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor``; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def roofline_terms(cost: dict[str, Any], coll: dict, n_chips: int,
+                   model_flops_global: float,
+                   analytic_flops_global: float | None = None,
+                   analytic_bytes_chip: float | None = None) -> dict:
+    """The reference's roofline record, with the H100's peaks.  ``cost``
+    holds the measured per-chip ``flops`` and ``bytes accessed`` (the dry
+    run: counted FLOPs over the chips; no byte count)."""
+    hlo_flops = float(cost.get("flops", 0.0) or 0.0)
+    hlo_bytes = float(cost.get("bytes accessed", 0.0) or 0.0)
+    flops_chip = (analytic_flops_global / n_chips
+                  if analytic_flops_global else hlo_flops)
+    bytes_chip = (analytic_bytes_chip
+                  if analytic_bytes_chip is not None else hlo_bytes)
+    compute_s = flops_chip / PEAK_FLOPS
+    memory_s = bytes_chip / HBM_BW
+    coll_s = coll["total"] / LINK_BW
+    terms = {"compute_s": compute_s, "memory_s": memory_s,
+             "collective_s": coll_s}
+    dom = max(terms, key=terms.get)
+    return {
+        **terms,
+        "dominant": dom.replace("_s", ""),
+        "analytic_flops_per_chip": flops_chip,
+        "analytic_bytes_per_chip": bytes_chip,
+        "hlo_flops_per_chip_measured": hlo_flops,
+        "hlo_bytes_per_chip_measured": hlo_bytes,
+        "collective_bytes_per_chip": coll["total"],
+        "collective_breakdown": {k: v for k, v in coll.items()
+                                 if k not in ("total", "op_counts")},
+        "collective_op_counts": coll["op_counts"],
+        "model_flops_global": model_flops_global,
+        "useful_flops_ratio": (model_flops_global / (flops_chip * n_chips)
+                               if flops_chip else 0.0),
+        "roofline_fraction": (model_flops_global / n_chips / PEAK_FLOPS
+                              / max(max(terms.values()), 1e-30)),
+    }

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shard
 from repro_torch.models.layers import Params, full, normal
 from repro_torch.models.transformer import LMConfig, chunked_nll
 
@@ -102,10 +103,10 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def _enc_layer(lp, h, cfg: LMConfig, positions):
     z = L.layer_norm(h, lp["ln1"], lp["lb1"])
-    h = h + L.attn_forward(lp["attn"], z, cfg.attn_dims(), positions,
-                           causal=False, use_rope=False)
+    h = h + shard.sp(L.attn_forward(lp["attn"], z, cfg.attn_dims(),
+                                    positions, causal=False, use_rope=False))
     z = L.layer_norm(h, lp["ln2"], lp["lb2"])
-    return h + L.gelu_mlp(lp["mlp"], z)
+    return h + shard.sp(L.gelu_mlp(lp["mlp"], z))
 
 
 def encode(params, cfg: LMConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -114,39 +115,42 @@ def encode(params, cfg: LMConfig, frames: torch.Tensor) -> torch.Tensor:
     x = frames + _sinusoid(s, d, frames.dtype, frames.device)[None]
     positions = _positions(b, s, frames.device)
     for lp in params["enc_layers"]:
-        x = _enc_layer(lp, x, cfg, positions)
-    return L.layer_norm(x, params["enc_norm"], params["enc_norm_b"])
+        x = shard.sp(_enc_layer(lp, x, cfg, positions))
+    return shard.rows(L.layer_norm(x, params["enc_norm"],
+                                   params["enc_norm_b"]))
 
 
 def _cross_attn(p, x, enc_out, cfg: LMConfig):
-    b, s, _ = x.shape
+    x = shard.rows(x)
     dims = cfg.attn_dims()
     h, kv, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (enc_out @ p["wk"]).reshape(b, -1, kv, hd)
-    v = (enc_out @ p["wv"]).reshape(b, -1, kv, hd)
+    q = shard.split_heads(x @ p["wq"], h, hd)
+    k = shard.split_heads(enc_out @ p["wk"], kv, hd)
+    v = shard.split_heads(enc_out @ p["wv"], kv, hd)
     o = L.attention_scores(q, L.repeat_kv(k, h // kv),
                            L.repeat_kv(v, h // kv), causal=False)
-    return o.reshape(b, s, h * hd) @ p["wo"]
+    return shard.merge_heads(o) @ p["wo"]
 
 
 def _dec_layer(lp, h, cfg: LMConfig, enc_out, positions):
     z = L.layer_norm(h, lp["ln1"], lp["lb1"])
-    h = h + L.attn_forward(lp["self_attn"], z, cfg.attn_dims(), positions,
-                           causal=True, use_rope=False)
+    h = h + shard.sp(L.attn_forward(lp["self_attn"], z, cfg.attn_dims(),
+                                    positions, causal=True, use_rope=False))
     z = L.layer_norm(h, lp["ln2"], lp["lb2"])
-    h = h + _cross_attn(lp["cross_attn"], z, enc_out, cfg)
+    h = h + shard.sp(_cross_attn(lp["cross_attn"], z, enc_out, cfg))
     z = L.layer_norm(h, lp["ln3"], lp["lb3"])
-    return h + L.gelu_mlp(lp["mlp"], z)
+    return h + shard.sp(L.gelu_mlp(lp["mlp"], z))
 
 
 def _dec_hidden(params, cfg: LMConfig, enc_out, tokens):
     b, s = tokens.shape
-    x = params["embed"][tokens] + params["pos_dec"][:s][None]
+    x = shard.lookup(params["embed"], tokens) \
+        + shard.constrain(params["pos_dec"], None, None)[:s][None]
     positions = _positions(b, s, tokens.device)
     for lp in params["dec_layers"]:
-        x = _dec_layer(lp, x, cfg, enc_out, positions)
-    return L.layer_norm(x, params["final_norm"], params["final_norm_b"])
+        x = shard.sp(_dec_layer(lp, x, cfg, enc_out, positions))
+    return shard.rows(L.layer_norm(x, params["final_norm"],
+                                   params["final_norm_b"]))
 
 
 def decode_train(params, cfg: LMConfig, enc_out, tokens):
@@ -181,33 +185,33 @@ def _self_attn_decode(p, x, cfg: LMConfig, ck, cv, pos):
     """The decoder's self-attention for one token (no rope): the new k, v
     written at ``pos`` in place."""
     dims = cfg.attn_dims()
-    b = x.shape[0]
     h, kv, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, h, hd)
-    k = (x @ p["wk"]).reshape(b, 1, kv, hd)
-    v = (x @ p["wv"]).reshape(b, 1, kv, hd)
-    b_idx = torch.arange(b, device=x.device)
-    ck[b_idx, pos] = k[:, 0]
-    cv[b_idx, pos] = v[:, 0]
+    q = shard.split_heads(x @ p["wq"], h, hd)
+    k = shard.split_heads(x @ p["wk"], kv, hd)
+    v = shard.split_heads(x @ p["wv"], kv, hd)
+    shard.put_rows(ck, pos, k[:, 0])
+    shard.put_rows(cv, pos, v[:, 0])
     kv_valid = torch.arange(ck.shape[1], device=x.device)[None, :] \
         <= pos[:, None]
-    o = L.attention_scores(q, L.repeat_kv(ck, h // kv),
-                           L.repeat_kv(cv, h // kv), causal=False,
-                           kv_valid=kv_valid)
-    return o.reshape(b, 1, h * hd) @ p["wo"]
+    o = L.attention_scores(q, L.repeat_kv(shard.unshard_heads(ck), h // kv),
+                           L.repeat_kv(shard.unshard_heads(cv), h // kv),
+                           causal=False, kv_valid=kv_valid)
+    return shard.merge_heads(o) @ p["wo"]
 
 
 def decode_step(params, cfg: LMConfig, token, caches: dict, pos, enc_out):
     """One decoder step with cross-attention over the (precomputed)
     encoder output.  Returns (logits (B, vocab), caches)."""
-    x = params["embed"][token][:, None, :] + params["pos_dec"][pos][:, None]
+    x = shard.lookup(params["embed"], token)[:, None, :] \
+        + shard.lookup(params["pos_dec"], pos)[:, None]
     for i, lp in enumerate(params["dec_layers"]):
         z = L.layer_norm(x, lp["ln1"], lp["lb1"])
-        x = x + _self_attn_decode(lp["self_attn"], z, cfg, caches["k"][i],
-                                  caches["v"][i], pos)
+        x = x + shard.sp(_self_attn_decode(lp["self_attn"], z, cfg,
+                                           caches["k"][i], caches["v"][i],
+                                           pos))
         z = L.layer_norm(x, lp["ln2"], lp["lb2"])
-        x = x + _cross_attn(lp["cross_attn"], z, enc_out, cfg)
+        x = x + shard.sp(_cross_attn(lp["cross_attn"], z, enc_out, cfg))
         z = L.layer_norm(x, lp["ln3"], lp["lb3"])
-        x = x + L.gelu_mlp(lp["mlp"], z)
+        x = x + shard.sp(L.gelu_mlp(lp["mlp"], z))
     x = L.layer_norm(x, params["final_norm"], params["final_norm_b"])
     return (x @ params["unembed"])[:, 0, :], caches

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import sharding as shard
+
 
 class Params(nn.Module):
     """A block's parameters and sub-blocks under the reference's names."""
@@ -136,12 +138,14 @@ FLASH_THRESHOLD = 2048  # attend in query chunks at/above this length
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, q_chunk: int = 512) -> torch.Tensor:
+                    causal: bool, q_offset: int = 0,
+                    q_chunk: int = 512) -> torch.Tensor:
     """``attention_scores`` over query chunks: the same function, with the
     live logits bounded to (B, H, q_chunk, S_k) for long sequences.  While
     autograd records, each chunk's logits are recomputed in the backward
     (the reference's flash blocks are rematerialised too)."""
-    outs = [recompute(attention_scores, q[:, i:i + q_chunk], k, v, causal, i)
+    outs = [recompute(attention_scores, q[:, i:i + q_chunk], k, v, causal,
+                      q_offset + i)
             for i in range(0, q.shape[1], q_chunk)]
     return torch.cat(outs, dim=1)
 
@@ -182,44 +186,43 @@ class Attention(Params):
 
 
 def _qkv(p, x: torch.Tensor, dims: AttnDims):
-    b, s, _ = x.shape
+    x = shard.rows(x)
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if dims.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, dims.n_heads, dims.head_dim),
-            k.reshape(b, s, dims.n_kv, dims.head_dim),
-            v.reshape(b, s, dims.n_kv, dims.head_dim))
+    return (shard.split_heads(q, dims.n_heads, dims.head_dim),
+            shard.split_heads(k, dims.n_kv, dims.head_dim),
+            shard.split_heads(v, dims.n_kv, dims.head_dim))
 
 
 def attn_forward(p, x: torch.Tensor, dims: AttnDims,
                  positions: torch.Tensor, causal: bool = True,
                  use_rope: bool = True) -> torch.Tensor:
-    b, s, _ = x.shape
-    h, kv, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    s = x.shape[1]
+    h, kv = dims.n_heads, dims.n_kv
     q, k, v = _qkv(p, x, dims)
     if use_rope:
         q = rope(q, positions, dims.rope_theta)
         k = rope(k, positions, dims.rope_theta)
     k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
-    if s >= FLASH_THRESHOLD:
-        o = flash_attention(q, k, v, causal=causal)
-    else:
-        o = attention_scores(q, k, v, causal=causal)
-    return o.reshape(b, s, h * hd) @ p["wo"]
+    attend = flash_attention if s >= FLASH_THRESHOLD else attention_scores
+    o = shard.by_queries(attend, q, k, v, causal)
+    return shard.merge_heads(o) @ p["wo"]
 
 
 def attn_prefill(p, x: torch.Tensor, dims: AttnDims,
                  positions: torch.Tensor):
     """Like ``attn_forward`` (causal, rope) but also returns the (k, v)
     cache, before the GQA repeat."""
-    b, s, _ = x.shape
-    h, kv, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    s = x.shape[1]
+    h, kv = dims.n_heads, dims.n_kv
     q, k, v = _qkv(p, x, dims)
     q = rope(q, positions, dims.rope_theta)
     k = rope(k, positions, dims.rope_theta)
     attend = flash_attention if s >= FLASH_THRESHOLD else attention_scores
-    o = attend(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=True)
-    return o.reshape(b, s, h * hd) @ p["wo"], (k, v)
+    o = shard.by_queries(attend, q, repeat_kv(k, h // kv),
+                         repeat_kv(v, h // kv), True)
+    return shard.merge_heads(o) @ p["wo"], (k, v)
 
 
 def attn_decode(p, x: torch.Tensor, dims: AttnDims, cache_k: torch.Tensor,
@@ -228,20 +231,18 @@ def attn_decode(p, x: torch.Tensor, dims: AttnDims, cache_k: torch.Tensor,
     (B, S_max, kv, hd), pos (B,): the new k and v are written at ``pos``
     (an indexed update, in place) and the token attends to positions
     <= pos.  Returns (out, (cache_k, cache_v))."""
-    b = x.shape[0]
-    h, kv, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    h, kv = dims.n_heads, dims.n_kv
     q, k, v = _qkv(p, x, dims)
     q = rope(q, pos[:, None], dims.rope_theta)
     k = rope(k, pos[:, None], dims.rope_theta)
-    b_idx = torch.arange(b, device=x.device)
-    cache_k[b_idx, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[b_idx, pos] = v[:, 0].to(cache_v.dtype)
+    shard.put_rows(cache_k, pos, k[:, 0].to(cache_k.dtype))
+    shard.put_rows(cache_v, pos, v[:, 0].to(cache_v.dtype))
     kv_valid = torch.arange(cache_k.shape[1],
                             device=x.device)[None, :] <= pos[:, None]
-    o = attention_scores(q, repeat_kv(cache_k, h // kv),
-                         repeat_kv(cache_v, h // kv), causal=False,
-                         kv_valid=kv_valid)
-    return o.reshape(b, 1, h * hd) @ p["wo"], (cache_k, cache_v)
+    o = attention_scores(q, repeat_kv(shard.unshard_heads(cache_k), h // kv),
+                         repeat_kv(shard.unshard_heads(cache_v), h // kv),
+                         causal=False, kv_valid=kv_valid)
+    return shard.merge_heads(o) @ p["wo"], (cache_k, cache_v)
 
 
 # ------------------------------- MLPs -------------------------------------
@@ -261,6 +262,7 @@ class SwiGLU(Params):
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    x = shard.rows(x)
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -281,6 +283,7 @@ class GeluMLP(Params):
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    x = shard.rows(x)
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh") \
         @ p["w_down"] + p["b_down"]

@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import sharding as shard
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import LMConfig
 from repro_torch.optim import adamw
@@ -145,9 +146,17 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     is split into that many equal microbatches, taken in order, whose
     gradients and losses are summed (from zeros in each parameter's dtype,
     as the reference's scan carries them) and divided by the count; the
-    optimizer sees the mean, as with one batch.  The reference's sharding
-    constraint on the split is a no-op without a mesh and is left out."""
+    optimizer sees the mean, as with one batch.  On a mesh the split keeps
+    each microbatch on the batch axes (the reference's constraint)."""
     mb = n_microbatches
+
+    def split(x):
+        # a DTensor batch is made whole first: its shards do not divide
+        # into mb microbatches in place (the reference's all-to-all)
+        y = shard.constrain(x, *([None] * x.ndim))
+        y = y.reshape(mb, y.shape[0] // mb, *y.shape[1:])
+        return shard.constrain(y, None, shard.BATCH,
+                               *([None] * (y.ndim - 2)))
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
@@ -162,9 +171,9 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                      for k, p in params.named_parameters()}
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=next(params.parameters()).device)
+            parts = {k: split(v) for k, v in batch.items()}
             for i in range(mb):
-                part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                        for k, v in batch.items()}
+                part = {k: v[i] for k, v in parts.items()}
                 loss, grads = _loss_and_grads(model, params, part)
                 g_sum = {k: g_sum[k] + grads[k] for k in g_sum}
                 loss_sum = loss_sum + loss

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shard
 from repro_torch.models.layers import Params, full, normal
 
 
@@ -91,11 +92,13 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _split_proj(p, x: torch.Tensor, dims: SSMDims):
+    x = shard.rows(x)
     zxbcdt = x @ p["in_proj"]
     di, n = dims.d_inner, dims.d_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * n]
-    dt = F.softplus(zxbcdt[..., di + di + 2 * n:].float() + p["dt_bias"])
+    dt = F.softplus(zxbcdt[..., di + di + 2 * n:].float()
+                    + shard.whole(p["dt_bias"]))
     return z, xbc, dt
 
 
@@ -107,6 +110,9 @@ def ssd_chunked(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
     h_final (B, H, P, N))."""
     b, s, h, p = xh.shape
     n = bm.shape[-1]
+    # on a mesh each rank scans whole sequences (the state is carried
+    # from chunk to chunk) of whole heads (``shard.split_heads``)
+    xh, dt, bm, cm = map(shard.rows, (xh, dt, bm, cm))
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     nc = s // chunk
@@ -126,12 +132,14 @@ def ssd_chunked(xh: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
         hstate, y = L.recompute(_ssd_chunk, hstate, xc[:, c], bc[:, c],
                                 cc[:, c], da[:, c], dtc[:, c], causal)
         ys.append(y)
-    return torch.stack(ys, dim=1).reshape(b, s, h, p), hstate
+    return shard.rows(torch.stack(ys, dim=1).reshape(b, s, h, p)), hstate
 
 
 def _ssd_chunk(hstate, xcs, bcs, ccs, dacs, dtcs, causal):
     """One chunk of the SSD scan: (the state after it, its output)."""
-    lcs = torch.cumsum(dacs, dim=1)                # (B, L, H)
+    # row by row on a mesh: DTensor has no rule for the flip of the
+    # cumsum's backward in every torch version
+    lcs = shard.local_rows(lambda t: torch.cumsum(t, dim=1), dacs)  # (B,L,H)
     # intra-chunk (masked attention form)
     cb = torch.einsum("bin,bjn->bij", ccs, bcs)                # (B, L, L)
     dmat = lcs[:, :, None, :] - lcs[:, None, :, :]             # (B, L, L, H)
@@ -159,12 +167,12 @@ def ssm_forward(p, x: torch.Tensor, dims: SSMDims, chunk: int = 128,
     di, n, h, pd = dims.d_inner, dims.d_state, dims.n_heads, dims.headdim
     z, xbc, dt = _split_proj(p, x, dims)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_cache)
-    xi = xbc[..., :di].reshape(b, s, h, pd)
+    xi = shard.split_heads(xbc[..., :di], h, pd)
     bm = xbc[..., di:di + n]
     cm = xbc[..., di + n:]
-    a = -torch.exp(p["a_log"])
+    a = -torch.exp(shard.whole(p["a_log"]))
     y, h_final = ssd_chunked(xi, bm, cm, dt, a, h0=h0, chunk=min(chunk, s))
-    y = y + p["d_skip"][None, None, :, None] * xi.float()
+    y = y + shard.whole(p["d_skip"])[None, None, :, None] * xi.float()
     y = y.reshape(b, s, di).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm_scale"])
     out = y @ p["out_proj"]
@@ -181,17 +189,19 @@ def ssm_decode(p, x: torch.Tensor, dims: SSMDims, h: torch.Tensor,
     di, n, hh, pd = dims.d_inner, dims.d_state, dims.n_heads, dims.headdim
     z, xbc, dt = _split_proj(p, x, dims)          # (B, 1, ...)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_cache)
-    xi = xbc[:, 0, :di].reshape(b, hh, pd)
+    xi = shard.split_heads(xbc[:, 0, :di], hh, pd)
     bm = xbc[:, 0, di:di + n]
     cm = xbc[:, 0, di + n:]
-    dt0 = dt[:, 0]                                 # (B, H)
-    a = -torch.exp(p["a_log"])
+    dt0 = shard.constrain(dt[:, 0], shard.BATCH, "model")     # (B, H)
+    a = -torch.exp(shard.whole(p["a_log"]))
     decay = torch.exp(dt0 * a)                     # (B, H)
     contrib = torch.einsum("bhp,bn->bhpn", xi.float() * dt0[..., None],
                            bm.float())
-    h = h * decay[:, :, None, None] + contrib
+    # on a mesh, heads over "model" only where they divide (as the cache)
+    h = shard.constrain(h * decay[:, :, None, None] + contrib, shard.BATCH,
+                        "model", None, None)
     y = torch.einsum("bhpn,bn->bhp", h, cm.float())
-    y = y + p["d_skip"][None, :, None] * xi.float()
+    y = y + shard.whole(p["d_skip"])[None, :, None] * xi.float()
     y = y.reshape(b, 1, di).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["norm_scale"])
     return y @ p["out_proj"], (h, new_conv)

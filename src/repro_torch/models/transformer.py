@@ -18,12 +18,15 @@ Modes:
 Decode caches are the reference's dict of layer-stacked tensors, updated
 in place at ``pos`` and returned.  ``kv_quant`` keeps an int8 KV cache
 with a per-position scale, quantising only the new position each step.
-The reference's sharding hints (``shard.constrain``) are no-ops without a
-mesh and are left out.  With ``cfg.remat`` each layer (for the hybrid,
-the shared attention block, as the reference wraps them) runs under
-``torch.utils.checkpoint`` while autograd records, so its activations are
-recomputed in the backward; serving records nothing and recomputes
-nothing.
+The reference's sharding hints (``shard.constrain``: the
+sequence-parallel residual stream) sit where the reference has them and
+act on ``DTensor``s only (``models/sharding.py``), as do the layouts
+DTensor needs besides (a layer's input gathered, heads whole, branch
+outputs placed as the stream).  With ``cfg.remat`` each layer (for the
+hybrid, the shared attention block, as the reference wraps them) runs
+under ``torch.utils.checkpoint`` while autograd records, so its
+activations are recomputed in the backward; serving records nothing and
+recomputes nothing.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as shard
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, full, normal
 
@@ -194,7 +198,7 @@ def _attn_layer(lp, h, cfg: LMConfig, positions, caches: dict | None = None,
         else:
             caches["k"][i, :, :s] = k
             caches["v"][i, :, :s] = v
-    return _mlp_half(lp, h + att, cfg)
+    return _mlp_half(lp, h + shard.sp(att), cfg)
 
 
 def _ssm_layer(lp, h, cfg: LMConfig, caches: dict | None = None,
@@ -207,20 +211,20 @@ def _ssm_layer(lp, h, cfg: LMConfig, caches: dict | None = None,
                               chunk=cfg.ssm_chunk,
                               return_state=caches is not None)
     if caches is None:
-        return h + out
+        return h + shard.sp(out)
     y, (nh, nconv) = out
     caches["h"][at].copy_(nh)
     caches["conv"][at].copy_(nconv)
-    return h + y
+    return h + shard.sp(y)
 
 
 def _mlp_half(lp, h, cfg: LMConfig):
     """The second half of an attention block: the residual MLP or MoE."""
     z = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        return h + moe_mod.moe_forward(lp["moe"], z, cfg.top_k,
-                                       cfg.capacity_factor)
-    return h + L.swiglu(lp["mlp"], z)
+        return h + shard.sp(moe_mod.moe_forward(lp["moe"], z, cfg.top_k,
+                                           cfg.capacity_factor))
+    return h + shard.sp(L.swiglu(lp["mlp"], z))
 
 
 def _maybe_remat(cfg: LMConfig, fn, *args):
@@ -233,7 +237,7 @@ def _maybe_remat(cfg: LMConfig, fn, *args):
 # --------------------------------------------------------------------------
 
 def _embed(params, cfg: LMConfig, tokens, patch_embeds=None):
-    x = params["embed"][tokens]
+    x = shard.lookup(params["embed"], tokens)
     if cfg.family == "vlm":
         if patch_embeds is None:
             raise ValueError("a vlm forward takes patch_embeds")
@@ -256,22 +260,24 @@ def _hidden(params, cfg: LMConfig, tokens, patch_embeds=None,
     """The backbone without the unembed projection.  With ``caches`` it
     also writes the prompt's decode state into them (``prefill``)."""
     x, positions = _embed(params, cfg, tokens, patch_embeds)
+    x = shard.sp(x)
     if cfg.family in ("dense", "moe", "vlm"):
         for i, lp in enumerate(params["layers"]):
-            x = _maybe_remat(cfg, _attn_layer, lp, x, cfg, positions, caches,
-                             i)
+            x = shard.sp(_maybe_remat(cfg, _attn_layer, lp, x, cfg,
+                                      positions, caches, i))
     elif cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
-            x = _maybe_remat(cfg, _ssm_layer, lp, x, cfg, caches, (i,))
+            x = shard.sp(_maybe_remat(cfg, _ssm_layer, lp, x, cfg, caches,
+                                      (i,)))
     elif cfg.family == "hybrid":
         for i, seg in enumerate(params["layers"]):
             for j, lp in enumerate(seg):
-                x = _ssm_layer(lp, x, cfg, caches, (i, j))
-            x = _maybe_remat(cfg, _attn_layer, params["shared_attn"], x, cfg,
-                             positions, caches, i)
+                x = shard.sp(_ssm_layer(lp, x, cfg, caches, (i, j)))
+            x = shard.sp(_maybe_remat(cfg, _attn_layer, params["shared_attn"],
+                                      x, cfg, positions, caches, i))
     else:
         raise ValueError(cfg.family)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return shard.rows(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 def prefill(params, cfg: LMConfig, tokens, caches: dict | None = None,
@@ -296,7 +302,13 @@ LOSS_CHUNK = 1024  # sequence chunk for the cross-entropy (bounds (B,c,V) temp)
 def _chunk_ll(xc, tc, unembed):
     """Sum of the targets' log-probabilities over one chunk, in fp32."""
     logp = torch.log_softmax((xc @ unembed).float(), dim=-1)
-    return torch.gather(logp, -1, tc[..., None].long()).sum()
+    # row by row on each rank's rows: DTensor's gather backward makes its
+    # zeros at the global shape on every rank
+    return shard.local_rows(_pick, logp, tc).sum()
+
+
+def _pick(logp, tc):
+    return torch.gather(logp, -1, tc[..., None].long())
 
 
 def chunked_nll(x, targets, unembed):
@@ -308,6 +320,9 @@ def chunked_nll(x, targets, unembed):
     chunk = min(LOSS_CHUNK, s)
     if s % chunk:
         chunk = s
+    # on a mesh the head is gathered over "data" (its width), as XLA does:
+    # a product over a sharded width would all-reduce (B, c, V) partials
+    unembed = shard.constrain(unembed, None, "model")
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(0, s, chunk):
         tot = tot + L.recompute(_chunk_ll, x[:, c:c + chunk],
@@ -391,7 +406,7 @@ def _attn_decode_layer(lp, h, cfg: LMConfig, caches: dict, i: int, pos):
     else:
         att, _ = L.attn_decode(lp["attn"], z, cfg.attn_dims(),
                                caches["k"][i], caches["v"][i], pos)
-    return _mlp_half(lp, h + att, cfg)
+    return _mlp_half(lp, h + shard.sp(att), cfg)
 
 
 def _ssm_decode_layer(lp, h, cfg: LMConfig, hs: torch.Tensor,
@@ -401,14 +416,14 @@ def _ssm_decode_layer(lp, h, cfg: LMConfig, hs: torch.Tensor,
                                         conv)
     hs.copy_(nh)
     conv.copy_(nconv)
-    return h + y
+    return h + shard.sp(y)
 
 
 def decode_step(params, cfg: LMConfig, token, caches: dict, pos):
     """token (B,) -> (logits (B, vocab), caches).  ``pos`` (B,) is the
     index the new token takes (the caches hold what precedes it); the
     caches are updated in place and returned."""
-    x = params["embed"][token][:, None, :]           # (B, 1, d)
+    x = shard.lookup(params["embed"], token)[:, None, :]     # (B, 1, d)
     if cfg.family in ("dense", "moe", "vlm"):
         for i, lp in enumerate(params["layers"]):
             x = _attn_decode_layer(lp, x, cfg, caches, i, pos)

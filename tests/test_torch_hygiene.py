@@ -59,6 +59,26 @@ def test_training_path_is_covered():
     assert "examples/torch_train_lm.py" in names
 
 
+def test_dry_run_mesh_and_search_examples_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for path in ("launch/dryrun.py", "launch/mesh.py", "launch/roofline.py",
+                 "models/sharding.py"):
+        assert f"src/repro_torch/{path}" in names
+    assert "examples/torch_quickstart.py" in names
+    assert "examples/torch_distributed_search.py" in names
+
+
+def test_search_examples_raise_without_cuda(no_cuda):
+    import importlib.util
+    for name in ("torch_quickstart", "torch_distributed_search"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.run([])
+
+
 def test_training_raises_without_cuda(no_cuda, tmp_path):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
