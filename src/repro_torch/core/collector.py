@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import buffer as rb
 from repro_torch.kernels import ops
 
@@ -174,22 +175,24 @@ def collect_batch(dists, ids, valid, bucket, hist, k: int, m: int,
     overflows (threshold in the overflow bucket, or more survivors than the
     buffer holds) the whole batch takes one full-width selection instead.
     Returns (dists (B, k) ascending, ids (B, k))."""
-    n = dists.shape[1]
-    tau, _ = rb.threshold_bucket(hist, k)
-    survive = valid & (bucket <= tau[:, None])
-    budget = rb._collect_budget(k, n, slack_buckets, m)
-    overflowed = bool(torch.any(
-        (tau >= m) | (torch.sum(survive, dim=1) > budget)).item())
-    if overflowed:
-        d = torch.where(valid, dists, INF)
-        vals, order = rb.smallest(d, k)
-        return vals, torch.where(torch.isfinite(vals), ids[order], -1)
-    idx, ok = rb.compact_mask(survive, budget)
-    safe = idx.clamp(max=n - 1)
-    cd = torch.where(ok, torch.gather(dists, 1, safe), INF)
-    ci = torch.where(ok, ids[safe], -1)
-    vals, order = rb.smallest(cd, k)
-    return vals, torch.gather(ci, 1, order)
+    with spans.span("collect"):
+        n = dists.shape[1]
+        tau, _ = rb.threshold_bucket(hist, k)
+        survive = valid & (bucket <= tau[:, None])
+        budget = rb._collect_budget(k, n, slack_buckets, m)
+        over = torch.any((tau >= m) | (torch.sum(survive, dim=1) > budget))
+        with spans.span("wait.collect_overflow"):
+            overflowed = bool(over.item())
+        if overflowed:
+            d = torch.where(valid, dists, INF)
+            vals, order = rb.smallest(d, k)
+            return vals, torch.where(torch.isfinite(vals), ids[order], -1)
+        idx, ok = rb.compact_mask(survive, budget)
+        safe = idx.clamp(max=n - 1)
+        cd = torch.where(ok, torch.gather(dists, 1, safe), INF)
+        ci = torch.where(ok, ids[safe], -1)
+        vals, order = rb.smallest(cd, k)
+        return vals, torch.gather(ci, 1, order)
 
 
 def topk_collect_batch(dists, ids, valid, k: int):

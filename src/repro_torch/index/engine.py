@@ -51,6 +51,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import rerank
 from repro_torch.core.distributed import ShardMesh
 from repro_torch.index import ivf as ivf_mod
@@ -391,9 +392,20 @@ class SearchEngine:
     def search(self, qs, pred_state=None):
         """(B, d) batch or (d,) single query -> SearchResult (or
         ``(SearchResult, new_state)`` with ``pred_state``)."""
-        if torch.as_tensor(qs).ndim == 1:
-            return self.search_one(qs, pred_state=pred_state)
-        return self.search_batch(qs, pred_state=pred_state)
+        with spans.span("engine.search"):
+            if torch.as_tensor(qs).ndim == 1:
+                return self.search_one(qs, pred_state=pred_state)
+            return self.search_batch(qs, pred_state=pred_state)
+
+    def _to_device(self, qs) -> torch.Tensor:
+        """The queries as fp32 on the engine's device.  A host tensor's copy
+        to the card returns when the copy is done (``wait.h2d``)."""
+        with spans.span("engine.h2d"):
+            qs = torch.as_tensor(qs, dtype=torch.float32)
+            if qs.device.type == self.device.type:
+                return qs.to(self.device)
+            with spans.span("wait.h2d"):
+                return qs.to(self.device)
 
     def search_one(self, q, pred_state=None):
         """One (d,) query -> SearchResult of (k,) rows and 0-d counters.
@@ -401,7 +413,7 @@ class SearchEngine:
         tombstone mask (the masks live on the batched searchers) serve a
         singleton batch; otherwise the method's single-query searcher
         runs."""
-        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
+        q = self._to_device(q)
         if pred_state is not None:
             res, state = self.search_batch(q[None], pred_state=pred_state)
             return search_mod.SearchResult(*(x[0] for x in res)), state
@@ -411,7 +423,7 @@ class SearchEngine:
         return self.strategy.search_one(self, q)
 
     def search_batch(self, qs, pred_state=None):
-        qs = torch.as_tensor(qs, dtype=torch.float32).to(self.device)
+        qs = self._to_device(qs)
         if self.mesh is not None:
             return self.strategy.search_sharded(self, qs,
                                                 pred_state=pred_state)

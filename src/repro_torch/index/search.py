@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import buffer as rb
 from repro_torch.core import collector as col
 from repro_torch.core import distributed as dist
@@ -186,7 +187,8 @@ def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
     Only the masked (query, slot) entries are gathered, ``EXACT_CHUNK`` rows
     at a time, so no (B, w, d) block is ever materialized."""
     out = torch.full(ids.shape, INF, dtype=qs.dtype, device=qs.device)
-    rows, cols = mask.nonzero(as_tuple=True)
+    with spans.span("wait.rerank_nonzero"):
+        rows, cols = mask.nonzero(as_tuple=True)
     for i in range(0, rows.shape[0], EXACT_CHUNK):
         r, c = rows[i:i + EXACT_CHUNK], cols[i:i + EXACT_CHUNK]
         out[r, c] = _exact_dists(vectors, ids[r, c], qs[r])
@@ -495,9 +497,16 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
     ivf = index.ivf
     b = qs.shape[0]
     order = layout.order
-    probed, lane_valid, _ = _routing(ivf, layout, qs, n_probe, live)
-    stream_codes = index.codes[order]                         # shared gather
-    luts = pq_mod.adc_table(index.pq, qs)
+    with spans.span("pq.route"):
+        probed, lane_valid, _ = _routing(ivf, layout, qs, n_probe, live)
+    with spans.span("pq.stream"):
+        stream_codes = index.codes[order]                     # shared gather
+        # the fused scan's exact leg reads the rows in stream order
+        stream_vectors = (index.vectors[order]
+                          if use_bbc and fused and pred_state is None
+                          else None)
+    with spans.span("pq.tables"):
+        luts = pq_mod.adc_table(index.pq, qs)
 
     if pred_state is not None:
         if not use_bbc:
@@ -529,24 +538,22 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
         # codebooks + tau_pred from the nearest-cluster sample, then one
         # fused pass (est + bucket + hist + early exact), selection from the
         # histogram, and a second pass for the selected-but-not-predicted
-        st = min(4, n_probe)
-        sample_est = _pq_sample_est(layout, probed, stream_codes, luts, st,
-                                    ivf.cap)
-        plans = rerank.early_rerank_plan(
-            sample_est, n_cand=n_cand, n_sample=sample_est.shape[1],
-            n_total=n_probe * ivf.cap, m=m)
-        est, bucket, hist, early, nmiss = ops.fused_scan_batch(
-            stream_codes, index.vectors[order], lane_valid, luts, qs,
-            plans.cb.d_min, plans.cb.delta, plans.cb.ew_map, m,
-            plans.tau_pred)
+        with spans.span("pq.sample"):
+            st = min(4, n_probe)
+            sample_est = _pq_sample_est(layout, probed, stream_codes, luts,
+                                        st, ivf.cap)
+            plans = rerank.early_rerank_plan(
+                sample_est, n_cand=n_cand, n_sample=sample_est.shape[1],
+                n_total=n_probe * ivf.cap, m=m)
+        with spans.span("pq.scan"):
+            est, bucket, hist, early, nmiss = ops.fused_scan_batch(
+                stream_codes, stream_vectors, lane_valid, luts, qs,
+                plans.cb.d_min, plans.cb.delta, plans.cb.ew_map, m,
+                plans.tau_pred)
+        del stream_vectors        # the (n, d) copy lives as long as the scan
         positions = torch.arange(n_flat, device=qs.device)
         _, sel_pos = col.collect_batch(est, positions, lane_valid, bucket,
                                        hist, n_cand, m)
-        safe_pos = sel_pos.clamp(min=0)
-        sel_ids = torch.where(sel_pos >= 0, order[safe_pos], -1)
-        e_at_sel = torch.gather(early, 1, safe_pos)
-        have = torch.isfinite(e_at_sel) & (sel_pos >= 0)
-        n_early = (lane_valid.sum(1) - nmiss).to(torch.int32)
     else:
         # top n_cand by estimate (boundary ties by global id), then one exact
         # pass over the whole selection
@@ -557,19 +564,27 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
         have = torch.zeros(sel_pos.shape, dtype=torch.bool, device=qs.device)
         n_early = torch.zeros(b, dtype=torch.int32, device=qs.device)
 
-    miss = ~have & (sel_ids >= 0)
-    if not fused and dense_rerank:
-        # the whole selection misses: one shared pass over the stream beats
-        # n_cand per-row gathers
-        exact_all = ops.l2_exact_batch(index.vectors[order], qs)
-        miss_d = torch.gather(exact_all, 1, sel_pos.clamp(min=0))
-    else:
-        miss_d = _exact_dists_rows(index.vectors, sel_ids, qs, mask=miss)
-    ex = torch.where(have, e_at_sel, torch.where(miss, miss_d, INF))
-    second = miss.sum(1).to(torch.int32)
-    vals, pick = rb.smallest(ex, k)
-    return SearchResult(vals, torch.gather(sel_ids, 1, pick),
-                        n_early + second, second)
+    with spans.span("rerank.second_pass"):
+        if fused:
+            safe_pos = sel_pos.clamp(min=0)
+            sel_ids = torch.where(sel_pos >= 0, order[safe_pos], -1)
+            e_at_sel = torch.gather(early, 1, safe_pos)
+            have = torch.isfinite(e_at_sel) & (sel_pos >= 0)
+            n_early = (lane_valid.sum(1) - nmiss).to(torch.int32)
+        miss = ~have & (sel_ids >= 0)
+        if not fused and dense_rerank:
+            # the whole selection misses: one shared pass over the stream
+            # beats n_cand per-row gathers
+            exact_all = ops.l2_exact_batch(index.vectors[order], qs)
+            miss_d = torch.gather(exact_all, 1, sel_pos.clamp(min=0))
+        else:
+            miss_d = _exact_dists_rows(index.vectors, sel_ids, qs, mask=miss)
+        ex = torch.where(have, e_at_sel, torch.where(miss, miss_d, INF))
+        second = miss.sum(1).to(torch.int32)
+    with spans.span("select"):
+        vals, pick = rb.smallest(ex, k)
+        return SearchResult(vals, torch.gather(sel_ids, 1, pick),
+                            n_early + second, second)
 
 
 def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
@@ -792,7 +807,8 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
     if stream is None:
         stream = rabitq_stream(index, layout)
     ivf = index.ivf
-    probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe, live)
+    with spans.span("rabitq.route"):
+        probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe, live)
     if use_bbc and fused:
         return _ivf_rabitq_fused_batch(index, stream, qs, layout, probed,
                                        lane_valid, d2, k, n_probe, m, eps0,
@@ -868,10 +884,11 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     n_flat = layout.n_flat
     st = min(4, n_probe)
     count = k if pred_count is None else max(pred_count, k)
-    sample_ub, _ = _rabitq_sample_ub(stream, index.rq.rot, layout, probed,
-                                     qs, d2, st, ivf.cap, eps0)
-    cbs, tau_inline = _rabitq_sample_plan(sample_ub, k, count, st, n_probe,
-                                          m)
+    with spans.span("rabitq.sample"):
+        sample_ub, _ = _rabitq_sample_ub(stream, index.rq.rot, layout,
+                                         probed, qs, d2, st, ivf.cap, eps0)
+        cbs, tau_inline = _rabitq_sample_plan(sample_ub, k, count, st,
+                                              n_probe, m)
     if pred_state is not None:
         # the EMA gate, -1 while cold (nothing certified inline)
         count_s = max(1, -(-count // _PRED_HIST_STRIDE))
@@ -880,18 +897,20 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
                                      margin=_PRED_GATE_MARGIN),
             dtype=torch.int32, device=qs.device)
 
-    (est, lb, _, bucket_lb, bucket_ub, hist_lb, hist_ub, exact_c, certified,
-     _) = ops.fused_rabitq_scan_batch(
-        stream.codes, stream.vectors, stream.s2, stream.norm_o, stream.f_o,
-        stream.cl, index.rq.rot, qs, d2, lane_valid, cbs.d_min, cbs.delta,
-        cbs.ew_map, m, tau_inline, eps0=eps0)
-    tau_ub, _ = rb.threshold_bucket(hist_ub, k)
-    tau_lb, _ = rb.threshold_bucket(hist_lb, k)
-    certain_in = lane_valid & (bucket_ub < tau_lb[:, None])
-    band = lane_valid & (bucket_lb <= tau_ub[:, None]) & ~certain_in
-    straggler = band & ~certified
-    n_second = torch.sum(straggler, dim=1).to(torch.int32)
-    n_evals = torch.sum(band, dim=1).to(torch.int32)
+    with spans.span("rabitq.scan"):
+        (est, lb, _, bucket_lb, bucket_ub, hist_lb, hist_ub, exact_c,
+         certified, _) = ops.fused_rabitq_scan_batch(
+            stream.codes, stream.vectors, stream.s2, stream.norm_o,
+            stream.f_o, stream.cl, index.rq.rot, qs, d2, lane_valid,
+            cbs.d_min, cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
+    with spans.span("rabitq.band"):
+        tau_ub, _ = rb.threshold_bucket(hist_ub, k)
+        tau_lb, _ = rb.threshold_bucket(hist_lb, k)
+        certain_in = lane_valid & (bucket_ub < tau_lb[:, None])
+        band = lane_valid & (bucket_lb <= tau_ub[:, None]) & ~certain_in
+        straggler = band & ~certified
+        n_second = torch.sum(straggler, dim=1).to(torch.int32)
+        n_evals = torch.sum(band, dim=1).to(torch.int32)
 
     # The reference gathers the stragglers in lb priority into a budget of
     # round128(max(2k, 2048)) rows and falls back to one dense exact pass
@@ -899,21 +918,26 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     # gathered, so the port gathers them by position (one host sync
     # decides the branch, like collect_batch's).
     budget = min(n_flat, ((max(2 * k, 2048) + 127) // 128) * 128)
-    if bool((n_second > budget).any().item()):
-        stragglers = ops.l2_exact_batch(stream.vectors, qs)
-    else:
-        pos = torch.arange(n_flat, device=qs.device).expand(b, n_flat)
-        stragglers = _exact_dists_rows(stream.vectors, pos, qs,
-                                       mask=straggler)
-    exact_band = torch.where(band, torch.where(certified, exact_c,
-                                               stragglers), INF)
-    plan = rerank.GreedyRerankPlan(
-        rerank_mask=band, certain_in=certain_in,
-        certain_out=lane_valid & ~band & ~certain_in, tau_ub=tau_ub,
-        tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
-    res = rerank.greedy_rerank_finalize(plan, exact_band, lb, layout.order,
-                                        k, est=est)
-    out = SearchResult(res.topk_dists, res.topk_ids, n_evals, n_second)
+    with spans.span("rerank.stragglers"):
+        over = (n_second > budget).any()
+        with spans.span("wait.straggler_budget"):
+            dense = bool(over.item())
+        if dense:
+            stragglers = ops.l2_exact_batch(stream.vectors, qs)
+        else:
+            pos = torch.arange(n_flat, device=qs.device).expand(b, n_flat)
+            stragglers = _exact_dists_rows(stream.vectors, pos, qs,
+                                           mask=straggler)
+        exact_band = torch.where(band, torch.where(certified, exact_c,
+                                                   stragglers), INF)
+    with spans.span("select"):
+        plan = rerank.GreedyRerankPlan(
+            rerank_mask=band, certain_in=certain_in,
+            certain_out=lane_valid & ~band & ~certain_in, tau_ub=tau_ub,
+            tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
+        res = rerank.greedy_rerank_finalize(plan, exact_band, lb,
+                                            layout.order, k, est=est)
+        out = SearchResult(res.topk_dists, res.topk_ids, n_evals, n_second)
     if pred_state is None:
         return out
     s = _PRED_HIST_STRIDE
