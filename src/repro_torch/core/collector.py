@@ -18,9 +18,10 @@ ids):
 
 The batched forms (``bbc_collect_batch``, ``collect_batch``,
 ``topk_collect_batch``) take (B, n) estimates over one shared stream.  The
-reference's ``lax.cond`` branches become Python branches on one ``.item()``
-(a host sync per call), except in ``lazy_collect``, which selects both
-branches' results with ``torch.where``.
+reference's ``lax.cond`` branches become Python decisions on one host read
+(a host sync per call): the single-query ``bbc_collect`` branches on it,
+``collect_batch`` sizes its compaction buffer by it.  ``lazy_collect``
+selects both branches' results with ``torch.where``.
 """
 from __future__ import annotations
 
@@ -169,30 +170,40 @@ def bbc_collect_batch(dists, ids, valid, k: int, m: int = 128, sample=None,
 
 def collect_batch(dists, ids, valid, bucket, hist, k: int, m: int,
                   slack_buckets: int = 2):
-    """Batched Alg. 1 Collect over bucket ids (B, n) and histograms
-    (B, m+1): lanes at or below each query's threshold bucket are compacted
-    into a (k + slack)-wide buffer and the k smallest kept.  When any query
-    overflows (threshold in the overflow bucket, or more survivors than the
-    buffer holds) the whole batch takes one full-width selection instead.
-    Returns (dists (B, k) ascending, ids (B, k))."""
+    """Batched Alg. 1 Collect over bucket ids (B, n) and the histograms of
+    their valid lanes (B, m+1): the survivors, the valid lanes at or below
+    each query's threshold bucket, are compacted in stream order by one
+    launch of ``ops.spec_compact_batch`` and the k smallest kept.
+
+    The buffer is (k + slack) wide.  Where the reference overflows it (a
+    query with more survivors, or whose threshold is the overflow bucket,
+    where every valid lane survives) and selects over every lane instead,
+    the buffer widens to the widest row's count, read from the histograms
+    in the one host read: a valid lane past the threshold bucket lies above
+    every survivor, so the k kept are the full-width selection's, and take
+    its ids (-1 past the finite values; a query with fewer than k valid
+    lanes fills with the buffer's +inf sentinels, as the full width fills
+    with its invalid lanes).  Returns (dists (B, k) ascending, ids
+    (B, k))."""
     with spans.span("collect"):
         n = dists.shape[1]
         tau, _ = rb.threshold_bucket(hist, k)
-        survive = valid & (bucket <= tau[:, None])
-        budget = rb._collect_budget(k, n, slack_buckets, m)
-        over = torch.any((tau >= m) | (torch.sum(survive, dim=1) > budget))
+        n_surv = torch.gather(torch.cumsum(hist, 1, dtype=torch.int32), 1,
+                              tau.long()[:, None])[:, 0]
+        reads = torch.stack([n_surv, tau]).amax(dim=1)
         with spans.span("wait.collect_overflow"):
-            overflowed = bool(over.item())
-        if overflowed:
-            d = torch.where(valid, dists, INF)
-            vals, order = rb.smallest(d, k)
-            return vals, torch.where(torch.isfinite(vals), ids[order], -1)
-        idx, ok = rb.compact_mask(survive, budget)
-        safe = idx.clamp(max=n - 1)
+            most, top_tau = reads.tolist()
+        budget = rb._collect_budget(k, n, slack_buckets, m)
+        width = budget if most <= budget else min(n, -(-most // 128) * 128)
+        pos, ok, _ = ops.spec_compact_batch(bucket, valid, tau, width)
+        safe = pos.long().clamp(max=n - 1)
         cd = torch.where(ok, torch.gather(dists, 1, safe), INF)
         ci = torch.where(ok, ids[safe], -1)
         vals, order = rb.smallest(cd, k)
-        return vals, torch.gather(ci, 1, order)
+        out = torch.gather(ci, 1, order)
+        if top_tau >= m or most > budget:
+            out = torch.where(torch.isfinite(vals), out, -1)
+        return vals, out
 
 
 def topk_collect_batch(dists, ids, valid, k: int):

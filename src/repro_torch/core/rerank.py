@@ -242,6 +242,38 @@ def greedy_rerank_finalize(plan: GreedyRerankPlan,
         rerank_mask=plan.rerank_mask, certain_in=plan.certain_in)
 
 
+def greedy_rerank_finalize_compacted(plan: GreedyRerankPlan,
+                                     exact_where_reranked: torch.Tensor,
+                                     lb: torch.Tensor, ids: torch.Tensor,
+                                     k: int, est: torch.Tensor,
+                                     pos: torch.Tensor, ok: torch.Tensor,
+                                     n_reranked: torch.Tensor
+                                     ) -> GreedyRerankResult:
+    """``greedy_rerank_finalize`` over (B, w) compacted lanes: ``pos`` the
+    stream positions of every certain-in and band lane of each row, in
+    stream order (``ops.spec_compact_batch``), ``ok`` false past a row's
+    fill.  The keys, reports and exact distances are gathered at ``pos``
+    and sorted with the same stable sort; every lane left out has key +inf,
+    so with at least k lanes a row, the k picked are the full-width
+    finalize's, bit for bit.  Batched lanes only; ``n_reranked`` (B,) is
+    the caller's count of the band."""
+    safe = pos.long().clamp(max=lb.shape[-1] - 1)
+
+    def at(t, i=safe):
+        return torch.gather(t, 1, i)
+
+    certain_in = at(plan.certain_in) & ok
+    exact = at(exact_where_reranked)
+    resolved = torch.where(at(plan.rerank_mask) & ok, exact, INF)
+    sel_key = torch.where(certain_in, at(lb) - 1e30, resolved)
+    _, idx = rb.smallest(sel_key, k)
+    lane = at(safe, idx)
+    out_d = torch.where(at(certain_in, idx), at(est, lane), at(exact, idx))
+    return GreedyRerankResult(
+        topk_dists=out_d, topk_ids=ids[lane], n_reranked=n_reranked,
+        rerank_mask=plan.rerank_mask, certain_in=plan.certain_in)
+
+
 def greedy_bounded_rerank(lb: torch.Tensor, ub: torch.Tensor,
                           ids: torch.Tensor, k: int, exact_all: torch.Tensor,
                           valid: torch.Tensor | None = None, m: int = 128,

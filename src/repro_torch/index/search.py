@@ -911,18 +911,23 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
         straggler = band & ~certified
         n_second = torch.sum(straggler, dim=1).to(torch.int32)
         n_evals = torch.sum(band, dim=1).to(torch.int32)
+        # certain-in and band lanes together are exactly the valid lanes
+        # whose lb bucket is at most tau_ub (lb <= ub lane by lane, so
+        # tau_lb <= tau_ub); the lb histogram counts them
+        n_kept = torch.gather(torch.cumsum(hist_lb, 1, dtype=torch.int32),
+                              1, tau_ub.long()[:, None])[:, 0]
+        reads = torch.stack([n_second, n_kept, -n_kept]).amax(dim=1)
 
     # The reference gathers the stragglers in lb priority into a budget of
     # round128(max(2k, 2048)) rows and falls back to one dense exact pass
     # when any query has more; under the budget every straggler is
-    # gathered, so the port gathers them by position (one host sync
-    # decides the branch, like collect_batch's).
+    # gathered, so the port gathers them by position.  One host read
+    # decides that branch and sizes the selection below.
     budget = min(n_flat, ((max(2 * k, 2048) + 127) // 128) * 128)
     with spans.span("rerank.stragglers"):
-        over = (n_second > budget).any()
         with spans.span("wait.straggler_budget"):
-            dense = bool(over.item())
-        if dense:
+            most_second, most_kept, least_kept = reads.tolist()
+        if most_second > budget:
             stragglers = ops.l2_exact_batch(stream.vectors, qs)
         else:
             pos = torch.arange(n_flat, device=qs.device).expand(b, n_flat)
@@ -935,8 +940,21 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
             rerank_mask=band, certain_in=certain_in,
             certain_out=lane_valid & ~band & ~certain_in, tau_ub=tau_ub,
             tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
-        res = rerank.greedy_rerank_finalize(plan, exact_band, lb,
-                                            layout.order, k, est=est)
+        if -least_kept < k:
+            # a query with fewer than k valid lanes: the full-width sort
+            with spans.span("select.full_width"):
+                res = rerank.greedy_rerank_finalize(plan, exact_band, lb,
+                                                    layout.order, k, est=est)
+        else:
+            # every row keeps at least k lanes (tau_ub < m keeps the k
+            # lowest ub buckets' lanes; tau_ub = m keeps every valid lane):
+            # select over the widest row's, compacted in stream order
+            width = min(n_flat, -(-most_kept // 128) * 128)
+            kept, ok, _ = ops.spec_compact_batch(bucket_lb, lane_valid,
+                                                 tau_ub, width)
+            res = rerank.greedy_rerank_finalize_compacted(
+                plan, exact_band, lb, layout.order, k, est, kept, ok,
+                n_evals)
         out = SearchResult(res.topk_dists, res.topk_ids, n_evals, n_second)
     if pred_state is None:
         return out

@@ -100,6 +100,81 @@ def test_collect_batch_matches(rng, ties, overflow):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
 
+def _collect_by_compact_mask(dists, ids, valid, bucket, hist, k, m):
+    """``collect_batch`` as it was before the compaction kernel: a survivor
+    mask, its sums and ``buffer.compact_mask``'s sort over every lane, or
+    a full-width selection on overflow.  Returns (dists, ids, whether the
+    batch took the full-width selection)."""
+    n = dists.shape[1]
+    tau, _ = rb.threshold_bucket(hist, k)
+    survive = valid & (bucket <= tau[:, None])
+    budget = rb._collect_budget(k, n, 2, m)
+    if bool(torch.any((tau >= m) | (torch.sum(survive, 1) > budget))):
+        vals, order = rb.smallest(torch.where(valid, dists, np.inf), k)
+        return vals, torch.where(torch.isfinite(vals), ids[order], -1), True
+    idx, ok = rb.compact_mask(survive, budget)
+    safe = idx.clamp(max=n - 1)
+    cd = torch.where(ok, torch.gather(dists, 1, safe), np.inf)
+    ci = torch.where(ok, ids[safe], -1)
+    vals, order = rb.smallest(cd, k)
+    return vals, torch.gather(ci, 1, order), False
+
+
+# k=100, m=16, n=3000: the buffer holds _collect_budget = 176 survivors.
+# Each case is a batch: one row per entry, the lanes per low bucket
+# (the rest valid in buckets 2..m-1), or "none" / "overflow" for a row with
+# no valid lane / with its valid lanes past bucket 1 in the overflow bucket.
+COLLECT_CASES = {
+    "ties": ([{0: 60, 1: 70}, {0: 99, 1: 1}, {0: 100}], False),
+    "at_budget": ([{0: 90, 1: 86}, {0: 30, 1: 90}], False),
+    "over_budget": ([{0: 90, 1: 87}, {0: 30, 1: 90}], True),
+    "tau_is_m": ([{0: 30, 1: 20, "overflow": True}, {0: 150}], True),
+    "no_valid_lane": ([{0: 60, 1: 70}, {"none": True}], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLLECT_CASES))
+@pytest.mark.parametrize("positions", [False, True])
+def test_collect_batch_compacts_like_compact_mask(rng, case, positions):
+    """The compacted survivors give the values and ids of the sort
+    compaction and of its full-width branch bit for bit: tied buckets and
+    tied estimates, a row exactly at the buffer's width, a row over it and
+    a row whose threshold is the overflow bucket (the buffer widens), and a
+    row with no valid lane (sentinels fill it, as invalid lanes fill the
+    full width)."""
+    n, k, m = 3000, 100, 16
+    rows, want_full = COLLECT_CASES[case]
+    bucket = rng.integers(2, m, (len(rows), n))
+    valid = rng.random((len(rows), n)) < 0.9
+    for r, spec in enumerate(rows):
+        # the last lane survives: a sentinel slot that read it would show
+        lanes = np.r_[n - 1, rng.permutation(n - 1)]
+        at = 0
+        for b, c in spec.items():
+            if isinstance(b, int):
+                bucket[r, lanes[at:at + c]] = b
+                valid[r, lanes[at:at + c]] = True
+                at += c
+        if spec.get("overflow"):
+            bucket[r, lanes[at:]] = m
+        if spec.get("none"):
+            valid[r] = False
+    # tied estimates inside a bucket, each bucket's below the next one's;
+    # finite junk on the invalid lanes
+    dists = (bucket + np.round(0.9 * rng.random(bucket.shape), 1)).astype(
+        np.float32)
+    ids = (np.arange(n) if positions else rng.permutation(n)).astype(
+        np.int64)
+    args = (_t(dists), _t(ids), _t(valid), _t(bucket.astype(np.int32)))
+    hist = rb.histogram(args[3], m, args[2])
+    want_d, want_i, full = _collect_by_compact_mask(*args, hist, k, m)
+    assert full == want_full
+    got_d, got_i = col.collect_batch(*args, hist, k, m)
+    assert got_d.dtype == want_d.dtype and got_i.dtype == want_i.dtype
+    np.testing.assert_array_equal(got_d.numpy(), want_d.numpy())
+    np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
+
+
 @pytest.mark.parametrize("with_sample", [False, True])
 def test_bbc_collect_batch_matches(rng, with_sample):
     b, n, k, m = 3, 2500, 300, 64

@@ -136,6 +136,79 @@ def test_fused_and_two_phase_select_the_same_ids(setup):
     assert bool((fused.n_second_pass <= fused.n_reranked).all())
 
 
+def _short_row_k(setup, q):
+    """A k one above the fewest lanes any query of ``q`` probes: that query
+    has fewer than k valid lanes, the others at least k."""
+    _, _, ti, tl, _ = setup
+    _, lane_valid, _ = search._routing(ti.ivf, tl, q, N_PROBE)
+    lanes = lane_valid.sum(1)
+    assert int(lanes.min()) < int(lanes.max())
+    return int(lanes.min()) + 1
+
+
+def _full_width_finalize(plan, exact, lb, ids, k, est, pos, ok, n_reranked):
+    """The compacted finalize's stand-in: the full-width sort over every
+    lane, on the same plan."""
+    res = rr.greedy_rerank_finalize(plan, exact, lb, ids, k, est=est)
+    assert torch.equal(res.n_reranked, n_reranked)
+    return res
+
+
+@pytest.fixture(scope="module")
+def few_centres():
+    """A corpus of 8 centres over 32 clusters, built by the port alone: the
+    nearest probed clusters, the codebook's sample, hold one centre's rows,
+    so at k=1500 most queries' k-th upper bound falls in the overflow
+    bucket (tau_ub = m) while each probes more than k lanes."""
+    rng = np.random.default_rng(5)
+    x = synthetic.clustered(rng, N, D, n_centers=8)
+    qs = synthetic.queries_from(rng, x, NQ)
+    ti = search.build_rabitq_index(torch.from_numpy(x), C, n_iter=4,
+                                   device="cpu")
+    return ti, ivf.flat_layout(ti.ivf), qs
+
+
+@pytest.mark.parametrize("gate", ["static", "predictive", "short_row",
+                                  "overflow_bucket"])
+def test_fused_select_matches_the_full_width_finalize(setup, few_centres,
+                                                      monkeypatch, gate):
+    """The fused path's selection over the compacted certain-in and band
+    lanes returns the ids, distances and counters of the full-width
+    ``greedy_rerank_finalize``: the static gate, the predictive gate cold
+    and warm, a batch in which one query probes fewer than k lanes, and
+    one in which thresholds sit in the overflow bucket."""
+    _, _, ti, tl, qs = setup
+    batches = ([qs[:4]] if gate == "static" else
+               [qs[sl] for sl in PRED_BATCHES] if gate == "predictive" else
+               [qs])
+    k = _short_row_k(setup, torch.from_numpy(qs)) if gate == "short_row" \
+        else K
+    if gate == "overflow_bucket":
+        ti, tl, q = few_centres
+        batches, k = [q], 1500
+
+    def run():
+        state = rr.predictor_init(M) if gate == "predictive" else None
+        out = []
+        for q in batches:
+            res = search.ivf_rabitq_search_batch(
+                ti, torch.from_numpy(q), tl, k=k, n_probe=N_PROBE,
+                use_bbc=True, pred_state=state)
+            if state is not None:
+                res, state = res
+                out.append(state.ema)
+            out.extend(res)
+        return out
+
+    got = run()
+    monkeypatch.setattr(rr, "greedy_rerank_finalize_compacted",
+                        _full_width_finalize)
+    want = run()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_predictive_requires_bbc(setup):
     _, _, ti, tl, qs = setup
     with pytest.raises(ValueError, match="use_bbc"):

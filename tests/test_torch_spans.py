@@ -11,7 +11,10 @@ from torch.autograd import profiler as ap  # noqa: E402
 from torch.autograd.profiler import record_function  # noqa: E402
 
 from repro_torch import spans  # noqa: E402
+from repro_torch.core import buffer as rb  # noqa: E402
+from repro_torch.core import collector as col  # noqa: E402
 from repro_torch.index import engine, search  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -159,3 +162,63 @@ def test_records_past_capacity_are_dropped_and_counted():
     assert len(rec.records()) == 3
     rec.clear()
     assert rec.records() == [] and rec.dropped == 0
+
+
+def _stage_names(fn):
+    """The names of the spans ``fn`` records under a profiler, each with
+    its parent's name."""
+    with ap.profile(use_kineto=True):
+        fn()
+    recs = spans.records()
+    names = {r.span: r.name for r in recs}
+    return [(r.name, names.get(r.parent)) for r in recs]
+
+
+@pytest.mark.parametrize("case", ["fits", "widens", "short_row"])
+def test_collect_compacts_once_in_every_case(monkeypatch, case):
+    """``collect`` makes one compaction and one host read whether the
+    survivors fit the buffer, widen it, or fall short of k (here: a query
+    with no valid lane): it has no full-width branch."""
+    n, k, m = 600, 50, 16
+    g = torch.Generator().manual_seed(1)
+    bucket = torch.randint(1, m, (2, n), generator=g, dtype=torch.int32)
+    bucket[:, :60] = 0
+    if case == "widens":
+        bucket[0] = 0
+    valid = torch.ones(2, n, dtype=torch.bool)
+    if case == "short_row":
+        valid[1] = False
+    dists = bucket + torch.rand(2, n, generator=g)
+    hist = rb.histogram(bucket, m, valid)
+    widths = []
+
+    def compact(bucket, valid, tau, budget):
+        widths.append(budget)
+        return spec_compact(bucket, valid, tau, budget)
+
+    spec_compact = ops.spec_compact_batch
+    monkeypatch.setattr(ops, "spec_compact_batch", compact)
+    got = _stage_names(lambda: col.collect_batch(
+        dists, torch.arange(n), valid, bucket, hist, k, m))
+    assert got == [("wait.collect_overflow", "collect"), ("collect", None)]
+    assert widths == [n if case == "widens" else
+                      rb._collect_budget(k, n, 2, m)]
+
+
+@pytest.mark.parametrize("short_row", [False, True])
+def test_select_full_width_span_only_on_its_branch(engines, data, short_row):
+    """``select.full_width`` is recorded inside the fused RaBitQ path's
+    ``select`` when a query probes fewer than k lanes, and not
+    otherwise."""
+    eng, qs = engines["rabitq"], data[1]
+    _, lane_valid, _ = search._routing(eng.index.ivf, eng.layout, qs,
+                                       eng.n_probe)
+    lanes = lane_valid.sum(1)
+    assert int(lanes.min()) < int(lanes.max())
+    k = int(lanes.min()) + 1 if short_row else eng.k
+    got = _stage_names(lambda: search.ivf_rabitq_search_batch(
+        eng.index, qs, eng.layout, k=k, n_probe=eng.n_probe, use_bbc=True,
+        stream=eng.stream))
+    assert ("select", None) in got
+    assert (("select.full_width", "select") in got) == short_row
+    assert sum(name == "select.full_width" for name, _ in got) == short_row
