@@ -58,7 +58,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      kernel alone; the one-query fused scan beside the batched kernel at
      one query, its design before, and with no predicted row and no valid
      lane; the exact-distance kernel at one delta segment's scan, B=32 x
-     4096 rows, beside its bound and issue ceiling); for #2 and #3 also
+     4096 rows, beside its bound and issue ceiling; the codebook sample's
+     ADC at phase 4's sample, first held bitwise to its plain version on
+     the same card tensors); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -242,6 +244,9 @@ KERNELS = {
                  "src/repro/kernels/l2_rerank.py:29"),
     "bucket_hist": ("src/repro_torch/kernels/csrc/bucket_hist.cu",
                     "src/repro/kernels/bucket_hist.py:65"),
+    # no TPU kernel: the JAX package maps the sample's ADC in XLA
+    "pq_sample_adc_batch": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+                            "src/repro/index/search.py:214"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -3633,9 +3638,11 @@ def sharded_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
 # --------------------------------------------------------------------------
 
 def main_path_kernel_args(eng, qs):
-    """The four kernels' arguments as the main path builds them for one
-    batch (routing, ADC tables, sample codebooks and tau_pred)."""
+    """The five kernels' arguments as the main path builds them for one
+    batch (routing, ADC tables, the codebook sample's lanes, sample
+    codebooks and tau_pred)."""
     from repro_torch.core import rerank
+    from repro_torch.index import ivf as ivf_mod
     from repro_torch.index import pq as pq_mod
     from repro_torch.index import search as S
     ix, lay = eng.index, eng.layout
@@ -3643,14 +3650,17 @@ def main_path_kernel_args(eng, qs):
     codes = ix.codes[lay.order].contiguous()
     vecs = ix.vectors[lay.order].contiguous()
     luts = pq_mod.adc_table(ix.pq, qs).contiguous()
-    sample = S._pq_sample_est(lay, probed, codes, luts, 4, ix.ivf.cap)
+    st = min(S.SAMPLE_TILES, eng.n_probe)
+    spos, sok = ivf_mod.tile_positions(lay, probed[:, :st], ix.ivf.cap)
+    sample = S._pq_sample_est(lay, probed, codes, luts, st, ix.ivf.cap)
     plans = rerank.early_rerank_plan(sample, n_cand=eng.n_cand,
                                      n_sample=sample.shape[1],
                                      n_total=eng.n_probe * ix.ivf.cap,
                                      m=eng.m)
     return dict(codes=codes, vectors=vecs, valid=lane_valid, luts=luts,
                 qs=qs, d_min=plans.cb.d_min, delta=plans.cb.delta,
-                ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred)
+                ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred,
+                spos=spos, sok=sok)
 
 
 def bound(nbytes: float, ops32: float) -> tuple[float, str]:
@@ -3729,6 +3739,46 @@ def timing(a) -> dict:
             f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']}{against_row_kernel(name, t)}")
     return out
+
+
+def timing_sample(a, errs: dict) -> dict:
+    """The codebook sample's ADC at the main path's sample (phase 4's
+    batch): bitwise its plain version on the same card tensors, one launch
+    a call, then timed beside its bound (the sampled lanes' codes read
+    once, the tables, the (B, w) estimates) and the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = (a["codes"], a["luts"], a["spos"], a["sok"])
+    b, w = a["spos"].shape
+    m_sub, k_codes = a["luts"].shape[1], a["luts"].shape[2]
+    before = ops.LAUNCHES["pq_sample_adc_batch"]
+    got = ops.pq_sample_adc_batch(*args)
+    check(ops.LAUNCHES["pq_sample_adc_batch"] == before + 1,
+          "pq_sample_adc_batch: more than one launch a call")
+    want = ref.pq_sample_adc_batch(*args)
+    errs["pq_sample_adc_batch"] = max(errs.get("pq_sample_adc_batch", 0.0),
+                                      max_abs(got, want))
+    check(torch.equal(got, want), f"pq_sample_adc_batch at the main path's "
+          f"sample (B={b}, w={w}, M={m_sub}) not bitwise its plain version")
+    lanes = int(torch.unique(a["spos"][a["sok"]]).numel())
+    pairs = int(a["sok"].sum().item())
+    fn = lambda: ops.pq_sample_adc_batch(*args)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20),
+             plain_ms=cuda_ms(lambda: ref.pq_sample_adc_batch(*args), 3,
+                              warm=1),
+             library_ms=None,
+             work={"B": b, "w": w, "M": m_sub, "lanes": lanes,
+                   "pairs": pairs,
+                   "device_ms": device_ms(fn, "pq_sample_adc_kernel")})
+    t["bound_ms"], t["bound_by"] = bound(
+        lanes * m_sub + 4 * b * m_sub * k_codes + 4 * b * w,
+        pairs * (m_sub - 1))
+    log(f"[timing] pq_sample_adc_batch at the main path's sample (B={b}, "
+        f"w={w}, M={m_sub}; {lanes} lanes, {pairs} pairs): bitwise, "
+        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
+        f"{t['plain_ms']:.4f} ms")
+    return {"pq_sample_adc_batch": t}
 
 
 def timing_delta() -> dict:
@@ -4385,7 +4435,9 @@ def main(argv=None) -> int:
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
               "shapes and needs phase 4")
-        times = timing(main_path_kernel_args(eng, qb))
+        main_args = main_path_kernel_args(eng, qb)
+        times = timing(main_args)
+        times.update(timing_sample(main_args, errs))
         times.update(timing_delta())
         if rq_eng is not None:
             times.update(timing_rabitq(

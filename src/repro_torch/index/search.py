@@ -61,6 +61,8 @@ INF = float("inf")
 EXACT_CHUNK = 1 << 18     # (query, slot) entries per exact-distance gather
                           # (128 MB of fp32 rows at d=128; fewer chunks,
                           # fewer launches of the fixed-order sum)
+SAMPLE_TILES = 4          # nearest probed clusters of a query's codebook
+                          # sample (all probed ones where n_probe is less)
 
 
 class PQIndex(NamedTuple):
@@ -238,15 +240,12 @@ def _pq_sample_est(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
                    stream_codes: torch.Tensor, luts: torch.Tensor, st: int,
                    cap: int) -> torch.Tensor:
     """Per-query ADC estimates (B, st*cap) over the nearest ``st`` probed
-    clusters: the codebook sample.  Summed in ascending m like the kernels,
-    so the sample's estimates equal the scan's for the same lanes."""
+    clusters: the codebook sample, in one launch of the sample ADC at any
+    M.  Summed in ascending m like the kernels, so the sample's estimates
+    equal the scan's for the same lanes."""
     spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
-    sc = stream_codes[spos]                                  # (B, w, M)
-    acc = torch.gather(luts[:, 0, :], 1, sc[:, :, 0].long())
-    for m in range(1, sc.shape[2]):
-        acc = acc + torch.gather(luts[:, m, :], 1, sc[:, :, m].long())
-    return torch.where(sok, numerics.sqrt_rn(torch.clamp(acc, min=0.0)),
-                       INF)
+    return _sqrt_est(ops.pq_sample_adc_batch(stream_codes, luts, spos, sok),
+                     sok)
 
 
 def _topk_est_id(est: torch.Tensor, gids: torch.Tensor, width: int):
@@ -350,7 +349,7 @@ def ivf_pq_search(index: PQIndex, q: torch.Tensor, k: int, n_probe: int,
         nc = _i32(n_cand)
         return SearchResult(vals, ci[order], nc, nc)
 
-    st = min(4, n_probe)
+    st = min(SAMPLE_TILES, n_probe)
     sample = torch.where(valid[:st], est2[:st], INF).reshape(1, -1)
     cb = rb.build_codebook(sample, k=min(n_cand, sample.shape[1]), m=m)
     bucket, hist = ops.bucket_hist(flat_est, flat_valid, cb.d_min, cb.delta,
@@ -539,7 +538,7 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
         # fused pass (est + bucket + hist + early exact), selection from the
         # histogram, and a second pass for the selected-but-not-predicted
         with spans.span("pq.sample"):
-            st = min(4, n_probe)
+            st = min(SAMPLE_TILES, n_probe)
             sample_est = _pq_sample_est(layout, probed, stream_codes, luts,
                                         st, ivf.cap)
             plans = rerank.early_rerank_plan(
@@ -601,7 +600,7 @@ def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
     order = layout.order
     n_flat = layout.n_flat
     count = _resolve_pred_count(pred_count, k, n_cand)
-    st = min(4, n_probe)
+    st = min(SAMPLE_TILES, n_probe)
     sample_est = _pq_sample_est(layout, probed, stream_codes, luts, st,
                                 ivf.cap)
     cbs = rb.build_codebook(sample_est, k=min(n_cand, sample_est.shape[1]),
@@ -688,7 +687,7 @@ def ivf_search_batch(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
     if not use_bbc:
         d, i = col.topk_collect_batch(dists, order, lane_valid, k)
         return SearchResult(d, i, n, zeros)
-    cbs = _sample_codebooks(layout, probed, dists, min(4, n_probe),
+    cbs = _sample_codebooks(layout, probed, dists, min(SAMPLE_TILES, n_probe),
                             index.cap, k, m)
     bucket, hist = ops.bucket_hist_batch(dists, lane_valid, cbs.d_min,
                                          cbs.delta, cbs.ew_map, m)
@@ -882,7 +881,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     ivf = index.ivf
     b = qs.shape[0]
     n_flat = layout.n_flat
-    st = min(4, n_probe)
+    st = min(SAMPLE_TILES, n_probe)
     count = k if pred_count is None else max(pred_count, k)
     with spans.span("rabitq.sample"):
         sample_ub, _ = _rabitq_sample_ub(stream, index.rq.rot, layout,
@@ -1133,7 +1132,8 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
     dv = torch.where(lane_valid, ops.l2_exact_batch(svecs, qs), INF)
     n = dist.hier_psum(lane_valid.sum(dim=1), mesh)
     if use_bbc:
-        cbs, sample = _sharded_codebooks(layout, probed, dv, min(4, n_probe),
+        cbs, sample = _sharded_codebooks(layout, probed, dv,
+                                         min(SAMPLE_TILES, n_probe),
                                          cap_shard, k, m, mesh)
         tau_spec = _sample_spec_tau(cbs, sample, k, n, m)
         if tau_floor is not None:
@@ -1195,7 +1195,8 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     est = _sqrt_est(ops.pq_adc_batch(scodes, luts), lane_valid)
     ghist = None
     if use_bbc:
-        cbs, sample = _sharded_codebooks(layout, probed, est, min(4, n_probe),
+        cbs, sample = _sharded_codebooks(layout, probed, est,
+                                         min(SAMPLE_TILES, n_probe),
                                          cap_shard, n_cand, m, mesh)
         n_probed = dist.hier_psum(lane_valid.sum(dim=1), mesh)
         tau_spec = _sample_spec_tau(cbs, sample, count, n_probed, m)
@@ -1318,7 +1319,7 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
         pos, ok, _ = _naive_local_topk(est, layout, k)
         ex = _exact_at_positions(stream.vectors, qs, pos, ok)
     else:
-        st = min(4, n_probe)
+        st = min(SAMPLE_TILES, n_probe)
         if fused:
             s_local, _ = _rabitq_sample_ub(stream, rot, layout, probed, qs,
                                            d2, st, cap_shard, eps0)

@@ -212,3 +212,110 @@ extern "C" int pq_adc_batch_launch(const uint8_t* codes, const float* luts,
   return launch_tn<0, 0>(codes, luts, out, n, M, K, B, tn, qt, flags, grid,
                          smem, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The codebook sample's ADC: per-query code rows under per-query LUTs.
+//
+// Replaces no TPU kernel: the JAX package sums the sample with XLA ops, one
+// gather and add per sub-quantizer, and the port did the same until this
+// kernel (kernels/ref.py pq_sample_adc_batch is that loop, the plain
+// version).  Query b's sample lane j reads the shared stream's code row
+// pos[b, j] where ok[b, j] and sums luts[b, m, code_m] from a -0.0 start
+// in ascending m in fp32, one rounding an add and nothing contracted:
+// -0.0 + x is x for every x, so the sum has the plain version's bits (its
+// first term is the m = 0 entry itself).  Lanes off the sample are +inf.
+// No (B, w, M) gather of the codes is ever made.
+//
+// What bounds it on an H100.  Bytes: the sampled rows' codes (w rows of M
+// bytes a query, clusters shared by queries read again), the B*M*K LUT
+// floats and the (B, w) estimates.  At B = 32, w ~ 2e4, M = 240 that is
+// ~150 MB of code rows through L1/L2 at most, tens of microseconds; the
+// ~720 launches of the loop it replaces cost milliseconds of host time.
+//
+// What the design does about it.  A block serves one query (blockIdx.y):
+// it stages the query's M*K LUT floats in shared memory once (15 KB at
+// M = 240, K = 16; read from device memory directly where a LUT exceeds a
+// block's shared memory), then walks the query's lanes with a stride of
+// gridDim.x * 256, one lane a thread.  A warp's 32 lanes read at most K
+// distinct words of one LUT row per m: one shared-memory wavefront.  Code
+// rows come in 16-byte words where M is a multiple of 16 and the codes
+// start on a 16-byte boundary, else byte by byte.
+namespace {
+
+template <bool kVec>
+__global__ void __launch_bounds__(bbc::kThreads)
+pq_sample_adc_kernel(const uint8_t* __restrict__ codes,
+                     const float* __restrict__ luts,
+                     const int64_t* __restrict__ pos,
+                     const uint8_t* __restrict__ ok,
+                     float* __restrict__ out, int M, int K, int w,
+                     int staged) {
+  extern __shared__ uint4 smem_u4[];
+  float* lut_s = reinterpret_cast<float*>(smem_u4);
+  const int mk = M * K;
+  const float* lut_g = luts + static_cast<size_t>(blockIdx.y) * mk;
+  if (staged) {
+    for (int i = threadIdx.x; i < mk; i += blockDim.x) lut_s[i] = lut_g[i];
+    __syncthreads();
+  }
+  const float* lut = staged ? lut_s : lut_g;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * w;
+  for (int j = blockIdx.x * bbc::kThreads + threadIdx.x; j < w;
+       j += gridDim.x * bbc::kThreads) {
+    float acc = INFINITY;
+    if (ok[row0 + j]) {
+      const uint8_t* crow = codes + pos[row0 + j] * M;
+      acc = -0.0f;
+      if constexpr (kVec) {
+        const uint4* c4 = reinterpret_cast<const uint4*>(crow);
+        for (int g = 0; g < M / 16; ++g) {
+          const uint4 v = __ldg(c4 + g);
+          const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+          const float* l = lut + 16 * g * K;
+#pragma unroll
+          for (int t = 0; t < 16; ++t)
+            acc = __fadd_rn(
+                acc, l[t * K + ((word[t >> 2] >> (8 * (t & 3))) & 0xff)]);
+        }
+      } else {
+        for (int m = 0; m < M; ++m)
+          acc = __fadd_rn(acc, lut[m * K + __ldg(crow + m)]);
+      }
+    }
+    out[row0 + j] = acc;
+  }
+}
+
+template <bool kVec>
+int launch_sample(const uint8_t* codes, const float* luts, const int64_t* pos,
+                  const uint8_t* ok, float* out, int M, int K, int B, int w,
+                  int grid_x, int smem, cudaStream_t stream) {
+  auto kernel = pq_sample_adc_kernel<kVec>;
+  cudaError_t err = bbc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(grid_x, B), bbc::kThreads, smem, stream>>>(
+      codes, luts, pos, ok, out, M, K, w, smem > 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The sample ADC over (B, w) lanes: `grid_x` blocks a query; `smem` 0 reads
+// the LUTs from device memory, else it stages them and must hold M*K
+// floats; `vec` takes 16-byte code words (M a multiple of 16, 16-byte
+// aligned codes).  Anything else is refused.
+extern "C" int pq_sample_adc_launch(const uint8_t* codes, const float* luts,
+                                    const int64_t* pos, const uint8_t* ok,
+                                    float* out, int M, int K, int B, int w,
+                                    int vec, int grid_x, int smem,
+                                    cudaStream_t stream) {
+  if (M < 1 || K < 1 || B < 1 || B > 65535 || w < 1 || grid_x < 1
+      || (vec && (M % 16 != 0
+                  || reinterpret_cast<uintptr_t>(codes) % 16 != 0))
+      || (smem != 0 && smem < 4 * M * K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vec ? launch_sample<true>(codes, luts, pos, ok, out, M, K, B, w,
+                                   grid_x, smem, stream)
+             : launch_sample<false>(codes, luts, pos, ok, out, M, K, B, w,
+                                    grid_x, smem, stream);
+}

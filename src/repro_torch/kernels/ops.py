@@ -19,7 +19,9 @@ signatures; the first three launch their batched kernel at B = 1, and
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count);
 ``chip_smoke.py`` zeroes it before a run and reads it after.  A launch of
 the PQ, l2, bucket or fused kernel at B = 1 counts under its single-query
-key, whichever wrapper made it; B > 1 under the ``*_batch`` key.
+key, whichever wrapper made it; B > 1 under the ``*_batch`` key.  The
+codebook sample's ADC has no single-query form and counts under
+``pq_sample_adc_batch`` at every B.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -29,8 +31,9 @@ chunk count, grid and the layout of the scratch that one memset zeroes.
 The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
 over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
 persistent grid over chunks, the RaBitQ estimator's (``_est_lanes``) the
-lanes a block holds.  The CPU tests check the plans; the kernels refuse a
-shared-memory size below their layout's.
+lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
+query and whether a query's LUT is staged.  The CPU tests check the plans;
+the kernels refuse a shared-memory size below their layout's.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0,
             "shard_collect_batch": 0, "spec_compact_batch": 0,
             "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
-            "bucket_hist": 0}
+            "bucket_hist": 0, "pq_sample_adc_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -65,6 +68,9 @@ L2_LD = L2_CHUNK + 4
 # blocks an SM holds at most (the kernel's __launch_bounds__)
 ADC_ROWS, ADC_STAGES, ADC_LUT_BUDGET = 256, 2, 96 * 1024
 ADC_BLOCKS_PER_SM = 2
+# pq_adc.cu's sample kernel: the lanes of a query one block walks (four a
+# thread)
+SAMPLE_LANES = 4 * LANE_TILE
 # shard_collect.cu: lanes per chunk ticket (256 threads x 16 lanes), and
 # buffer slots per sentinel-fill ticket
 COLLECT_CHUNK, COLLECT_FILL = 4096, 8192
@@ -90,7 +96,8 @@ _SIGNATURES = {
         "fused_scan_b1_tile": []},
     "pq_adc": {
         "pq_adc_batch_launch": [_P] * 3 + [_I] * 9 + [_P],
-        "pq_adc_tiled_smem_bytes": [_I] * 4},
+        "pq_adc_tiled_smem_bytes": [_I] * 4,
+        "pq_sample_adc_launch": [_P] * 5 + [_I] * 7 + [_P]},
     "l2_rerank": {
         "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P]},
     "bucket_hist": {
@@ -279,6 +286,53 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
         b, p.tn, p.qt, flags, p.grid, p.smem, _stream())
     _check(rc, "pq_adc_batch")
     _count("pq_adc", b)
+    return out
+
+
+class SamplePlan(NamedTuple):
+    """One launch of the codebook sample's ADC."""
+    grid_x: int          # blocks a query
+    smem: int            # the staged LUT, bytes; 0: LUTs from device memory
+
+
+def _sample_plan(w: int, m_sub: int, k_codes: int) -> SamplePlan:
+    """The sample ADC's launch over w lanes a query: one block for each
+    ``SAMPLE_LANES`` lanes, the query's LUT staged in shared memory where
+    it fits a block."""
+    lut = 4 * m_sub * k_codes
+    return SamplePlan(max(1, -(-w // SAMPLE_LANES)),
+                      lut if lut <= MAX_SMEM else 0)
+
+
+def pq_sample_adc_batch(codes: torch.Tensor, luts: torch.Tensor,
+                        pos: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Shared (n, M) uint8 codes x per-query (B, M, K) LUTs over per-query
+    lanes: ``pos`` (B, w) int64 stream positions, in range where ``ok``
+    (B, w) holds -> (B, w) squared estimates, +inf off ``ok``.  One launch
+    at any M."""
+    if not _on_cuda(codes, luts, pos, ok):
+        return _ref.pq_sample_adc_batch(codes, luts, pos, ok)
+    n, m_sub = codes.shape
+    b, _, k_codes = luts.shape
+    w = pos.shape[1]
+    _need(codes, "codes", torch.uint8, (n, m_sub))
+    _need(luts, "luts", torch.float32, (b, m_sub, k_codes))
+    _need(pos, "pos", torch.int64, (b, w))
+    _need(ok, "ok", torch.bool, (b, w))
+    if b > 65535:
+        raise ValueError(f"pq_sample_adc_batch: {b} queries, more than the "
+                         f"65535 blocks of a grid's second axis")
+    out = torch.empty(b, w, dtype=torch.float32, device=codes.device)
+    if b == 0 or w == 0:
+        return out
+    p = _sample_plan(w, m_sub, k_codes)
+    vec = m_sub % 16 == 0 and _aligned(codes)     # 16-byte code words
+    rc = _lib("pq_adc").pq_sample_adc_launch(
+        codes.data_ptr(), luts.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+        out.data_ptr(), m_sub, k_codes, b, w, vec, p.grid_x, p.smem,
+        _stream())
+    _check(rc, "pq_sample_adc_batch")
+    LAUNCHES["pq_sample_adc_batch"] += 1
     return out
 
 

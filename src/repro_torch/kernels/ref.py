@@ -32,6 +32,19 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def pq_sample_adc_batch(codes: torch.Tensor, luts: torch.Tensor,
+                        pos: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """(n, M) shared codes, (B, M, K) per-query LUTs and per-query lanes
+    ``pos`` (B, w) (stream positions) with ``ok`` (B, w) -> (B, w) squared
+    estimates of the rows ``pos``, summed over m in ascending order, +inf
+    off ``ok``: the codebook sample's ADC."""
+    sc = codes[pos]                                          # (B, w, M)
+    acc = torch.gather(luts[:, 0, :], 1, sc[:, :, 0].long())
+    for m in range(1, sc.shape[2]):
+        acc = acc + torch.gather(luts[:, m, :], 1, sc[:, :, m].long())
+    return torch.where(ok, acc, INF)
+
+
 def bucketize_batch(dists: torch.Tensor, d_min: torch.Tensor,
                     delta: torch.Tensor, ew_maps: torch.Tensor,
                     m: int) -> torch.Tensor:
