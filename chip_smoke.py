@@ -60,7 +60,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      lane; the exact-distance kernel at one delta segment's scan, B=32 x
      4096 rows, beside its bound and issue ceiling; the codebook sample's
      ADC at phase 4's sample, first held bitwise to its plain version on
-     the same card tensors); for #2 and #3 also
+     the same card tensors; the second pass's gather at phase 4's second
+     pass and at the GIST1M-width cell's shapes, B=32 x 40,000 slots, 88%
+     set, d=960, held bitwise the same way); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -247,6 +249,9 @@ KERNELS = {
     # no TPU kernel: the JAX package maps the sample's ADC in XLA
     "pq_sample_adc_batch": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                             "src/repro/index/search.py:214"),
+    # no TPU kernel: the JAX package gathers the second pass's rows in XLA
+    "l2_gather_rows_batch": ("src/repro_torch/kernels/csrc/l2_rerank.cu",
+                             "src/repro/index/search.py:501"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -1412,7 +1417,7 @@ def plain_float_parity(pq_index, rq_index, x, qs) -> dict:
     factors and tile estimates, and the exact distances in the kernels'
     ascending order and in the gathered rows' fixed pairwise order."""
     import torch
-    from repro_torch.index import engine, ivf as ivf_mod, search as S
+    from repro_torch.index import engine, ivf as ivf_mod
     from repro_torch.index import rabitq as rq_mod
     from repro_torch.kernels import ref
     pq_eng = engine.SearchEngine.build(pq_index, k=1000, n_probe=16,
@@ -1455,7 +1460,8 @@ def plain_float_parity(pq_index, rq_index, x, qs) -> dict:
     same("l2_exact", ref.l2_exact_batch, x, qb)
     g = torch.Generator(device=DEV).manual_seed(SEED)
     rows = torch.randint(0, x.shape[0], (32, 2000), generator=g, device=DEV)
-    same("exact_rows", S._exact_dists, x, rows, qb[:, None])
+    on = torch.rand(32, 2000, generator=g, device=DEV) < 0.9
+    same("exact_rows", ref.l2_gather_rows, x, rows, qb, on)
     log(f"[parity] plain versions bitwise equal on the card and the CPU "
         f"(values compared): {json.dumps(out)}")
     return out
@@ -3781,6 +3787,75 @@ def timing_sample(a, errs: dict) -> dict:
     return {"pq_sample_adc_batch": t}
 
 
+def second_pass_args(eng, qs):
+    """The second pass's gather arguments of one main-path call, recorded
+    from ``eng.search(qs)``."""
+    from repro_torch.kernels import ops
+    seen, real = [], ops.l2_gather_rows
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    ops.l2_gather_rows = record
+    try:
+        eng.search(qs)
+    finally:
+        ops.l2_gather_rows = real
+    check(len(seen) == 1, f"{len(seen)} second-pass gathers in one call")
+    return seen[0]
+
+
+def d960_gather_args(b=32, n=1_000_000, w=40_000, d=960, share=0.88):
+    """The GIST1M-width cell's second pass in shape: B=32 queries of
+    d=960, w=40,000 slots (its n_cand), about 88% set, ids of random rows
+    of a million (-1 off the mask)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(SEED + 960)
+    vectors = torch.randn(n, d, device=DEV, generator=g)
+    qs = torch.randn(b, d, device=DEV, generator=g)
+    mask = torch.rand(b, w, device=DEV, generator=g) < share
+    ids = torch.randint(0, n, (b, w), device=DEV, generator=g)
+    return vectors, torch.where(mask, ids, -1), qs, mask
+
+
+def timing_gather(args, errs: dict, key: str, where: str) -> dict:
+    """The second pass's gather: bitwise its plain version on the same
+    card tensors, one launch a call, then timed beside its bound (each set
+    entry's row and id read once, the mask, the (B, w) output) and the
+    plain version (the chunked gather and PyTorch passes it replaced)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    vectors, ids, qs, mask = args
+    b, w = mask.shape
+    d = vectors.shape[1]
+    before = ops.LAUNCHES["l2_gather_rows_batch"]
+    got = ops.l2_gather_rows(*args)
+    check(ops.LAUNCHES["l2_gather_rows_batch"] == before + 1,
+          "l2_gather_rows: more than one launch a call")
+    want = ref.l2_gather_rows(*args)
+    errs["l2_gather_rows_batch"] = max(errs.get("l2_gather_rows_batch", 0.0),
+                                       max_abs(got, want))
+    check(torch.equal(got, want), f"l2_gather_rows at {where} (B={b}, w={w}, "
+          f"d={d}) not bitwise its plain version")
+    pairs = int(mask.sum().item())
+    rows = int(torch.unique(ids[mask]).numel())
+    fn = lambda: ops.l2_gather_rows(*args)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20),
+             plain_ms=cuda_ms(lambda: ref.l2_gather_rows(*args), 3, warm=1),
+             library_ms=None,
+             work={"B": b, "w": w, "d": d, "pairs": pairs, "rows": rows,
+                   "device_ms": device_ms(fn, "l2_gather_rows_kernel")})
+    t["bound_ms"], t["bound_by"] = bound(
+        pairs * (4 * d + 8) + 5 * b * w + 4 * b * d, 3 * d * pairs)
+    log(f"[timing] l2_gather_rows_batch at {where} (B={b}, w={w}, d={d}; "
+        f"{pairs} pairs, {rows} rows): bitwise, {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}: {pairs * 4 * d / 1e9:.3f} GB of pair rows), "
+        f"plain {t['plain_ms']:.4f} ms")
+    return {key: t}
+
+
 def timing_delta() -> dict:
     """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
     4096 rows of d=128): the wrapper call and the kernel alone beside the
@@ -4438,6 +4513,12 @@ def main(argv=None) -> int:
         main_args = main_path_kernel_args(eng, qb)
         times = timing(main_args)
         times.update(timing_sample(main_args, errs))
+        times.update(timing_gather(second_pass_args(eng, qb), errs,
+                                   "l2_gather_rows_batch",
+                                   "phase 4's second pass"))
+        times.update(timing_gather(d960_gather_args(), errs,
+                                   "l2_gather_rows_batch@d960",
+                                   "the d960 cell's shapes"))
         times.update(timing_delta())
         if rq_eng is not None:
             times.update(timing_rabitq(

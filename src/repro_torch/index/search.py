@@ -58,9 +58,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.platform import on_cuda, resolve_device
 
 INF = float("inf")
-EXACT_CHUNK = 1 << 18     # (query, slot) entries per exact-distance gather
-                          # (128 MB of fp32 rows at d=128; fewer chunks,
-                          # fewer launches of the fixed-order sum)
 SAMPLE_TILES = 4          # nearest probed clusters of a query's codebook
                           # sample (all probed ones where n_probe is less)
 
@@ -169,32 +166,15 @@ def rabitq_stream(index: RabitqIndex,
 # Shared helpers
 # --------------------------------------------------------------------------
 
-def _exact_dists(vectors: torch.Tensor, ids: torch.Tensor,
-                 q: torch.Tensor) -> torch.Tensor:
-    """Exact distances of rows ``ids`` (-1 padding allowed; callers mask) to
-    the matching rows of ``q`` (broadcast).  The squares are added by
-    ``numerics.ordered_sum``: a fixed order, so the CPU and the card give
-    the same bits, in log2(d) launches per chunk where the kernels'
-    ascending order (``numerics.exact_dist``) would take d.  Each lane's
-    distance comes from one source, chosen alike on both devices, so the
-    last-bit difference from a kernel's value never meets it."""
-    diff = vectors[ids.clamp(min=0)] - q
-    return numerics.sqrt_rn(numerics.ordered_sum(diff * diff))
-
-
 def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
                       qs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Exact distances (B, w) for per-query id rows, +inf off ``mask``.
-
-    Only the masked (query, slot) entries are gathered, ``EXACT_CHUNK`` rows
-    at a time, so no (B, w, d) block is ever materialized."""
-    out = torch.full(ids.shape, INF, dtype=qs.dtype, device=qs.device)
-    with spans.span("wait.rerank_nonzero"):
-        rows, cols = mask.nonzero(as_tuple=True)
-    for i in range(0, rows.shape[0], EXACT_CHUNK):
-        r, c = rows[i:i + EXACT_CHUNK], cols[i:i + EXACT_CHUNK]
-        out[r, c] = _exact_dists(vectors, ids[r, c], qs[r])
-    return out
+    """Exact distances (B, w) for per-query id rows, +inf off ``mask``:
+    ``ops.l2_gather_rows``, one kernel on the card, which reads each masked
+    (query, slot) entry's row once and adds its squares in
+    ``numerics.ordered_sum``'s order, so the CPU's chunked plain version
+    and the card give the same bits."""
+    return ops.l2_gather_rows(vectors, ids.long(), qs.contiguous(),
+                              mask.contiguous())
 
 
 def _routing(ivf: ivf_mod.IVFIndex, layout: ivf_mod.FlatLayout,

@@ -1,3 +1,8 @@
+// Two kernels of exact distances.  `l2_exact_batch` (below) gives every
+// (query, row) pair of shared rows; `l2_gather_rows` (the second half of
+// this file) gives the masked (query, slot) entries of per-query id rows,
+// the re-rank's second pass.
+//
 // Batched exact distances: shared (n, d) fp32 vectors x (B, d) queries ->
 // (B, n) Euclidean distances, the function the Pallas kernel computes as
 // sqrt(max(|x|^2 - 2 x.q + |q|^2, 0)); this kernel sums (x - q)^2
@@ -183,4 +188,222 @@ extern "C" int l2_exact_batch_launch(const float* x, const float* qs,
                                    stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The second pass: (N, d) fp32 vectors, per-query id rows `ids` (B, w)
+// int64 (any value off the mask), (B, d) queries and a (B, w)
+// mask -> (B, w) exact distances of the rows ids[b, s] to query b on the
+// mask, +inf off it.  Only the set entries' rows are read, once each, and
+// nothing else is written but the (B, w) output.
+//
+// Replaces: the gather and PyTorch passes of kernels/ref.py l2_gather_rows
+// (no TPU kernel: the JAX package gathers the rows in XLA).
+//
+// Numerics.  The plain version adds the squares by numerics.ordered_sum:
+// the first half of the row's squares added to the second, elementwise, an
+// odd last column carried into the next round, until one is left; then
+// the IEEE root.  This kernel adds them in that order with __fsub_rn,
+// __fmul_rn and __fadd_rn (no FMA), and takes __fsqrt_rn: the plain
+// version's bits, on the card and on the CPU.
+//
+// What bounds it on an H100.  Device-memory bytes: each set entry's row is
+// read once (3,840 B at d = 960; ~35,000 of 40,000 slots set a query on
+// PQ's second pass), 1.12M rows and 4.3 GB a call at the d960 cell's B =
+// 32, ~1.3 ms at 3.35 TB/s.  Rows that several queries share may come from
+// L2.  A sparse mask (RaBitQ's stragglers: a few thousand of ~1M slots)
+// costs the mask's bytes and the +inf writes.
+//
+// What the design does about it.  A block takes one query and a tile of
+// kGatherTile slots: it stages the query in shared memory, writes +inf on
+// the tile's unset slots and compacts the set ones into a shared list
+// (a warp ballot, one shared atomic a warp).  Then groups of G lanes (G =
+// 8, 16 or 32: the fewest that take the first round's pairs at kPairs a
+// lane; 32 / G rows a warp in flight at once, four at d = 128) take the
+// listed entries in turn.  A group issues all of its loads of the first
+// round, up to kPairs 16-byte pairs (x[i..i+3], x[h+i..h+i+3]) a lane,
+// before any arithmetic, so a warp keeps up to 4 KB of rows in flight
+// (2 KB at d = 128), and writes the round's d/2 sums to its own shared
+// buffer; the rounds above G values go through that buffer with
+// __syncwarp, the last log2(G) by shuffles within the group.  Rows off
+// 16-byte alignment or with d % 8 != 0 load 4-byte words, kScalarPairs
+// pairs a lane (a kernel of their own: each form keeps its registers).
+// Control flow is uniform across a warp: a group with no entry left
+// repeats row 0's loads and stores nothing.
+namespace {
+
+constexpr int kGatherTile = 1024;   // slots of one query a block takes
+constexpr int kPairs = 4;           // 16-byte pairs a lane loads at once
+constexpr int kScalarPairs = 8;     // 4-byte pairs a lane loads at once
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// Dynamic shared memory: the query (d floats), the slot list and one
+// buffer of ceil(d / 2) floats a group, each rounded up to 16 bytes.
+__host__ __device__ constexpr int gather_smem_floats(int d, int g) {
+  return round4(d) + kGatherTile + (bbc::kThreads / g) * round4(d - d / 2);
+}
+
+__device__ __forceinline__ float sq_diff(float x, float q) {
+  const float a = __fsub_rn(x, q);
+  return __fmul_rn(a, a);
+}
+
+__device__ __forceinline__ float add_sq2(float x0, float q0, float x1,
+                                         float q1) {
+  return __fadd_rn(sq_diff(x0, q0), sq_diff(x1, q1));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(bbc::kThreads, 4)
+l2_gather_rows_kernel(const float* __restrict__ x,
+                      const long long* __restrict__ ids, long long ids_stride,
+                      const float* __restrict__ qs,
+                      const unsigned char* __restrict__ mask,
+                      float* __restrict__ out, int d, int w, int g) {
+  extern __shared__ float4 smem4[];
+  __shared__ int n_set;
+  float* q_s = reinterpret_cast<float*>(smem4);
+  int* list = reinterpret_cast<int*>(q_s + round4(d));
+  float* bufs = reinterpret_cast<float*>(list + kGatherTile);
+  const int b = blockIdx.y, s0 = blockIdx.x * kGatherTile;
+  const int lane = threadIdx.x & 31;
+  const unsigned char* mrow = mask + static_cast<size_t>(b) * w;
+  float* orow = out + static_cast<size_t>(b) * w;
+
+  if (threadIdx.x == 0) n_set = 0;
+  for (int i = threadIdx.x; i < d; i += bbc::kThreads)
+    q_s[i] = qs[static_cast<size_t>(b) * d + i];
+  __syncthreads();
+  for (int k = 0; k < kGatherTile; k += bbc::kThreads) {
+    const int s = s0 + k + threadIdx.x;
+    const bool on = s < w && mrow[s];
+    if (s < w && !on) orow[s] = INFINITY;
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    int base = 0;
+    if (lane == 0 && bal) base = atomicAdd(&n_set, __popc(bal));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (on) list[base + __popc(bal & ((1u << lane) - 1u))] = s;
+  }
+  __syncthreads();
+
+  const int sl = lane & (g - 1), groups = bbc::kThreads / g;
+  const int half = d >> 1, len1 = d - half;
+  float* buf = bufs + (threadIdx.x / g) * round4(len1);
+  const long long* irow = ids + b * ids_stride;
+  const int count = n_set;
+  for (int e0 = 0; e0 < count; e0 += groups) {
+    const int e = e0 + static_cast<int>(threadIdx.x) / g;
+    const bool act = e < count;
+    const int s = act ? list[e] : 0;
+    // a set entry's id is a row; -1 reads row 0, as the plain version's
+    // clamp does
+    const long long id = act ? irow[s] : 0;
+    const float* xr = x + static_cast<size_t>(id > 0 ? id : 0) * d;
+    // round 1 from device memory: buf[i] = sq[i] + sq[i + half], i < half
+    if (VEC) {                       // d % 8 == 0, 16-byte aligned rows
+      const int h4 = half >> 2;
+      const float4* x4 = reinterpret_cast<const float4*>(xr);
+      const float4* q4 = reinterpret_cast<const float4*>(q_s);
+      float4* b4 = reinterpret_cast<float4*>(buf);
+      for (int t0 = sl; t0 < h4; t0 += kPairs * g) {
+        float4 lo[kPairs], hi[kPairs];
+#pragma unroll
+        for (int u = 0; u < kPairs; ++u) {
+          const int t = t0 + u * g;
+          if (t < h4) {
+            lo[u] = __ldg(x4 + t);
+            hi[u] = __ldg(x4 + t + h4);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPairs; ++u) {
+          const int t = t0 + u * g;
+          if (t < h4) {
+            const float4 qa = q4[t], qb = q4[t + h4];
+            float4 r;
+            r.x = add_sq2(lo[u].x, qa.x, hi[u].x, qb.x);
+            r.y = add_sq2(lo[u].y, qa.y, hi[u].y, qb.y);
+            r.z = add_sq2(lo[u].z, qa.z, hi[u].z, qb.z);
+            r.w = add_sq2(lo[u].w, qa.w, hi[u].w, qb.w);
+            b4[t] = r;
+          }
+        }
+      }
+    } else {
+      for (int t0 = sl; t0 < half; t0 += kScalarPairs * g) {
+        float lo[kScalarPairs], hi[kScalarPairs];
+#pragma unroll
+        for (int u = 0; u < kScalarPairs; ++u) {
+          const int t = t0 + u * g;
+          if (t < half) {
+            lo[u] = __ldg(xr + t);
+            hi[u] = __ldg(xr + t + half);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kScalarPairs; ++u) {
+          const int t = t0 + u * g;
+          if (t < half) buf[t] = add_sq2(lo[u], q_s[t], hi[u], q_s[t + half]);
+        }
+      }
+      if ((d & 1) && sl == 0)        // the odd column rides along
+        buf[half] = sq_diff(__ldg(xr + d - 1), q_s[d - 1]);
+    }
+    __syncwarp();
+    // the rounds above G values, in the group's buffer
+    int len = len1;
+    while (len > g) {
+      const int h = len >> 1;
+      for (int i = sl; i < h; i += g) buf[i] = __fadd_rn(buf[i], buf[i + h]);
+      __syncwarp();
+      if (len & 1) {
+        if (sl == 0) buf[h] = buf[2 * h];
+        __syncwarp();
+      }
+      len -= h;
+    }
+    // the last rounds in registers: value i in lane i of the group
+    float v = sl < len ? buf[sl] : 0.f;
+    while (len > 1) {
+      const int h = len >> 1;
+      const float o = __shfl_sync(0xffffffffu, v, sl < h ? sl + h : 2 * h, g);
+      v = sl < h ? __fadd_rn(v, o) : o;    // lane h takes the odd column
+      len -= h;
+    }
+    if (act && sl == 0) orow[s] = __fsqrt_rn(v);
+    __syncwarp();                          // the buffer is free again
+  }
+}
+
+}  // namespace
+
+// Shared memory (bytes) the gather kernel's layout takes at width d with
+// groups of g lanes.
+extern "C" int l2_gather_rows_smem_bytes(int d, int g) {
+  return 4 * gather_smem_floats(d, g);
+}
+
+// grid = (ceil(w / kGatherTile), B); `ids_stride` is the row stride of
+// `ids` in elements (0 for a row broadcast over the queries; its column
+// stride must be 1).  `g` lanes a row (8, 16 or 32); `vec` takes 16-byte
+// loads (d % 8 == 0 and 16-byte aligned vectors).  A shared-memory size
+// below the layout's is refused.
+extern "C" int l2_gather_rows_launch(const float* x, const long long* ids,
+                                     const float* qs,
+                                     const unsigned char* mask, float* out,
+                                     long long ids_stride, int d, int B,
+                                     int w, int g, int vec, int smem,
+                                     cudaStream_t stream) {
+  if ((g != 8 && g != 16 && g != 32) || B > 65535 ||
+      smem < 4 * gather_smem_floats(d, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = vec ? l2_gather_rows_kernel<true>
+                          : l2_gather_rows_kernel<false>;
+  cudaError_t err = bbc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w + kGatherTile - 1) / kGatherTile, B);
+  kernel<<<grid, bbc::kThreads, smem, stream>>>(x, ids, ids_stride, qs, mask,
+                                                out, d, w, g);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -20,8 +20,9 @@ signatures; the first three launch their batched kernel at B = 1, and
 ``chip_smoke.py`` zeroes it before a run and reads it after.  A launch of
 the PQ, l2, bucket or fused kernel at B = 1 counts under its single-query
 key, whichever wrapper made it; B > 1 under the ``*_batch`` key.  The
-codebook sample's ADC has no single-query form and counts under
-``pq_sample_adc_batch`` at every B.
+codebook sample's ADC and the second pass's gather have no single-query
+form and count under ``pq_sample_adc_batch`` and ``l2_gather_rows_batch``
+at every B.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -32,7 +33,9 @@ The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
 over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
 persistent grid over chunks, the RaBitQ estimator's (``_est_lanes``) the
 lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
-query and whether a query's LUT is staged.  The CPU tests check the plans;
+query and whether a query's LUT is staged, the second pass's gather's
+(``_gather_plan``) its lanes a row, load width and shared memory.  The CPU
+tests check the plans;
 the kernels refuse a shared-memory size below their layout's.
 """
 from __future__ import annotations
@@ -52,7 +55,8 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "bucket_hist_batch": 0, "fused_rabitq_scan_batch": 0,
             "shard_collect_batch": 0, "spec_compact_batch": 0,
             "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
-            "bucket_hist": 0, "pq_sample_adc_batch": 0}
+            "bucket_hist": 0, "pq_sample_adc_batch": 0,
+            "l2_gather_rows_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -71,6 +75,10 @@ ADC_BLOCKS_PER_SM = 2
 # pq_adc.cu's sample kernel: the lanes of a query one block walks (four a
 # thread)
 SAMPLE_LANES = 4 * LANE_TILE
+# l2_rerank.cu's gather kernel: the slots of one query a block takes, and
+# the first round's pairs a lane loads at once (4-byte words, 16-byte)
+GATHER_TILE = 1024
+GATHER_PAIRS = {False: 8, True: 4}
 # shard_collect.cu: lanes per chunk ticket (256 threads x 16 lanes), and
 # buffer slots per sentinel-fill ticket
 COLLECT_CHUNK, COLLECT_FILL = 4096, 8192
@@ -99,7 +107,10 @@ _SIGNATURES = {
         "pq_adc_tiled_smem_bytes": [_I] * 4,
         "pq_sample_adc_launch": [_P] * 5 + [_I] * 7 + [_P]},
     "l2_rerank": {
-        "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P]},
+        "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P],
+        "l2_gather_rows_launch": [_P] * 5 + [ctypes.c_longlong]
+                                 + [_I] * 6 + [_P],
+        "l2_gather_rows_smem_bytes": [_I] * 2},
     "bucket_hist": {
         "bucket_hist_batch_launch": [_P] * 7 + [_I] * 9 + [_P],
         "bucket_hist_smem_bytes": [_I] * 2,
@@ -354,6 +365,71 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         p.grid, p.smem, _stream())
     _check(rc, "l2_exact_batch")
     _count("l2_exact", b)
+    return out
+
+
+class GatherPlan(NamedTuple):
+    """One launch of the second pass's gather kernel."""
+    g: int               # lanes a row (8, 16 or 32)
+    vec: bool            # 16-byte loads
+    smem: int            # dynamic shared memory, bytes
+
+
+def _gather_plan(d: int, aligned: bool) -> GatherPlan:
+    """The gather's launch at width d: 16-byte loads where d % 8 == 0 and
+    the vectors are 16-byte aligned; the fewest lanes a row (8-32) that
+    take the first round's pairs (d/2 / 4 of 16 bytes, or d/2 words) at
+    ``GATHER_PAIRS`` a lane, so small rows put more rows of a warp in
+    flight; the query, the slot list and a buffer of ceil(d/2) floats a
+    group in shared memory (the kernel's ``gather_smem_floats``).  Raises
+    past a block's shared memory."""
+    vec = d % 8 == 0 and aligned
+    units = d // 2 // 4 if vec else d // 2
+    per = GATHER_PAIRS[vec]
+    g = 8
+    while g < 32 and g * per < units:
+        g *= 2
+    smem = 4 * (-(-d // 4) * 4 + GATHER_TILE
+                + LANE_TILE // g * (-(-(d - d // 2) // 4) * 4))
+    if smem > MAX_SMEM:
+        raise ValueError(f"l2_gather_rows: d={d} needs {smem} bytes of "
+                         f"shared memory, more than the {MAX_SMEM} a block "
+                         f"may use")
+    return GatherPlan(g, vec, smem)
+
+
+def l2_gather_rows(vectors: torch.Tensor, ids: torch.Tensor,
+                   qs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, d) vectors, per-query id rows ``ids`` (B, w) int64 (-1 allowed
+    off ``mask``; a view with any row stride and unit column stride, such
+    as a row expanded over the queries), (B, d) queries and a (B, w)
+    ``mask`` -> (B, w) exact distances on ``mask``, +inf off it.  One
+    launch: the second pass of the re-rank."""
+    if not _on_cuda(vectors, ids, qs, mask):
+        return _ref.l2_gather_rows(vectors, ids, qs, mask)
+    n, d = vectors.shape
+    b, w = mask.shape
+    _need(vectors, "vectors", torch.float32, (n, d))
+    _need(qs, "qs", torch.float32, (b, d))
+    _need(mask, "mask", torch.bool, (b, w))
+    if ids.dtype != torch.int64 or tuple(ids.shape) != (b, w) \
+            or (w > 1 and ids.stride(1) != 1):
+        raise ValueError(f"ids: the CUDA kernel takes int64 ({b}, {w}) rows "
+                         f"with unit column stride, got {ids.dtype} "
+                         f"{tuple(ids.shape)} strides {ids.stride()}")
+    if b > 65535:
+        raise ValueError(f"l2_gather_rows: {b} queries, more than the 65535 "
+                         f"blocks of a grid's second axis")
+    out = torch.empty(b, w, dtype=torch.float32, device=vectors.device)
+    if b == 0 or w == 0:
+        return out
+    p = _gather_plan(d, _aligned(vectors))
+    rc = _lib("l2_rerank").l2_gather_rows_launch(
+        vectors.data_ptr(), ids.data_ptr(), qs.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), ids.stride(0), d, b, w, p.g, p.vec, p.smem,
+        _stream())
+    _check(rc, "l2_gather_rows")
+    LAUNCHES["l2_gather_rows_batch"] += 1
     return out
 
 

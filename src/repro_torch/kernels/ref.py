@@ -17,9 +17,13 @@ import math
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import numerics
 
 INF = float("inf")
+EXACT_CHUNK = 1 << 18     # (query, slot) entries per exact-distance gather
+                          # (128 MB of fp32 rows at d=128; fewer chunks,
+                          # fewer launches of the fixed-order sum)
 
 
 def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -83,6 +87,27 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     as the CUDA kernels add it, rather than the JAX oracle's norm-identity
     matmul."""
     return numerics.exact_dist(x[None], qs[:, None])
+
+
+def l2_gather_rows(vectors: torch.Tensor, ids: torch.Tensor,
+                   qs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, d) vectors, per-query id rows ``ids`` (B, w) (-1 allowed off
+    ``mask``), (B, d) queries, (B, w) ``mask`` -> (B, w) exact distances of
+    the rows ``ids`` to their query on ``mask``, +inf off it.
+
+    Only the masked (query, slot) entries are gathered, ``EXACT_CHUNK`` at
+    a time, so no (B, w, d) block is ever materialized; the squares are
+    added by ``numerics.ordered_sum`` (log2(d) launches a chunk on a card,
+    where ``numerics.exact_dist``'s ascending order would take d), the
+    order the CUDA kernel adds them in."""
+    out = torch.full(ids.shape, INF, dtype=qs.dtype, device=qs.device)
+    with spans.span("wait.rerank_nonzero"):
+        rows, cols = mask.nonzero(as_tuple=True)
+    for i in range(0, rows.shape[0], EXACT_CHUNK):
+        r, c = rows[i:i + EXACT_CHUNK], cols[i:i + EXACT_CHUNK]
+        diff = vectors[ids[r, c].clamp(min=0)] - qs[r]
+        out[r, c] = numerics.sqrt_rn(numerics.ordered_sum(diff * diff))
+    return out
 
 
 def fused_scan_batch(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,

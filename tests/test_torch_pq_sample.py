@@ -164,10 +164,10 @@ def test_chunked_second_pass_is_one_pass_bitwise(rng, monkeypatch, d):
     qs = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     ids = torch.from_numpy(rng.integers(-1, n, (b, w)).astype(np.int64))
     mask = (ids >= 0) & torch.from_numpy(rng.random((b, w)) < 0.7)
-    monkeypatch.setattr(search, "EXACT_CHUNK", 1 << 40)
+    monkeypatch.setattr(ref, "EXACT_CHUNK", 1 << 40)
     whole = search._exact_dists_rows(vectors, ids, qs, mask)
     # 97 entries a chunk: every chunk boundary falls inside a query's row
-    monkeypatch.setattr(search, "EXACT_CHUNK", 97)
+    monkeypatch.setattr(ref, "EXACT_CHUNK", 97)
     chunked = search._exact_dists_rows(vectors, ids, qs, mask)
     assert torch.equal(chunked, whole)
     assert torch.equal(torch.isfinite(whole), mask)
