@@ -3653,8 +3653,7 @@ def main_path_kernel_args(eng, qs):
     from repro_torch.index import search as S
     ix, lay = eng.index, eng.layout
     probed, lane_valid, _ = S._routing(ix.ivf, lay, qs, eng.n_probe)
-    codes = ix.codes[lay.order].contiguous()
-    vecs = ix.vectors[lay.order].contiguous()
+    codes, vecs = eng.stream.codes, eng.stream.vectors
     luts = pq_mod.adc_table(ix.pq, qs).contiguous()
     st = min(S.SAMPLE_TILES, eng.n_probe)
     spos, sok = ivf_mod.tile_positions(lay, probed[:, :st], ix.ivf.cap)
@@ -3908,12 +3907,12 @@ def rabitq_kernel_args(eng, qs) -> dict:
     ix, lay, st = eng.index, eng.layout, eng.stream
     probed, lane_valid, d2 = S._routing(ix.ivf, lay, qs, eng.n_probe)
     n_st = min(4, eng.n_probe)
-    sample_ub, _ = S._rabitq_sample_ub(st, ix.rq.rot, lay, probed, qs, d2,
-                                       n_st, ix.ivf.cap, RQ_EPS0)
+    sample_ub, _ = S._rabitq_sample_ub(st, lay, probed, qs, d2, n_st,
+                                       ix.ivf.cap, RQ_EPS0)
     cbs, tau = S._rabitq_sample_plan(sample_ub, eng.k, eng.k, n_st,
                                      eng.n_probe, eng.m)
     return dict(codes=st.codes, vectors=st.vectors, s2=st.s2,
-                norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, rot=ix.rq.rot, qs=qs,
+                norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, rot=st.rot, qs=qs,
                 d2=d2, valid=lane_valid, d_min=cbs.d_min, delta=cbs.delta,
                 ew_maps=cbs.ew_map, m=eng.m, tau_inline=tau)
 
@@ -3959,17 +3958,14 @@ def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
     PQ and RaBitQ paths build them for one batch (routing, the local scan,
     the gathered sample's codebooks and tau_spec)."""
     import torch
-    from repro_torch.index import ivf as ivf_mod
     from repro_torch.index import pq as pq_mod
     from repro_torch.index import search as S
     from repro_torch.kernels import ops
     e = forms["ivfpq_bbc"]
-    pq_cb, cent, scodes, svecs = e.shard_streams
-    lay, qs = e.shard_layout, qs_main[:32]
-    probed, _ = S._local_routing(cent, qs, e.n_probe)
-    valid = ivf_mod.probe_mask(lay, probed, cent.shape[0])
-    est = S._sqrt_est(ops.pq_adc_batch(scodes, pq_mod.adc_table(pq_cb, qs)),
-                      valid)
+    st, lay, qs = e.stream, e.shard_layout, qs_main[:32]
+    probed, valid, _ = S._routing(st, lay, qs, e.n_probe)
+    est = S._sqrt_est(ops.pq_adc_batch(st.codes,
+                                       pq_mod.adc_table(st.pq, qs)), valid)
     cbs, sample = S._sharded_codebooks(lay, probed, est, 4, e.cap_shard,
                                        e.n_cand, e.m, e.mesh)
     n_probed = valid.sum(dim=1)
@@ -3979,15 +3975,13 @@ def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
                                           e.m),
               budget=S._shard_budget(None, e.n_cand, 1, est.shape[1], 2.0))
     e = forms["ivfrabitq_bbc"]
-    rot, cent, st = e.shard_streams
-    lay, qs = e.shard_layout, qs_rq[:32]
-    probed, d2 = S._local_routing(cent, qs, e.n_probe)
-    valid = ivf_mod.probe_mask(lay, probed, cent.shape[0])
-    sample, _ = S._rabitq_sample_ub(st, rot, lay, probed, qs, d2, 4,
-                                    e.cap_shard, RQ_EPS0)
+    st, lay, qs = e.stream, e.shard_layout, qs_rq[:32]
+    probed, valid, d2 = S._routing(st, lay, qs, e.n_probe)
+    sample, _ = S._rabitq_sample_ub(st, lay, probed, qs, d2, 4, e.cap_shard,
+                                    RQ_EPS0)
     cbs, tau = S._rabitq_sample_plan(sample, e.k, e.k, 4, e.n_probe, e.m)
     out = ops.fused_rabitq_scan_batch(st.codes, st.vectors, st.s2, st.norm_o,
-                                      st.f_o, st.cl, rot, qs, d2, valid,
+                                      st.f_o, st.cl, st.rot, qs, d2, valid,
                                       cbs.d_min, cbs.delta, cbs.ew_map, e.m,
                                       tau, eps0=RQ_EPS0)
     rq = dict(bucket=out[3], valid=valid, tau_spec=tau,

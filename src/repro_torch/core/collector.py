@@ -171,39 +171,54 @@ def bbc_collect_batch(dists, ids, valid, k: int, m: int = 128, sample=None,
 def collect_batch(dists, ids, valid, bucket, hist, k: int, m: int,
                   slack_buckets: int = 2):
     """Batched Alg. 1 Collect over bucket ids (B, n) and the histograms of
-    their valid lanes (B, m+1): the survivors, the valid lanes at or below
-    each query's threshold bucket, are compacted in stream order by one
-    launch of ``ops.spec_compact_batch`` and the k smallest kept.
+    their valid lanes (B, m+1): ``survivors_batch`` compacts each query's
+    survivors in stream order, and ``smallest_survivors`` keeps the k
+    smallest.  Returns (dists (B, k) ascending, ids (B, k))."""
+    with spans.span("collect"):
+        pos, ok, widened = survivors_batch(bucket, valid, hist, k, m,
+                                           slack_buckets)
+        safe = pos.long().clamp(max=dists.shape[1] - 1)
+        return smallest_survivors(torch.gather(dists, 1, safe), ids[safe],
+                                  ok, k, widened)
+
+
+def survivors_batch(bucket, valid, hist, k: int, m: int,
+                    slack_buckets: int = 2):
+    """The survivors of ``collect_batch``, the valid lanes at or below each
+    query's threshold bucket, compacted in stream order by one launch of
+    ``ops.spec_compact_batch``.
 
     The buffer is (k + slack) wide.  Where the reference overflows it (a
     query with more survivors, or whose threshold is the overflow bucket,
     where every valid lane survives) and selects over every lane instead,
     the buffer widens to the widest row's count, read from the histograms
     in the one host read: a valid lane past the threshold bucket lies above
-    every survivor, so the k kept are the full-width selection's, and take
-    its ids (-1 past the finite values; a query with fewer than k valid
-    lanes fills with the buffer's +inf sentinels, as the full width fills
-    with its invalid lanes).  Returns (dists (B, k) ascending, ids
-    (B, k))."""
-    with spans.span("collect"):
-        n = dists.shape[1]
-        tau, _ = rb.threshold_bucket(hist, k)
-        n_surv = torch.gather(torch.cumsum(hist, 1, dtype=torch.int32), 1,
-                              tau.long()[:, None])[:, 0]
-        reads = torch.stack([n_surv, tau]).amax(dim=1)
-        with spans.span("wait.collect_overflow"):
-            most, top_tau = reads.tolist()
-        budget = rb._collect_budget(k, n, slack_buckets, m)
-        width = budget if most <= budget else min(n, -(-most // 128) * 128)
-        pos, ok, _ = ops.spec_compact_batch(bucket, valid, tau, width)
-        safe = pos.long().clamp(max=n - 1)
-        cd = torch.where(ok, torch.gather(dists, 1, safe), INF)
-        ci = torch.where(ok, ids[safe], -1)
-        vals, order = rb.smallest(cd, k)
-        out = torch.gather(ci, 1, order)
-        if top_tau >= m or most > budget:
-            out = torch.where(torch.isfinite(vals), out, -1)
-        return vals, out
+    every survivor, so the k kept are the full-width selection's.  Returns
+    (positions (B, w) int32, ok (B, w), widened)."""
+    n = bucket.shape[1]
+    tau, _ = rb.threshold_bucket(hist, k)
+    n_surv = torch.gather(torch.cumsum(hist, 1, dtype=torch.int32), 1,
+                          tau.long()[:, None])[:, 0]
+    reads = torch.stack([n_surv, tau]).amax(dim=1)
+    with spans.span("wait.collect_overflow"):
+        most, top_tau = reads.tolist()
+    budget = rb._collect_budget(k, n, slack_buckets, m)
+    width = budget if most <= budget else min(n, -(-most // 128) * 128)
+    pos, ok, _ = ops.spec_compact_batch(bucket, valid, tau, width)
+    return pos, ok, top_tau >= m or most > budget
+
+
+def smallest_survivors(vals, ids, ok, k: int, widened: bool):
+    """The k smallest of the survivors' values ``vals`` (B, w) where ``ok``,
+    with their ``ids`` (B, w).  Where the buffer was widened, the ids take
+    the full-width selection's: -1 past the finite values (a query with
+    fewer than k valid lanes fills with the buffer's +inf sentinels, as the
+    full width fills with its invalid lanes)."""
+    vals, order = rb.smallest(torch.where(ok, vals, INF), k)
+    out = torch.gather(torch.where(ok, ids, -1), 1, order)
+    if widened:
+        out = torch.where(torch.isfinite(vals), out, -1)
+    return vals, out
 
 
 def topk_collect_batch(dists, ids, valid, k: int):

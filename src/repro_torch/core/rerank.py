@@ -122,12 +122,12 @@ class GreedyRerankResult(NamedTuple):
 
 
 class GreedyRerankPlan(NamedTuple):
-    """Bound-derived re-rank plan: the uncertain band plus the certain-in/out
-    masks, the threshold buckets and both bucket ids; (n,) lanes and scalar
-    taus for one query, (B, n) and (B,) batched."""
+    """Bound-derived re-rank plan: the uncertain band plus the certain-in
+    mask, the threshold buckets and both bucket ids; (n,) lanes and scalar
+    taus for one query, (B, n) and (B,) batched.  A valid lane in neither
+    mask is provably outside the top-k."""
     rerank_mask: torch.Tensor    # uncertain band: exact distances needed
     certain_in: torch.Tensor     # provably inside the top-k (skipped)
-    certain_out: torch.Tensor    # provably outside (skipped)
     tau_ub: torch.Tensor
     tau_lb: torch.Tensor
     a_lb: torch.Tensor
@@ -175,9 +175,8 @@ def greedy_rerank_plan(lb: torch.Tensor, ub: torch.Tensor, k: int,
     certain_in = valid & (a_ub < tau_lb)
     maybe = valid & (a_lb <= tau_ub)
     return GreedyRerankPlan(rerank_mask=maybe & ~certain_in,
-                            certain_in=certain_in, certain_out=valid & ~maybe,
-                            tau_ub=tau_ub, tau_lb=tau_lb, a_lb=a_lb,
-                            a_ub=a_ub)
+                            certain_in=certain_in, tau_ub=tau_ub,
+                            tau_lb=tau_lb, a_lb=a_lb, a_ub=a_ub)
 
 
 def greedy_rerank_plan_batch(lb: torch.Tensor, ub: torch.Tensor, k: int,
@@ -203,9 +202,8 @@ def greedy_rerank_plan_batch(lb: torch.Tensor, ub: torch.Tensor, k: int,
     certain_in = valid & (a_ub < tau_lb[:, None])
     maybe = valid & (a_lb <= tau_ub[:, None])
     return GreedyRerankPlan(rerank_mask=maybe & ~certain_in,
-                            certain_in=certain_in, certain_out=valid & ~maybe,
-                            tau_ub=tau_ub, tau_lb=tau_lb, a_lb=a_lb,
-                            a_ub=a_ub)
+                            certain_in=certain_in, tau_ub=tau_ub,
+                            tau_lb=tau_lb, a_lb=a_lb, a_ub=a_ub)
 
 
 def greedy_rerank_finalize(plan: GreedyRerankPlan,

@@ -1,9 +1,10 @@
 """Search engine: the serving-side entry point of the port.
 
 Wraps a built index (IVF, IVF+PQ or IVF+RaBitQ) with its ``ivf.FlatLayout``
-candidate stream and the static search knobs, and serves (B, d) query
-batches through the batched searchers of ``index.search`` and (d,) single
-queries through its single-query searchers:
+candidate stream (``search.Stream``: the corpus and its codes in stream
+order, gathered once at build) and the static search knobs, and serves
+(B, d) query batches through the batched searchers of ``index.search`` and
+(d,) single queries through its single-query searchers:
 
     eng = engine.SearchEngine.build(index, k=5000, n_probe=64)
     res = eng.search(qs)                            # (B, d) -> SearchResult
@@ -21,8 +22,8 @@ group together:
     eng = engine.SearchEngine.build(index, k=5000, n_probe=64, mesh=mesh)
 
 The stream is split row-wise over the mesh (``ivf.sharded_layout``, round
-robin within each cluster) and each rank keeps only its own block, on its
-device; every call runs the distributed BBC collector of
+robin within each cluster) and each rank builds and keeps only its own
+block, on its device; every call runs the distributed BBC collector of
 ``core.distributed`` through the sharded searchers of ``index.search``, on
 all ranks at once.
 
@@ -39,7 +40,9 @@ Knobs may come from the constrained tuner's operating points:
 ``SearchEngine.build(index, k, tuned=store)`` fills every knob the caller
 left unset from the point ``store`` resolves for (method, k,
 ``recall_target``), re-clamped to this k and this index, and records the
-point in ``tuned_from``.  ``replica_clone()`` is a new engine object over
+point in ``tuned_from``.  ``eng.with_knobs(k, n_probe)`` is an engine
+with other knobs over the same index, layout and stream (the serving
+state's shape buckets), and ``replica_clone()`` a new engine object over
 the same tensors (the replica tier's respawn).
 """
 from __future__ import annotations
@@ -55,7 +58,6 @@ from repro_torch import spans
 from repro_torch.core import rerank
 from repro_torch.core.distributed import ShardMesh
 from repro_torch.index import ivf as ivf_mod
-from repro_torch.index import pq as pq_mod
 from repro_torch.index import search as search_mod
 from repro_torch.kernels.platform import resolve_device
 
@@ -78,18 +80,13 @@ class _IvfStrategy:
 
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_search_batch(
-            eng.index, eng.vectors, qs, eng.layout, k=eng.k,
+            eng.index, eng.stream, qs, eng.layout, k=eng.k,
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             pred_state=pred_state, pred_count=eng.pred_count, live=eng.live)
 
-    def shard_streams(self, index, vectors, layout, dev) -> tuple:
-        return (index.centroids.to(dev),
-                vectors[layout.order.to(vectors.device)].to(dev))
-
     def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
-        cent, svecs = eng.shard_streams
         return search_mod.ivf_search_sharded(
-            eng.mesh, qs, cent, eng.shard_layout, svecs, k=eng.k,
+            eng.mesh, qs, eng.stream, eng.shard_layout, k=eng.k,
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             cap_shard=eng.cap_shard, budget=eng.shard_budget,
             pred_state=pred_state, pred_count=eng.pred_count, slive=eng.live)
@@ -113,24 +110,17 @@ class _IvfPqStrategy:
 
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_pq_search_batch(
-            eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
-            n_cand=eng.n_cand, use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
-            pred_state=pred_state, pred_count=eng.pred_count, live=eng.live)
-
-    def shard_streams(self, index, vectors, layout, dev) -> tuple:
-        order = layout.order.to(index.codes.device)
-        return (pq_mod.PQCodebook(index.pq.centroids.to(dev)),
-                index.ivf.centroids.to(dev), index.codes[order].to(dev),
-                index.vectors[order].to(dev))
+            eng.index, eng.stream, qs, eng.layout, k=eng.k,
+            n_probe=eng.n_probe, n_cand=eng.n_cand, use_bbc=eng.use_bbc,
+            m=eng.m, fused=eng.fused, pred_state=pred_state,
+            pred_count=eng.pred_count, live=eng.live)
 
     def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
-        pq_cb, cent, scodes, svecs = eng.shard_streams
         return search_mod.ivf_pq_search_sharded(
-            eng.mesh, qs, pq_cb, cent, eng.shard_layout, scodes, svecs,
-            k=eng.k, n_probe=eng.n_probe, n_cand=eng.n_cand,
-            use_bbc=eng.use_bbc, m=eng.m, cap_shard=eng.cap_shard,
-            budget=eng.shard_budget, pred_state=pred_state,
-            pred_count=eng.pred_count, slive=eng.live)
+            eng.mesh, qs, eng.stream, eng.shard_layout, k=eng.k,
+            n_probe=eng.n_probe, n_cand=eng.n_cand, use_bbc=eng.use_bbc,
+            m=eng.m, cap_shard=eng.cap_shard, budget=eng.shard_budget,
+            pred_state=pred_state, pred_count=eng.pred_count, slive=eng.live)
 
 
 class _IvfRabitqStrategy:
@@ -151,22 +141,14 @@ class _IvfRabitqStrategy:
 
     def search_batch(self, eng: "SearchEngine", qs, pred_state=None):
         return search_mod.ivf_rabitq_search_batch(
-            eng.index, qs, eng.layout, k=eng.k, n_probe=eng.n_probe,
-            use_bbc=eng.use_bbc, m=eng.m, fused=eng.fused,
-            stream=eng.stream, pred_state=pred_state,
+            eng.index, eng.stream, qs, eng.layout, k=eng.k,
+            n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
+            fused=eng.fused, pred_state=pred_state,
             pred_count=eng.pred_count, live=eng.live)
 
-    def shard_streams(self, index, vectors, layout, dev) -> tuple:
-        local = ivf_mod.FlatLayout(*(t.to(index.rq.codes.device)
-                                     for t in layout))
-        stream = search_mod.rabitq_stream(index, local)
-        return (index.rq.rot.to(dev), index.ivf.centroids.to(dev),
-                search_mod.RabitqStream(*(t.to(dev) for t in stream)))
-
     def search_sharded(self, eng: "SearchEngine", qs, pred_state=None):
-        rot, cent, stream = eng.shard_streams
         return search_mod.ivf_rabitq_search_sharded(
-            eng.mesh, qs, rot, cent, eng.shard_layout, stream, k=eng.k,
+            eng.mesh, qs, eng.stream, eng.shard_layout, k=eng.k,
             n_probe=eng.n_probe, use_bbc=eng.use_bbc, m=eng.m,
             cap_shard=eng.cap_shard, budget=eng.shard_budget,
             fused=eng.fused, pred_state=pred_state,
@@ -194,6 +176,48 @@ def resolve_kind(index, vectors=None) -> str:
     return _resolve_strategy(index, vectors)[0].kind
 
 
+def _knobs(strategy, index, ivf, k: int, n_probe, n_cand=None,
+           pred_count=None, fused=None, tuned=None,
+           recall_target: float = 0.95) -> dict:
+    """An engine's k, n_probe, n_cand, pred_count, fused and tuned_from:
+    the tuned point fills what the caller left unset, the method's
+    defaults the rest, and n_probe, n_cand and pred_count are clamped to
+    what ``ivf`` can give (see ``SearchEngine.build``)."""
+    tuned_from = None
+    if tuned is not None:
+        from repro_torch.tuning import points as tuning_points
+        if isinstance(tuned, tuning_points.OperatingPoint):
+            point, provenance = tuned, "tuned"
+        else:
+            point, provenance = tuned.resolve(
+                strategy.kind, k, target=recall_target)
+        if point is not None:
+            cfg = point.knobs
+            n_probe = cfg.n_probe if n_probe is None else n_probe
+            if n_cand is None and cfg.n_cand is not None:
+                n_cand = max(cfg.n_cand, k)
+            if pred_count is None and cfg.pred_count is not None:
+                pred_count = max(cfg.pred_count, k)
+                if n_cand is not None:
+                    pred_count = min(pred_count, n_cand)
+            fused = cfg.fused if fused is None else fused
+            tuned_from = f"{point.name} ({provenance})"
+    if n_probe is None:
+        raise ValueError(
+            "n_probe is required when no tuned operating point "
+            "covers this (method, k) cell")
+    if n_cand is None:
+        n_cand = strategy.default_n_cand(index, k)
+    if pred_count is None:
+        pred_count = strategy.default_pred_count(k, n_cand)
+    n_probe = min(n_probe, ivf.n_clusters)
+    if n_cand is not None:
+        n_cand = min(n_cand, int(ivf.cluster_sizes.sum().item()))
+        pred_count = min(pred_count, n_cand)
+    return dict(k=k, n_probe=n_probe, n_cand=n_cand, pred_count=pred_count,
+                fused=fused, tuned_from=tuned_from)
+
+
 @dataclass(frozen=True)
 class SearchEngine:
     """Serving facade: index + layout + static knobs on one device, or on
@@ -211,15 +235,16 @@ class SearchEngine:
     # bound-fused RaBitQ everywhere)
     fused: bool | None = None
     vectors: torch.Tensor | None = None   # the corpus, for kind "ivf"
-    stream: Any = None          # the RaBitQ stream, built once here
+    # the corpus and its codes in stream order (``search.build_stream``):
+    # over ``layout``, or over ``shard_layout`` on a mesh; built once per
+    # placed index and shared by every engine made from this one
+    stream: search_mod.Stream | None = None
     device: torch.device = torch.device("cpu")
     # sharded deployment: the mesh, this rank's block of the stream layout,
-    # the replicated small tensors and the block's stream tensors
-    # (``strategy.shard_streams``), the longest shard cluster segment, and
-    # the per-shard survivor budget (None: ``distributed.survivor_budget``)
+    # the longest shard cluster segment, and the per-shard survivor budget
+    # (None: ``distributed.survivor_budget``)
     mesh: ShardMesh | None = None
     shard_layout: ivf_mod.FlatLayout | None = None
-    shard_streams: tuple = ()
     cap_shard: int = 1
     shard_budget: int | None = None
     # tombstones: a (n_flat,) stream-ordered bool mask on ``device`` (this
@@ -268,66 +293,41 @@ class SearchEngine:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
         dev = resolve_device(device)
-        strategy, _ = _resolve_strategy(index, vectors)
-        tuned_from = None
-        if tuned is not None:
-            from repro_torch.tuning import points as tuning_points
-            if isinstance(tuned, tuning_points.OperatingPoint):
-                point, provenance = tuned, "tuned"
-            else:
-                point, provenance = tuned.resolve(
-                    strategy.kind, k, target=recall_target)
-            if point is not None:
-                cfg = point.knobs
-                n_probe = cfg.n_probe if n_probe is None else n_probe
-                if n_cand is None and cfg.n_cand is not None:
-                    n_cand = max(cfg.n_cand, k)
-                if pred_count is None and cfg.pred_count is not None:
-                    pred_count = max(cfg.pred_count, k)
-                    if n_cand is not None:
-                        pred_count = min(pred_count, n_cand)
-                fused = cfg.fused if fused is None else fused
-                tuned_from = f"{point.name} ({provenance})"
-        if n_probe is None:
-            raise ValueError(
-                "n_probe is required when no tuned operating point "
-                "covers this (method, k) cell")
-        if mesh is None:
-            index = search_mod.index_to(index, dev)
+        strategy, ivf = _resolve_strategy(index, vectors)
+        knobs = _knobs(strategy, index, ivf, k, n_probe, n_cand, pred_count,
+                       fused, tuned, recall_target)
         if vectors is not None:
             vectors = torch.as_tensor(vectors, dtype=torch.float32)
-            vectors = vectors if mesh is not None else vectors.to(dev)
-        ivf = index if strategy.kind == "ivf" else index.ivf
-        if n_cand is None:
-            n_cand = strategy.default_n_cand(index, k)
-        if pred_count is None:
-            pred_count = strategy.default_pred_count(k, n_cand)
-        n_probe = min(n_probe, ivf.n_clusters)
-        if n_cand is not None:
-            n_cand = min(n_cand, int(ivf.cluster_sizes.sum().item()))
-            pred_count = min(pred_count, n_cand)
-        if mesh is not None:
+        if mesh is None:
+            index = search_mod.index_to(index, dev)
+            vectors = None if vectors is None else vectors.to(dev)
+            layout = ivf_mod.flat_layout(
+                index if strategy.kind == "ivf" else index.ivf)
+            where = dict(layout=layout)
+        else:
             slayout, cap_shard = ivf_mod.sharded_layout(ivf, mesh.n_shards)
-            local = ivf_mod.FlatLayout(*(t.to(dev) for t in
-                                         slayout.local(mesh.shard_index)))
-            return SearchEngine(
-                index=index, layout=None, kind=strategy.kind, k=k,
-                n_probe=n_probe, n_cand=n_cand, use_bbc=use_bbc, m=m,
-                pred_count=pred_count, fused=fused, vectors=vectors,
-                device=dev, mesh=mesh, shard_layout=local, cap_shard=cap_shard,
-                shard_budget=shard_budget, generation=generation,
-                tuned_from=tuned_from,
-                shard_streams=strategy.shard_streams(index, vectors, local,
-                                                     dev))
-        layout = ivf_mod.flat_layout(ivf)
-        stream = (search_mod.rabitq_stream(index, layout)
-                  if strategy.kind == "ivfrabitq" else None)
-        return SearchEngine(index=index, layout=layout, kind=strategy.kind,
-                            k=k, n_probe=n_probe, n_cand=n_cand,
-                            use_bbc=use_bbc, m=m, pred_count=pred_count,
-                            fused=fused, vectors=vectors, stream=stream,
-                            device=dev, generation=generation,
-                            tuned_from=tuned_from)
+            layout = ivf_mod.FlatLayout(*(t.to(dev) for t in
+                                          slayout.local(mesh.shard_index)))
+            where = dict(layout=None, mesh=mesh, shard_layout=layout,
+                         cap_shard=cap_shard)
+        return SearchEngine(
+            index=index, kind=strategy.kind, use_bbc=use_bbc, m=m,
+            vectors=vectors, device=dev, shard_budget=shard_budget,
+            generation=generation, **where, **knobs,
+            stream=search_mod.build_stream(index, layout, vectors))
+
+    def with_knobs(self, k: int, n_probe: int | None = None,
+                   pred_count: int | None = None,
+                   tuned=None) -> "SearchEngine":
+        """An engine over this one's index, layout, stream (this rank's
+        block on a mesh) and tombstone mask, with the knobs that ``build``
+        resolves from these arguments: nothing is placed, gathered or
+        copied.  The serving state's shape buckets over one index are made
+        this way."""
+        strategy, ivf = _resolve_strategy(self.index, self.vectors)
+        return dataclasses.replace(self, **_knobs(
+            strategy, self.index, ivf, k, n_probe, pred_count=pred_count,
+            tuned=tuned))
 
     def predictor_init(self) -> rerank.PredictorState:
         """Cold cross-batch threshold-predictor state for this engine."""
@@ -358,16 +358,15 @@ class SearchEngine:
 
     def replica_clone(self) -> "SearchEngine":
         """A new engine object over the very same tensors (the layout, the
-        RaBitQ stream, this rank's shard streams, the tombstone mask):
-        nothing is copied or moved.  The replica tier's respawn builds its
-        fresh state from these (``ServingState.fork(clone_engines=True)``);
-        the engine is immutable, so sharing is safe."""
+        stream, the tombstone mask): nothing is copied or moved.  The
+        replica tier's respawn builds its fresh state from these
+        (``ServingState.fork(clone_engines=True)``); the engine is
+        immutable, so sharing is safe."""
         return dataclasses.replace(self)
 
     @property
     def dim(self) -> int:
-        src = self.vectors if self.kind == "ivf" else self.index.vectors
-        return int(src.shape[1])
+        return int(self.stream.vectors.shape[1])
 
     def warmup(self, batch_sizes=(1,),
                predictive: bool = False) -> "SearchEngine":

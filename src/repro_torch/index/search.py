@@ -78,19 +78,24 @@ class RabitqIndex(NamedTuple):
     vectors: torch.Tensor  # (N, d) fp32
 
 
-class RabitqStream(NamedTuple):
-    """The layout-ordered RaBitQ candidate stream, built once per engine.
-
-    Codes stay int8 (the reference keeps an fp32 copy); ``cl`` is each
-    lane's owning cluster clamped to a real one (int32, the kernel's
-    index); ``s2`` is the query-independent centroid correction the
-    reference recomputes on every call."""
-    codes: torch.Tensor    # (n_flat, d) int8 +-1
-    vectors: torch.Tensor  # (n_flat, d) fp32
-    norm_o: torch.Tensor   # (n_flat,)
-    f_o: torch.Tensor      # (n_flat,)
-    cl: torch.Tensor       # (n_flat,) int32
-    s2: torch.Tensor       # (n_flat,)
+class Stream(NamedTuple):
+    """The corpus and the method's codes in ``ivf.FlatLayout`` order (a
+    device's whole layout, or one rank's block), with the small tensors
+    the batched and sharded searchers need beside them; built once per
+    placed index by ``build_stream``.  Fields a method does not use are
+    None.  RaBitQ's codes stay int8 (the reference keeps an fp32 copy);
+    ``cl`` is each lane's cluster clamped to a real one; ``s2`` is the
+    centroid correction the reference recomputes on every call."""
+    vectors: torch.Tensor                 # (n_flat, d) fp32
+    centroids: torch.Tensor               # (C, d) the IVF centroids
+    codes: torch.Tensor | None = None     # PQ (n_flat, M) uint8, RaBitQ
+                                          # (n_flat, d) int8 +-1
+    pq: pq_mod.PQCodebook | None = None   # PQ
+    rot: torch.Tensor | None = None       # RaBitQ: (d, d) rotation
+    norm_o: torch.Tensor | None = None    # RaBitQ: (n_flat,)
+    f_o: torch.Tensor | None = None       # RaBitQ: (n_flat,)
+    cl: torch.Tensor | None = None        # RaBitQ: (n_flat,) int32
+    s2: torch.Tensor | None = None        # RaBitQ: (n_flat,)
 
 
 class SearchResult(NamedTuple):
@@ -147,19 +152,34 @@ def build_rabitq_index(x, n_clusters: int, n_iter: int = 10, seed: int = 0,
     return RabitqIndex(ivf=index, rq=rq, vectors=x)
 
 
-def rabitq_stream(index: RabitqIndex,
-                  layout: ivf_mod.FlatLayout) -> RabitqStream:
-    """Gather the codes, vectors and factors into stream order and compute
-    the centroid correction ``s2`` (fixed summation order, so a CPU and a
-    card build give the same bits)."""
-    rq, order = index.rq, layout.order
-    codes = rq.codes[order]
-    cl = torch.clamp(layout.cluster_of, max=index.ivf.n_clusters - 1).to(
-        torch.int32)
-    h = numerics.rotate(index.ivf.centroids, rq.rot)
-    return RabitqStream(codes=codes, vectors=index.vectors[order],
-                        norm_o=rq.norm_o[order], f_o=rq.f_o[order], cl=cl,
-                        s2=numerics.rabitq_s2(codes, h, cl))
+def build_stream(index, layout: ivf_mod.FlatLayout,
+                 vectors: torch.Tensor | None = None) -> Stream:
+    """The ``Stream`` of ``index`` (an ``IVFIndex`` with its corpus
+    ``vectors``, a ``PQIndex`` or a ``RabitqIndex``) in the order of
+    ``layout``, on the layout's device: each tensor is gathered where it
+    lives, then moved.  The one place the port puts a corpus into stream
+    order.  RaBitQ's ``s2`` is summed in a fixed order, so a CPU and a
+    card build give the same bits."""
+    dev = layout.order.device
+
+    def take(t):
+        return t[layout.order.to(t.device)].to(dev)
+
+    if isinstance(index, ivf_mod.IVFIndex):
+        return Stream(vectors=take(vectors), centroids=index.centroids.to(dev))
+    ivf = index.ivf
+    out = Stream(vectors=take(index.vectors), centroids=ivf.centroids.to(dev))
+    if isinstance(index, PQIndex):
+        return out._replace(codes=take(index.codes), pq=pq_mod.PQCodebook(
+            index.pq.centroids.to(dev)))
+    rq = index.rq
+    codes = rq.codes[layout.order.to(rq.codes.device)]
+    cl = torch.clamp(layout.cluster_of.to(rq.codes.device),
+                     max=ivf.n_clusters - 1).to(torch.int32)
+    s2 = numerics.rabitq_s2(codes, numerics.rotate(ivf.centroids, rq.rot), cl)
+    return out._replace(codes=codes.to(dev), rot=rq.rot.to(dev),
+                        norm_o=take(rq.norm_o), f_o=take(rq.f_o),
+                        cl=cl.to(dev), s2=s2.to(dev))
 
 
 # --------------------------------------------------------------------------
@@ -177,14 +197,17 @@ def _exact_dists_rows(vectors: torch.Tensor, ids: torch.Tensor,
                               mask.contiguous())
 
 
-def _routing(ivf: ivf_mod.IVFIndex, layout: ivf_mod.FlatLayout,
-             qs: torch.Tensor, n_probe: int, live: torch.Tensor | None = None):
-    """Probed clusters (B, n_probe), lane masks (B, n_flat), and the (B, C)
-    squared query-centroid distances.  ``live`` (n_flat,), the tombstone
-    mask, is ANDed into the lane masks: a dead lane is an unprobed one."""
-    probed, d2 = ivf_mod.route_batch_d2(ivf, qs, n_probe)
+def _routing(src, layout: ivf_mod.FlatLayout, qs: torch.Tensor,
+             n_probe: int, live: torch.Tensor | None = None):
+    """Probed clusters (B, n_probe), lane masks (B, n_flat) over ``layout``
+    (a device's whole layout or one rank's block: the routing is the same
+    on every rank), and the (B, C) squared query-centroid distances.
+    ``src`` is the ``IVFIndex`` or a ``Stream``: either carries the
+    centroids.  ``live`` (n_flat,), the tombstone mask, is ANDed into the
+    lane masks: a dead lane is an unprobed one."""
+    probed, d2 = ivf_mod.route_batch_centroids(src.centroids, qs, n_probe)
     lane_valid = _live_lanes(
-        ivf_mod.probe_mask(layout, probed, ivf.n_clusters), live)
+        ivf_mod.probe_mask(layout, probed, src.centroids.shape[0]), live)
     return probed, lane_valid, d2
 
 
@@ -448,7 +471,7 @@ def ivf_rabitq_search(index: RabitqIndex, q: torch.Tensor, k: int,
 # Batched IVF+PQ
 # --------------------------------------------------------------------------
 
-def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
+def ivf_pq_search_batch(index: PQIndex, stream: Stream, qs: torch.Tensor,
                         layout: ivf_mod.FlatLayout, k: int, n_probe: int,
                         n_cand: int, use_bbc: bool = False, m: int = 128,
                         fused: bool | None = None,
@@ -456,6 +479,8 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
                         pred_count: int | None = None,
                         live: torch.Tensor | None = None):
     """Batched IVF+PQ (with or without BBC) over a (B, d) query batch.
+    ``stream`` is the index's ``Stream`` over ``layout``: the scan reads
+    its codes, and every exact distance its rows by stream position.
 
     ``fused`` (default: True for CUDA tensors, False on the CPU) runs the
     BBC path through one fused scan that exact-ranks the predicted lanes
@@ -478,12 +503,6 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
     order = layout.order
     with spans.span("pq.route"):
         probed, lane_valid, _ = _routing(ivf, layout, qs, n_probe, live)
-    with spans.span("pq.stream"):
-        stream_codes = index.codes[order]                     # shared gather
-        # the fused scan's exact leg reads the rows in stream order
-        stream_vectors = (index.vectors[order]
-                          if use_bbc and fused and pred_state is None
-                          else None)
     with spans.span("pq.tables"):
         luts = pq_mod.adc_table(index.pq, qs)
 
@@ -491,21 +510,21 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
         if not use_bbc:
             raise ValueError("predictive search requires use_bbc=True")
         return _ivf_pq_predictive_batch(
-            index, qs, layout, probed, lane_valid, stream_codes, luts, k,
+            index, stream, qs, layout, probed, lane_valid, luts, k,
             n_probe, n_cand, m, fused, pred_state, pred_count)
 
     n_flat = layout.n_flat
     dense_rerank = 4 * n_cand >= n_flat
 
     if not use_bbc:
-        est = _sqrt_est(ops.pq_adc_batch(stream_codes, luts), lane_valid)
+        est = _sqrt_est(ops.pq_adc_batch(stream.codes, luts), lane_valid)
         sel_est, sel_pos = rb.smallest(est, n_cand)
         ci = torch.where(torch.isfinite(sel_est), order[sel_pos], -1)
         if dense_rerank:
-            exact_all = ops.l2_exact_batch(index.vectors[order], qs)
+            exact_all = ops.l2_exact_batch(stream.vectors, qs)
             ex = torch.gather(exact_all, 1, sel_pos)
         else:
-            ex = _exact_dists_rows(index.vectors, ci, qs, mask=ci >= 0)
+            ex = _exact_dists_rows(stream.vectors, sel_pos, qs, mask=ci >= 0)
         ex = torch.where(ci >= 0, ex, INF)
         vals, pick = rb.smallest(ex, k)
         counts = torch.full((b,), n_cand, dtype=torch.int32,
@@ -519,24 +538,32 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
         # histogram, and a second pass for the selected-but-not-predicted
         with spans.span("pq.sample"):
             st = min(SAMPLE_TILES, n_probe)
-            sample_est = _pq_sample_est(layout, probed, stream_codes, luts,
-                                        st, ivf.cap)
             plans = rerank.early_rerank_plan(
-                sample_est, n_cand=n_cand, n_sample=sample_est.shape[1],
+                _pq_sample_est(layout, probed, stream.codes, luts, st,
+                               ivf.cap),
+                n_cand=n_cand, n_sample=st * ivf.cap,
                 n_total=n_probe * ivf.cap, m=m)
         with spans.span("pq.scan"):
             est, bucket, hist, early, nmiss = ops.fused_scan_batch(
-                stream_codes, stream_vectors, lane_valid, luts, qs,
+                stream.codes, stream.vectors, lane_valid, luts, qs,
                 plans.cb.d_min, plans.cb.delta, plans.cb.ew_map, m,
                 plans.tau_pred)
-        del stream_vectors        # the (n, d) copy lives as long as the scan
-        positions = torch.arange(n_flat, device=qs.device)
-        _, sel_pos = col.collect_batch(est, positions, lane_valid, bucket,
-                                       hist, n_cand, m)
+        # ``collect_batch`` by its halves (ids: the positions), so that the
+        # scan's (B, n) outputs go once read: past the scan the call may
+        # need no more memory than the scan, the stream being held
+        with spans.span("collect"):
+            pos, ok, widened = col.survivors_batch(bucket, lane_valid, hist,
+                                                   n_cand, m)
+            del bucket, lane_valid
+            pos = pos.long().clamp(max=n_flat - 1)
+            est_at = torch.gather(est, 1, pos)
+            del est
+            _, sel_pos = col.smallest_survivors(est_at, pos, ok, n_cand,
+                                                widened)
     else:
         # top n_cand by estimate (boundary ties by global id), then one exact
         # pass over the whole selection
-        est = _sqrt_est(ops.pq_adc_batch(stream_codes, luts), lane_valid)
+        est = _sqrt_est(ops.pq_adc_batch(stream.codes, luts), lane_valid)
         sel_est, sel_pos = _topk_est_id(est, order, n_cand)
         sel_ids = torch.where(torch.isfinite(sel_est), order[sel_pos], -1)
         e_at_sel = torch.full(sel_pos.shape, INF, device=qs.device)
@@ -549,15 +576,16 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
             sel_ids = torch.where(sel_pos >= 0, order[safe_pos], -1)
             e_at_sel = torch.gather(early, 1, safe_pos)
             have = torch.isfinite(e_at_sel) & (sel_pos >= 0)
-            n_early = (lane_valid.sum(1) - nmiss).to(torch.int32)
+            # the histogram counts every valid lane
+            n_early = (hist.sum(1) - nmiss).to(torch.int32)
         miss = ~have & (sel_ids >= 0)
         if not fused and dense_rerank:
             # the whole selection misses: one shared pass over the stream
             # beats n_cand per-row gathers
-            exact_all = ops.l2_exact_batch(index.vectors[order], qs)
+            exact_all = ops.l2_exact_batch(stream.vectors, qs)
             miss_d = torch.gather(exact_all, 1, sel_pos.clamp(min=0))
         else:
-            miss_d = _exact_dists_rows(index.vectors, sel_ids, qs, mask=miss)
+            miss_d = _exact_dists_rows(stream.vectors, sel_pos, qs, mask=miss)
         ex = torch.where(have, e_at_sel, torch.where(miss, miss_d, INF))
         second = miss.sum(1).to(torch.int32)
     with spans.span("select"):
@@ -566,9 +594,9 @@ def ivf_pq_search_batch(index: PQIndex, qs: torch.Tensor,
                             n_early + second, second)
 
 
-def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
-                             stream_codes, luts, k, n_probe, n_cand, m,
-                             fused, pred_state, pred_count):
+def _ivf_pq_predictive_batch(index, stream, qs, layout, probed, lane_valid,
+                             luts, k, n_probe, n_cand, m, fused, pred_state,
+                             pred_count):
     """Predictive early-exact IVF+PQ: the re-rank pool is {bucket <=
     max(tau_pred, tau_true-at-pred_count)} instead of the top n_cand.  On
     the fused path the lanes under tau_pred were exact-ranked inline; the
@@ -581,7 +609,7 @@ def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
     n_flat = layout.n_flat
     count = _resolve_pred_count(pred_count, k, n_cand)
     st = min(SAMPLE_TILES, n_probe)
-    sample_est = _pq_sample_est(layout, probed, stream_codes, luts, st,
+    sample_est = _pq_sample_est(layout, probed, stream.codes, luts, st,
                                 ivf.cap)
     cbs = rb.build_codebook(sample_est, k=min(n_cand, sample_est.shape[1]),
                             m=m)
@@ -590,11 +618,11 @@ def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
 
     if fused:
         est, bucket, hist, early, nmiss = ops.fused_scan_batch(
-            stream_codes, index.vectors[order], lane_valid, luts, qs,
+            stream.codes, stream.vectors, lane_valid, luts, qs,
             cbs.d_min, cbs.delta, cbs.ew_map, m, tau_pred)
         n_early = (lane_valid.sum(1) - nmiss).to(torch.int32)
     else:
-        est = _sqrt_est(ops.pq_adc_batch(stream_codes, luts), lane_valid)
+        est = _sqrt_est(ops.pq_adc_batch(stream.codes, luts), lane_valid)
         bucket, hist = ops.bucket_hist_batch(est, lane_valid, cbs.d_min,
                                              cbs.delta, cbs.ew_map, m)
         n_early = torch.zeros(b, dtype=torch.int32, device=qs.device)
@@ -617,10 +645,10 @@ def _ivf_pq_predictive_batch(index, qs, layout, probed, lane_valid,
         have = torch.zeros(sel_pos.shape, dtype=torch.bool, device=qs.device)
         miss = sel_ok
     if not fused and 4 * budget >= n_flat:
-        exact_all = ops.l2_exact_batch(index.vectors[order], qs)
+        exact_all = ops.l2_exact_batch(stream.vectors, qs)
         miss_d = torch.gather(exact_all, 1, sel_pos)
     else:
-        miss_d = _exact_dists_rows(index.vectors, sel_ids, qs, mask=miss)
+        miss_d = _exact_dists_rows(stream.vectors, sel_pos, qs, mask=miss)
     ex = torch.where(have, e_at_sel, torch.where(miss, miss_d, INF))
     second = miss.sum(1).to(torch.int32)
     vals, pick = rb.smallest(ex, k)
@@ -643,15 +671,16 @@ def _sample_codebooks(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
     return rb.build_codebook(sample, k=min(k_cb, sample.shape[1]), m=m)
 
 
-def ivf_search_batch(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
+def ivf_search_batch(index: ivf_mod.IVFIndex, stream: Stream,
                      qs: torch.Tensor, layout: ivf_mod.FlatLayout, k: int,
                      n_probe: int, use_bbc: bool = False, m: int = 128,
                      pred_state: rerank.PredictorState | None = None,
                      pred_count: int | None = None,
                      live: torch.Tensor | None = None):
     """Batched IVF: exact distances of the probed lanes in one shared scan
-    (``ops.l2_exact_batch``), then the BBC collection over a sample of the
-    nearest 4 probed tiles (``use_bbc``) or a flat top-k.  With
+    (``ops.l2_exact_batch`` over ``stream``'s rows), then the BBC collection
+    over a sample of the nearest 4 probed tiles (``use_bbc``) or a flat
+    top-k.  With
     ``pred_state`` the selection is predictive and the call returns
     ``(SearchResult, new_state)``; distances are exact in-scan, so the
     result is the static one for any prediction.  ``live``: the
@@ -660,7 +689,7 @@ def ivf_search_batch(index: ivf_mod.IVFIndex, vectors: torch.Tensor,
         raise ValueError("predictive search requires use_bbc=True")
     probed, lane_valid, _ = _routing(index, layout, qs, n_probe, live)
     order = layout.order
-    dists = ops.l2_exact_batch(vectors[order], qs)
+    dists = ops.l2_exact_batch(stream.vectors, qs)
     dists = torch.where(lane_valid, dists, INF)
     n = torch.sum(lane_valid, dim=1).to(torch.int32)
     zeros = torch.zeros_like(n)
@@ -731,10 +760,9 @@ def _rabitq_sample_plan(sample_ub: torch.Tensor, k: int, count: int,
         torch.int32)
 
 
-def _rabitq_sample_ub(stream: RabitqStream, rot: torch.Tensor,
-                      layout: ivf_mod.FlatLayout, probed: torch.Tensor,
-                      qs: torch.Tensor, d2: torch.Tensor, st: int, cap: int,
-                      eps0: float):
+def _rabitq_sample_ub(stream: Stream, layout: ivf_mod.FlatLayout,
+                      probed: torch.Tensor, qs: torch.Tensor,
+                      d2: torch.Tensor, st: int, cap: int, eps0: float):
     """Upper bounds (B, st*cap) over each query's nearest ``st`` probed
     tiles, the codebook sample the fused scan needs before it runs.  One
     batched gather of the sampled lanes (the reference maps over queries);
@@ -743,7 +771,7 @@ def _rabitq_sample_ub(stream: RabitqStream, rot: torch.Tensor,
     spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
     b, w = spos.shape
     d = stream.codes.shape[1]
-    g = numerics.rotate(qs, rot)
+    g = numerics.rotate(qs, stream.rot)
     s1 = torch.empty(b, w, dtype=torch.float32, device=qs.device)
     step = max(1, numerics.CHUNK // max(w * d, 1))
     for i in range(0, b, step):
@@ -756,22 +784,21 @@ def _rabitq_sample_ub(stream: RabitqStream, rot: torch.Tensor,
     return torch.where(sok, ub, INF), sok
 
 
-def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
-                            layout: ivf_mod.FlatLayout, k: int,
-                            n_probe: int, use_bbc: bool = False,
+def ivf_rabitq_search_batch(index: RabitqIndex, stream: Stream,
+                            qs: torch.Tensor, layout: ivf_mod.FlatLayout,
+                            k: int, n_probe: int, use_bbc: bool = False,
                             m: int = 128, eps0: float = 3.0,
                             fused: bool | None = None,
-                            stream: RabitqStream | None = None,
                             pred_state: rerank.PredictorState | None = None,
                             pred_count: int | None = None,
                             live: torch.Tensor | None = None):
     """Batched IVF+RaBitQ (with or without BBC) over a (B, d) query batch.
 
-    ``stream`` is the engine's build-time ``RabitqStream`` (built here when
-    None).  The BBC path runs the bound-fused scan (``fused=None`` means
-    fused, as in the reference): bounds, buckets, histograms and the
-    inline exact distance of gate-certified lanes in one pass, then an
-    exact gather of the band's stragglers only.  ``fused=False`` is the
+    ``stream`` is the index's ``Stream`` over ``layout``.  The BBC path
+    runs the bound-fused scan (``fused=None`` means fused, as in the
+    reference): bounds, buckets, histograms and the inline exact distance
+    of gate-certified lanes in one pass, then an exact gather of the band's
+    stragglers only.  ``fused=False`` is the
     two-phase form: bounds, the full-stream Alg. 3 plan, and one dense
     exact pass.  ``use_bbc=False`` is the per-tile threshold baseline.
 
@@ -783,8 +810,6 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
         raise ValueError("predictive search requires use_bbc=True")
     if fused is None:
         fused = True
-    if stream is None:
-        stream = rabitq_stream(index, layout)
     ivf = index.ivf
     with spans.span("rabitq.route"):
         probed, lane_valid, d2 = _routing(ivf, layout, qs, n_probe, live)
@@ -794,10 +819,10 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
                                        pred_state, pred_count)
     est, lb, ub = numerics.rabitq_bounds_stream(
         stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
-        index.rq.rot, qs, d2, lane_valid, eps0)
+        stream.rot, qs, d2, lane_valid, eps0)
     if not use_bbc:
-        d, i, n_rr = _rabitq_threshold_baseline(index, layout, probed, lb,
-                                                qs, k)
+        d, i, n_rr = _rabitq_threshold_baseline(index, stream, layout,
+                                                probed, lb, qs, k)
         return SearchResult(d, i, n_rr, n_rr)
 
     # two-phase BBC (Alg. 3, batched): plan from the full-stream ub top-k,
@@ -821,8 +846,8 @@ def ivf_rabitq_search_batch(index: RabitqIndex, qs: torch.Tensor,
             rerank.predictor_update(pred_state, hist_ub))
 
 
-def _rabitq_threshold_baseline(index: RabitqIndex, layout, probed, lb, qs,
-                               k: int):
+def _rabitq_threshold_baseline(index: RabitqIndex, stream: Stream, layout,
+                               probed, lb, qs, k: int):
     """IVF+RaBitQ without BBC: per query, probed tiles nearest first; a
     tile's lanes whose lower bound is under the current k-th exact distance
     are re-ranked exactly and merged into a k-wide pool.  The reference's
@@ -834,18 +859,18 @@ def _rabitq_threshold_baseline(index: RabitqIndex, layout, probed, lb, qs,
     tpos, tok = ivf_mod.tile_positions(layout, probed, cap)
     lb_t = torch.where(tok, torch.gather(lb, 1, tpos), INF).reshape(
         b, n_probe, cap)
-    ids_t = torch.where(tok, layout.order[tpos], -1).reshape(b, n_probe, cap)
+    pos_t = tpos.reshape(b, n_probe, cap)
     ok_t = tok.reshape(b, n_probe, cap)
     budget = min(cap, _rerank_budget(k))
     pool_d = torch.full((b, k), INF, device=dev)
-    pool_i = torch.full((b, k), -1, dtype=ids_t.dtype, device=dev)
+    pool_i = torch.full((b, k), -1, dtype=layout.order.dtype, device=dev)
     n_rr = torch.zeros(b, dtype=torch.int32, device=dev)
     for t in range(n_probe):
         mask = ok_t[:, t] & (lb_t[:, t] < pool_d[:, k - 1:k])
         pos, okc = rb.compact_mask(mask, budget)
-        r_ids = torch.where(
-            okc, torch.gather(ids_t[:, t], 1, pos.clamp(max=cap - 1)), -1)
-        r_d = _exact_dists_rows(index.vectors, r_ids, qs, mask=okc)
+        r_pos = torch.gather(pos_t[:, t], 1, pos.clamp(max=cap - 1))
+        r_ids = torch.where(okc, layout.order[r_pos], -1)
+        r_d = _exact_dists_rows(stream.vectors, r_pos, qs, mask=okc)
         pool_d, pick = rb.smallest(torch.cat([pool_d, r_d], dim=1), k)
         pool_i = torch.gather(torch.cat([pool_i, r_ids], dim=1), 1, pick)
         n_rr += okc.sum(dim=1).to(torch.int32)
@@ -864,8 +889,8 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     st = min(SAMPLE_TILES, n_probe)
     count = k if pred_count is None else max(pred_count, k)
     with spans.span("rabitq.sample"):
-        sample_ub, _ = _rabitq_sample_ub(stream, index.rq.rot, layout,
-                                         probed, qs, d2, st, ivf.cap, eps0)
+        sample_ub, _ = _rabitq_sample_ub(stream, layout, probed, qs, d2, st,
+                                         ivf.cap, eps0)
         cbs, tau_inline = _rabitq_sample_plan(sample_ub, k, count, st,
                                               n_probe, m)
     if pred_state is not None:
@@ -880,7 +905,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
         (est, lb, _, bucket_lb, bucket_ub, hist_lb, hist_ub, exact_c,
          certified, _) = ops.fused_rabitq_scan_batch(
             stream.codes, stream.vectors, stream.s2, stream.norm_o,
-            stream.f_o, stream.cl, index.rq.rot, qs, d2, lane_valid,
+            stream.f_o, stream.cl, stream.rot, qs, d2, lane_valid,
             cbs.d_min, cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
     with spans.span("rabitq.band"):
         tau_ub, _ = rb.threshold_bucket(hist_ub, k)
@@ -916,8 +941,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
                                                    stragglers), INF)
     with spans.span("select"):
         plan = rerank.GreedyRerankPlan(
-            rerank_mask=band, certain_in=certain_in,
-            certain_out=lane_valid & ~band & ~certain_in, tau_ub=tau_ub,
+            rerank_mask=band, certain_in=certain_in, tau_ub=tau_ub,
             tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
         if -least_kept < k:
             # a query with fewer than k valid lanes: the full-width sort
@@ -981,20 +1005,6 @@ def _shard_budget(budget: int | None, count: int, n_shards: int,
     if budget is None:
         budget = dist.survivor_budget(count, n_shards, slack=slack)
     return max(8, min(budget, shard_flat))
-
-
-def _local_routing(centroids: torch.Tensor, qs: torch.Tensor, n_probe: int):
-    """The single-device routing, the same on every rank."""
-    return ivf_mod.route_batch_centroids(centroids, qs, n_probe)
-
-
-def _exact_at_positions(svecs: torch.Tensor, qs: torch.Tensor,
-                        pos: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Exact distances (B, w) of the local stream rows ``pos``, +inf off
-    ``ok``: the gathered rows' squares added by ``numerics.ordered_sum``, the
-    batched path's straggler sum, so the CPU and the card give the same
-    bits."""
-    return _exact_dists_rows(svecs, pos, qs, mask=ok)
 
 
 def _sharded_codebooks(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
@@ -1081,9 +1091,9 @@ def _tau_full(pred_state, count: int, qs: torch.Tensor) -> torch.Tensor:
                       dtype=torch.int32, device=qs.device)
 
 
-def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
-                       layout: ivf_mod.FlatLayout, svecs: torch.Tensor,
-                       k: int, n_probe: int, use_bbc: bool = True,
+def ivf_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
+                       layout: ivf_mod.FlatLayout, k: int, n_probe: int,
+                       use_bbc: bool = True,
                        m: int = 128, cap_shard: int = 1,
                        budget: int | None = None,
                        pred_state: rerank.PredictorState | None = None,
@@ -1091,8 +1101,8 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
                        slive: torch.Tensor | None = None):
     """Sharded batched IVF: exact distances in the local scan (the l2
     kernel), then the shard collector and the survivor collective.
-    ``layout`` and ``svecs`` (F, d) are this rank's block; ``slive`` (F,)
-    is this rank's block of the tombstone mask (None: every lane live).
+    ``layout`` and ``stream`` are this rank's block; ``slive`` (F,) is this
+    rank's block of the tombstone mask (None: every lane live).
 
     With ``pred_state`` the predicted tau floors the survivor threshold and
     the summed histogram feeds the EMA; returns ``(SearchResult,
@@ -1101,15 +1111,13 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
     predictive = pred_state is not None
     if predictive and not use_bbc:
         raise ValueError("predictive search requires use_bbc=True")
-    bud = _shard_budget(budget, k, _n_shards(mesh), svecs.shape[0], 2.0)
+    bud = _shard_budget(budget, k, _n_shards(mesh), layout.n_flat, 2.0)
     tau_floor = None
     if predictive:
         count = max(pred_count, k) if pred_count is not None else k
         tau_floor = _tau_full(pred_state, count, qs)
-    probed, _ = _local_routing(centroids, qs, n_probe)
-    lane_valid = _live_lanes(
-        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
-    dv = torch.where(lane_valid, ops.l2_exact_batch(svecs, qs), INF)
+    probed, lane_valid, _ = _routing(stream, layout, qs, n_probe, slive)
+    dv = torch.where(lane_valid, ops.l2_exact_batch(stream.vectors, qs), INF)
     n = dist.hier_psum(lane_valid.sum(dim=1), mesh)
     if use_bbc:
         cbs, sample = _sharded_codebooks(layout, probed, dv,
@@ -1138,10 +1146,8 @@ def ivf_search_sharded(mesh, qs: torch.Tensor, centroids: torch.Tensor,
     return res
 
 
-def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
-                          centroids: torch.Tensor,
-                          layout: ivf_mod.FlatLayout, scodes: torch.Tensor,
-                          svecs: torch.Tensor, k: int, n_probe: int,
+def ivf_pq_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
+                          layout: ivf_mod.FlatLayout, k: int, n_probe: int,
                           n_cand: int, use_bbc: bool = True, m: int = 128,
                           cap_shard: int = 1, budget: int | None = None,
                           pred_state: rerank.PredictorState | None = None,
@@ -1151,9 +1157,9 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     shard collector at ``n_cand`` granularity, the exact re-rank of each
     shard's survivors on that shard, and after the gather the batched
     path's top-``n_cand``-by-estimate cut (ties by global id,
-    ``_kth_value_mask``) before the top-k by exact distance.  ``layout``,
-    ``scodes`` (F, M) and ``svecs`` (F, d) are this rank's block, and
-    ``slive`` (F,) its block of the tombstone mask.
+    ``_kth_value_mask``) before the top-k by exact distance.  ``layout``
+    and ``stream`` are this rank's block, and ``slive`` (F,) its block of
+    the tombstone mask.
 
     Predictive (``pred_state``): the collective runs at ``pred_count``
     granularity with the predicted tau as a floor, and the pool is cut only
@@ -1163,16 +1169,14 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     predictive = pred_state is not None
     if predictive and not use_bbc:
         raise ValueError("predictive search requires use_bbc=True")
-    shard_flat, s = svecs.shape[0], _n_shards(mesh)
+    shard_flat, s = layout.n_flat, _n_shards(mesh)
     count = _resolve_pred_count(pred_count, k, n_cand) if predictive \
         else n_cand
     bud = _shard_budget(budget, count, s, shard_flat, 2.0)
     tau_floor = _tau_full(pred_state, count, qs) if predictive else None
-    probed, _ = _local_routing(centroids, qs, n_probe)
-    lane_valid = _live_lanes(
-        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
-    luts = pq_mod.adc_table(pq_cb, qs)
-    est = _sqrt_est(ops.pq_adc_batch(scodes, luts), lane_valid)
+    probed, lane_valid, _ = _routing(stream, layout, qs, n_probe, slive)
+    luts = pq_mod.adc_table(stream.pq, qs)
+    est = _sqrt_est(ops.pq_adc_batch(stream.codes, luts), lane_valid)
     ghist = None
     if use_bbc:
         cbs, sample = _sharded_codebooks(layout, probed, est,
@@ -1191,7 +1195,7 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     else:
         pos, ok, _ = _naive_local_topk(est, layout, k)
     sel_est = torch.where(ok, torch.gather(est, 1, pos), INF)
-    ex = _exact_at_positions(svecs, qs, pos, ok)
+    ex = _exact_dists_rows(stream.vectors, pos, qs, mask=ok)
     gids = torch.where(ok, layout.order[pos], -1)
     n_rr = dist.hier_psum(ok.sum(dim=1), mesh)
     ge, gx, gi = dist.gather_survivors(mesh, sel_est, ex, gids)
@@ -1225,7 +1229,7 @@ def ivf_pq_search_sharded(mesh, qs: torch.Tensor, pq_cb: pq_mod.PQCodebook,
     return res
 
 
-def _straggler_exact(stream: RabitqStream, qs: torch.Tensor,
+def _straggler_exact(stream: Stream, qs: torch.Tensor,
                      pos: torch.Tensor, strag: torch.Tensor, k: int):
     """Exact distances of the straggler survivors at local positions
     ``pos``, from the batched fused path's source: one dense l2 pass over
@@ -1238,13 +1242,11 @@ def _straggler_exact(stream: RabitqStream, qs: torch.Tensor,
     if bool((strag.sum(dim=1) > budget).any().item()):
         dense = ops.l2_exact_batch(stream.vectors, qs)
         return torch.where(strag, torch.gather(dense, 1, pos), INF)
-    return _exact_at_positions(stream.vectors, qs, pos, strag)
+    return _exact_dists_rows(stream.vectors, pos, qs, mask=strag)
 
 
-def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
-                              centroids: torch.Tensor,
-                              layout: ivf_mod.FlatLayout,
-                              stream: RabitqStream, k: int, n_probe: int,
+def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
+                              layout: ivf_mod.FlatLayout, k: int, n_probe: int,
                               use_bbc: bool = True, m: int = 128,
                               eps0: float = 3.0, cap_shard: int = 1,
                               budget: int | None = None,
@@ -1252,9 +1254,8 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
                               pred_state: rerank.PredictorState | None = None,
                               pred_count: int | None = None,
                               slive: torch.Tensor | None = None):
-    """Sharded batched IVF+RaBitQ.  ``layout`` and ``stream`` (this rank's
-    ``RabitqStream`` block) are the local shard, ``slive`` (F,) its block
-    of the tombstone mask.
+    """Sharded batched IVF+RaBitQ.  ``layout`` and ``stream`` are this
+    rank's block, ``slive`` (F,) its block of the tombstone mask.
 
     BBC: codebooks over the sampled upper bounds; the summed ub histogram
     thresholds at k (tau_ub), and a lane survives iff its lower bound's
@@ -1280,29 +1281,26 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
     if fused is None:
         fused = True
     b = qs.shape[0]
-    bud = _shard_budget(budget, k, _n_shards(mesh), stream.codes.shape[0],
-                        4.0)
+    bud = _shard_budget(budget, k, _n_shards(mesh), layout.n_flat, 4.0)
     count = k if pred_count is None else max(pred_count, k)
-    probed, d2 = _local_routing(centroids, qs, n_probe)
-    lane_valid = _live_lanes(
-        ivf_mod.probe_mask(layout, probed, centroids.shape[0]), slive)
+    probed, lane_valid, d2 = _routing(stream, layout, qs, n_probe, slive)
     ghist = None
     n_second = torch.zeros(b, dtype=torch.int32, device=qs.device)
 
     def bounds():
         return numerics.rabitq_bounds_stream(
             stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
-            rot, qs, d2, lane_valid, eps0)
+            stream.rot, qs, d2, lane_valid, eps0)
 
     if not use_bbc:
         est, _, _ = bounds()
         pos, ok, _ = _naive_local_topk(est, layout, k)
-        ex = _exact_at_positions(stream.vectors, qs, pos, ok)
+        ex = _exact_dists_rows(stream.vectors, pos, qs, mask=ok)
     else:
         st = min(SAMPLE_TILES, n_probe)
         if fused:
-            s_local, _ = _rabitq_sample_ub(stream, rot, layout, probed, qs,
-                                           d2, st, cap_shard, eps0)
+            s_local, _ = _rabitq_sample_ub(stream, layout, probed, qs, d2,
+                                           st, cap_shard, eps0)
         else:
             _, lb, ub = bounds()
             spos, ssok = ivf_mod.tile_positions(layout, probed[:, :st],
@@ -1321,7 +1319,8 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
             (_, lb, _, bucket_lb, _, _, hist_ub, exact_c, certified,
              _) = ops.fused_rabitq_scan_batch(
                 stream.codes, stream.vectors, stream.s2, stream.norm_o,
-                stream.f_o, stream.cl, rot, qs, d2, lane_valid, cbs.d_min,
+                stream.f_o, stream.cl, stream.rot, qs, d2, lane_valid,
+                cbs.d_min,
                 cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
         else:
             bucket_lb = rb.bucketize(cbs, lb)
@@ -1342,7 +1341,7 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, rot: torch.Tensor,
             ex = torch.where(cert, torch.gather(exact_c, 1, pos),
                              _straggler_exact(stream, qs, pos, strag, k))
         else:
-            ex = _exact_at_positions(stream.vectors, qs, pos, ok)
+            ex = _exact_dists_rows(stream.vectors, pos, qs, mask=ok)
     gids = torch.where(ok, layout.order[pos], -1)
     n_rr = dist.hier_psum(ok.sum(dim=1), mesh).to(torch.int32)
     gx, gi = dist.gather_survivors(mesh, ex, gids)

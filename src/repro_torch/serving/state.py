@@ -52,14 +52,16 @@ HAND_TUNED = "hand-tuned fallback"
 class ServingState:
     """Engines + predictor states for every shape bucket the traffic hits.
 
-    Engines are built lazily on first use of a bucket (one
-    ``SearchEngine.build`` per (k ceiling, n_probe); prefer ``warmup`` with
-    the full bucket set at server start) and cached for the state's
-    lifetime.  The index (and ``vectors``, required for the plain-IVF
-    method as in ``SearchEngine.build``) is placed on ``device`` once; with
-    ``mesh`` (a ``distributed.ShardMesh``) the engines live on the mesh's
-    device and each keeps only this rank's block of the stream, so the
-    index stays where the caller holds it.
+    Engines are made lazily on first use of a bucket, one per (k ceiling,
+    n_probe) (prefer ``warmup`` with the full bucket set at server start),
+    and cached for the state's lifetime.  The first is a
+    ``SearchEngine.build``; every other is that engine's ``with_knobs``,
+    so all of them share one layout and one stream.  The index (and
+    ``vectors``, required for the plain-IVF method as in
+    ``SearchEngine.build``) is placed on ``device`` once; with ``mesh`` (a
+    ``distributed.ShardMesh``) the engines live on the mesh's device and
+    share this rank's block of the stream, so the index stays where the
+    caller holds it.
     """
 
     def __init__(self, index: Any, *, use_bbc: bool = True,
@@ -111,7 +113,15 @@ class ServingState:
     def engine(self, bucket: ShapeBucket) -> engine_mod.SearchEngine:
         key = (bucket.k, bucket.n_probe)
         eng = self._engines.get(key)
-        if eng is None:
+        if eng is not None:
+            return eng
+        built = next(iter(self._engines.values()), None)
+        if built is not None:
+            # the index's layout, stream and mask, this bucket's knobs
+            eng = built.with_knobs(bucket.k, n_probe=bucket.n_probe,
+                                   pred_count=self.pred_count,
+                                   tuned=self.tuned)
+        else:
             eng = engine_mod.SearchEngine.build(
                 self.index, k=bucket.k, n_probe=bucket.n_probe,
                 use_bbc=self.use_bbc, m=self.m, vectors=self.vectors,
@@ -120,7 +130,7 @@ class ServingState:
                 tuned=self.tuned, generation=self.generation)
             if self.live is not None:
                 eng = eng.with_live(self.live)
-            self._engines[key] = eng
+        self._engines[key] = eng
         return eng
 
     def operating_points(self) -> dict[str, str]:

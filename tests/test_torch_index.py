@@ -136,8 +136,9 @@ def test_build_recall_close_to_reference(jindex, data):
     x, qs = data
     k, n_probe, n_cand = 100, 8, 800
     tix = search.build_pq_index(x, C, n_iter=5, seed=3, device="cpu")
+    tl = ivf.flat_layout(tix.ivf)
     tres = search.ivf_pq_search_batch(
-        tix, torch.from_numpy(qs), ivf.flat_layout(tix.ivf), k=k,
+        tix, search.build_stream(tix, tl), torch.from_numpy(qs), tl, k=k,
         n_probe=n_probe, n_cand=n_cand, use_bbc=True)
     jres = jsearch.ivf_pq_search_batch(
         jindex, jnp.asarray(qs), jivf.flat_layout(jindex.ivf), k=k,

@@ -200,9 +200,11 @@ def test_pq_search_at_gist_width_is_exact(gist_width, fused):
     assert index.codes.shape == (3000, 240) and index.pq.centroids.shape[
         :2] == (240, 16)
     k = 50
+    layout = ivf.flat_layout(index.ivf)
     res = search.ivf_pq_search_batch(
-        index, torch.from_numpy(qs), ivf.flat_layout(index.ivf), k=k,
-        n_probe=16, n_cand=400, use_bbc=True, m=32, fused=fused)
+        index, search.build_stream(index, layout), torch.from_numpy(qs),
+        layout, k=k, n_probe=16, n_cand=400, use_bbc=True, m=32,
+        fused=fused)
     want_d, want_i = _exact_topk(x, qs, k)
     for b in range(qs.shape[0]):
         assert set(res.ids[b].tolist()) == set(want_i[b].tolist())

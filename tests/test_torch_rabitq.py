@@ -83,7 +83,7 @@ def scan(jindex, tindex, corpus):
         jindex.rq.rot, jl, probed, jq, d2, st, jindex.ivf.cap, EPS0)
     cbs, tau = jsearch._rabitq_sample_plan(sample_ub, K, K, st, N_PROBE, M)
     ti, tl = tindex
-    ts = search.rabitq_stream(ti, tl)
+    ts = search.build_stream(ti, tl)
     return dict(jstream=js, jlayout=jl, lane_valid=lane_valid, d2=d2,
                 cbs=cbs, tau=tau, tstream=ts, qs=qs)
 
@@ -308,7 +308,7 @@ def test_port_build_bounds_hold(corpus):
     assert ti.rq.codes.dtype == torch.int8
     assert set(np.unique(ti.rq.codes.numpy()).tolist()) <= {-1, 1}
     tl = ivf.flat_layout(ti.ivf)
-    ts = search.rabitq_stream(ti, tl)
+    ts = search.build_stream(ti, tl)
     q = torch.from_numpy(qs)
     _, lane_valid, d2 = search._routing(ti.ivf, tl, q, N_PROBE)
     _, lb, ub = numerics.rabitq_bounds_stream(
@@ -333,8 +333,9 @@ def test_port_build_recall_close_to_reference():
         ji, jnp.asarray(qs), jivf.flat_layout(ji.ivf), k=k, n_probe=n_probe,
         use_bbc=True, backend="ref")
     ti = search.build_rabitq_index(x, 64, device="cpu")
+    tl = ivf.flat_layout(ti.ivf)
     tres = search.ivf_rabitq_search_batch(
-        ti, torch.from_numpy(qs), ivf.flat_layout(ti.ivf), k=k,
+        ti, search.build_stream(ti, tl), torch.from_numpy(qs), tl, k=k,
         n_probe=n_probe, use_bbc=True)
     _, gt = flat.search_batch(torch.from_numpy(x), torch.from_numpy(qs), k)
 

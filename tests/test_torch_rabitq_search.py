@@ -86,8 +86,8 @@ def _both(setup, q, fused, backend, use_bbc=True, js=None, ts=None):
         ji, jnp.asarray(q), jl, k=K, n_probe=N_PROBE, use_bbc=use_bbc,
         fused=fused, backend=backend, pred_state=js)
     tr = search.ivf_rabitq_search_batch(
-        ti, torch.from_numpy(q), tl, k=K, n_probe=N_PROBE, use_bbc=use_bbc,
-        fused=fused, pred_state=ts)
+        ti, search.build_stream(ti, tl), torch.from_numpy(q), tl, k=K,
+        n_probe=N_PROBE, use_bbc=use_bbc, fused=fused, pred_state=ts)
     return jr, tr
 
 
@@ -126,10 +126,10 @@ def test_two_phase_predictive_sequence_matches_reference(setup):
 
 def test_fused_and_two_phase_select_the_same_ids(setup):
     _, _, ti, tl, qs = setup
-    q = torch.from_numpy(qs)
-    fused = search.ivf_rabitq_search_batch(ti, q, tl, k=K, n_probe=N_PROBE,
-                                           use_bbc=True)
-    two = search.ivf_rabitq_search_batch(ti, q, tl, k=K, n_probe=N_PROBE,
+    q, ts = torch.from_numpy(qs), search.build_stream(ti, tl)
+    fused = search.ivf_rabitq_search_batch(ti, ts, q, tl, k=K,
+                                           n_probe=N_PROBE, use_bbc=True)
+    two = search.ivf_rabitq_search_batch(ti, ts, q, tl, k=K, n_probe=N_PROBE,
                                          use_bbc=True, fused=False)
     _ids_equal(fused.ids.numpy(), two.ids.numpy())
     # the gate moves work, never the band: every band lane is evaluated
@@ -187,12 +187,14 @@ def test_fused_select_matches_the_full_width_finalize(setup, few_centres,
         ti, tl, q = few_centres
         batches, k = [q], 1500
 
+    ts = search.build_stream(ti, tl)
+
     def run():
         state = rr.predictor_init(M) if gate == "predictive" else None
         out = []
         for q in batches:
             res = search.ivf_rabitq_search_batch(
-                ti, torch.from_numpy(q), tl, k=k, n_probe=N_PROBE,
+                ti, ts, torch.from_numpy(q), tl, k=k, n_probe=N_PROBE,
                 use_bbc=True, pred_state=state)
             if state is not None:
                 res, state = res
@@ -212,7 +214,8 @@ def test_fused_select_matches_the_full_width_finalize(setup, few_centres,
 def test_predictive_requires_bbc(setup):
     _, _, ti, tl, qs = setup
     with pytest.raises(ValueError, match="use_bbc"):
-        search.ivf_rabitq_search_batch(ti, torch.from_numpy(qs), tl, k=K,
+        search.ivf_rabitq_search_batch(ti, search.build_stream(ti, tl),
+                                       torch.from_numpy(qs), tl, k=K,
                                        n_probe=N_PROBE,
                                        pred_state=rr.predictor_init(M))
 
@@ -238,9 +241,10 @@ def _ivf_both(ivf_setup, q, use_bbc, js=None, ts=None):
     jr = jsearch.ivf_search_batch(jv, jx, jnp.asarray(q), jl, k=IVF_K,
                                   n_probe=IVF_PROBE, use_bbc=use_bbc,
                                   backend="ref", pred_state=js)
-    tr = search.ivf_search_batch(tv, torch.from_numpy(x), torch.from_numpy(q),
-                                 tl, k=IVF_K, n_probe=IVF_PROBE,
-                                 use_bbc=use_bbc, pred_state=ts)
+    tr = search.ivf_search_batch(
+        tv, search.build_stream(tv, tl, torch.from_numpy(x)),
+        torch.from_numpy(q), tl, k=IVF_K, n_probe=IVF_PROBE,
+        use_bbc=use_bbc, pred_state=ts)
     return jr, tr
 
 
@@ -258,9 +262,11 @@ def test_ivf_predictive_sequence_matches_reference(ivf_setup):
         (jr, js), (tr, ts) = _ivf_both(ivf_setup, q, True, js=js, ts=ts)
         _assert_same(jr, tr)
         # exact in-scan: the predictive result is the static one
+        tv, tl = ivf_setup[3], ivf_setup[4]
         static = search.ivf_search_batch(
-            ivf_setup[3], torch.from_numpy(ivf_setup[5]), torch.from_numpy(q),
-            ivf_setup[4], k=IVF_K, n_probe=IVF_PROBE, use_bbc=True)
+            tv, search.build_stream(tv, tl, torch.from_numpy(ivf_setup[5])),
+            torch.from_numpy(q), tl, k=IVF_K, n_probe=IVF_PROBE,
+            use_bbc=True)
         _ids_equal(static.ids.numpy(), tr.ids.numpy())
 
 
@@ -273,8 +279,9 @@ def test_engine_serves_the_rabitq_searcher(setup):
     assert eng.n_cand is None and eng.stream.codes.dtype == torch.int8
     q = torch.from_numpy(qs)
     res = eng.warmup((NQ,), predictive=True).search(qs)
-    direct = search.ivf_rabitq_search_batch(ti, q, tl, k=K, n_probe=N_PROBE,
-                                            use_bbc=True)
+    ts = search.build_stream(ti, tl)
+    direct = search.ivf_rabitq_search_batch(ti, ts, q, tl, k=K,
+                                            n_probe=N_PROBE, use_bbc=True)
     assert torch.equal(res.ids, direct.ids)
     assert torch.equal(res.n_second_pass, direct.n_second_pass)
     res2, state = eng.search(qs, pred_state=eng.predictor_init())
@@ -283,7 +290,7 @@ def test_engine_serves_the_rabitq_searcher(setup):
         e = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE,
                                       use_bbc=use_bbc, fused=fused,
                                       device="cpu")
-        want = search.ivf_rabitq_search_batch(ti, q, tl, k=K,
+        want = search.ivf_rabitq_search_batch(ti, ts, q, tl, k=K,
                                               n_probe=N_PROBE,
                                               use_bbc=use_bbc, fused=fused)
         assert torch.equal(e.search(qs).ids, want.ids)
@@ -296,9 +303,10 @@ def test_engine_serves_the_ivf_searcher(ivf_setup):
     assert eng.kind == "ivf" and eng.n_probe == IVF_C
     assert eng.pred_count == IVF_K and eng.dim == IVF_D
     res = eng.warmup((IVF_B,), predictive=True).search(qs[:IVF_B])
-    direct = search.ivf_search_batch(tv, torch.from_numpy(x),
-                                     torch.from_numpy(qs[:IVF_B]), tl,
-                                     k=IVF_K, n_probe=IVF_C, use_bbc=True)
+    direct = search.ivf_search_batch(
+        tv, search.build_stream(tv, tl, torch.from_numpy(x)),
+        torch.from_numpy(qs[:IVF_B]), tl, k=IVF_K, n_probe=IVF_C,
+        use_bbc=True)
     assert torch.equal(res.ids, direct.ids)
     with pytest.raises(ValueError, match="vectors"):
         engine.SearchEngine.build(tv, k=IVF_K, n_probe=4, device="cpu")

@@ -76,8 +76,8 @@ def test_static_matches_reference(setup, n_probe, use_bbc, fused):
         ji, jnp.asarray(q), jl, k=K, n_probe=n_probe, n_cand=N_CAND,
         use_bbc=use_bbc, fused=fused, backend="ref")
     tr = search.ivf_pq_search_batch(
-        ti, torch.from_numpy(q), tl, k=K, n_probe=n_probe, n_cand=N_CAND,
-        use_bbc=use_bbc, fused=fused)
+        ti, search.build_stream(ti, tl), torch.from_numpy(q), tl, k=K,
+        n_probe=n_probe, n_cand=N_CAND, use_bbc=use_bbc, fused=fused)
     _assert_same(jr, tr)
 
 
@@ -116,8 +116,8 @@ def test_gist_width_matches_reference(gist_setup, fused):
         ji, jnp.asarray(qs), jl, k=GIST_K, n_probe=GIST_PROBE,
         n_cand=8 * GIST_K, use_bbc=True, fused=fused, backend="ref")
     tr = search.ivf_pq_search_batch(
-        ti, torch.from_numpy(qs), tl, k=GIST_K, n_probe=GIST_PROBE,
-        n_cand=8 * GIST_K, use_bbc=True, fused=fused)
+        ti, search.build_stream(ti, tl), torch.from_numpy(qs), tl, k=GIST_K,
+        n_probe=GIST_PROBE, n_cand=8 * GIST_K, use_bbc=True, fused=fused)
     _assert_same(jr, tr, atol=2e-3)
     x = np.asarray(ji.vectors).astype(np.float64)
     exact = np.sqrt(((x[tr.ids.numpy()] - qs[:, None, :]) ** 2).sum(-1))
@@ -132,7 +132,7 @@ def test_gist_width_sample_matches_reference(gist_setup):
     ji, jl, ti, tl, qs = gist_setup
     q = torch.from_numpy(qs)
     probed, _, _ = search._routing(ti.ivf, tl, q, GIST_PROBE)
-    codes = ti.codes[tl.order]
+    codes = search.build_stream(ti, tl).codes
     luts = tpq.adc_table(ti.pq, q)
     st = search.SAMPLE_TILES
     got = search._pq_sample_est(tl, probed, codes, luts, st, ti.ivf.cap)
@@ -149,13 +149,14 @@ def test_gist_width_sample_matches_reference(gist_setup):
 def test_predictive_sequence_matches_reference(setup, fused):
     ji, jl, ti, tl, qs = setup
     js, ts = jrr.predictor_init(128), rr.predictor_init(128)
+    stream = search.build_stream(ti, tl)
     for i in range(3):
         q = qs[i * B:(i + 1) * B]
         jr, js = jsearch.ivf_pq_search_batch(
             ji, jnp.asarray(q), jl, k=K, n_probe=N_PROBE, n_cand=N_CAND,
             use_bbc=True, fused=fused, backend="ref", pred_state=js)
         tr, ts = search.ivf_pq_search_batch(
-            ti, torch.from_numpy(q), tl, k=K, n_probe=N_PROBE,
+            ti, stream, torch.from_numpy(q), tl, k=K, n_probe=N_PROBE,
             n_cand=N_CAND, use_bbc=True, fused=fused, pred_state=ts)
         _assert_same(jr, tr)
         assert rr.predict_tau(ts, 1250) == int(jrr.predict_tau(js, 1250))
@@ -166,8 +167,8 @@ def test_engine_serves_the_searcher(setup):
     eng = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE, device="cpu")
     assert eng.n_cand == N_CAND and eng.fused is None
     direct = search.ivf_pq_search_batch(
-        ti, torch.from_numpy(qs[:B]), tl, k=K, n_probe=N_PROBE,
-        n_cand=N_CAND, use_bbc=True)
+        ti, search.build_stream(ti, tl), torch.from_numpy(qs[:B]), tl, k=K,
+        n_probe=N_PROBE, n_cand=N_CAND, use_bbc=True)
     res = eng.warmup((B,), predictive=True).search(qs[:B])
     assert torch.equal(res.ids, direct.ids)
     res2, state = eng.search(qs[:B], pred_state=eng.predictor_init())

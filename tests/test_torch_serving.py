@@ -420,6 +420,30 @@ def test_predictor_state_per_bucket(data):
     assert fork.pred_states() == {} and fork._engines is state._engines
 
 
+@pytest.mark.parametrize("kind", ["ivfpq", "ivf", "ivfrabitq"])
+def test_bucket_engines_share_one_layout_and_stream(data, kind):
+    """Two (k, n_probe) buckets over one index: the second bucket's engine
+    shares the first's index, layout and stream objects, and has the
+    knobs, ids, distances and counters of its own ``SearchEngine.build``."""
+    state = _states(data, kind)[1]
+    first = state.engine(bt.bucket_of(50, N_PROBE, CEILS, BATCH))
+    bucket = bt.bucket_of(120, N_PROBE + 2, CEILS, BATCH)
+    eng = state.engine(bucket)
+    assert (eng.k, eng.n_probe) == (128, N_PROBE + 2) != \
+        (first.k, first.n_probe)
+    assert eng.index is first.index and eng.layout is first.layout
+    assert eng.stream is first.stream
+    built = engine.SearchEngine.build(state.index, k=bucket.k,
+                                      n_probe=bucket.n_probe,
+                                      vectors=state.vectors, device="cpu")
+    for knob in ("kind", "n_cand", "pred_count", "fused", "use_bbc", "m",
+                 "generation", "tuned_from"):
+        assert getattr(eng, knob) == getattr(built, knob), knob
+    qs = torch.from_numpy(data["qs"][:BATCH])
+    for got, want in zip(eng.search_batch(qs), built.search_batch(qs)):
+        assert torch.equal(got, want)
+
+
 def test_engine_warmup_serves_the_bucket_shape(data):
     eng = engine.SearchEngine.build(data["tpq"], k=64, n_probe=N_PROBE,
                                     device="cpu")
@@ -476,6 +500,13 @@ def test_unported_state_paths_raise(data, what, item):
                 state = ServingState(data["tpq"],
                                      mesh=distributed.make_mesh((1,)))
                 assert state.engine(bucket).mesh is state.mesh
+                # one block stream per rank, shared across the buckets
+                other = state.engine(bt.bucket_of(120, N_PROBE, CEILS,
+                                                  BATCH))
+                assert other.k == 128 and other.mesh is state.mesh
+                assert other.stream is state.engine(bucket).stream
+                assert other.shard_layout is state.engine(
+                    bucket).shard_layout
             finally:
                 tdist.destroy_process_group()
         return

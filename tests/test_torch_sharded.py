@@ -26,6 +26,7 @@ from repro.index import ivf as jivf  # noqa: E402
 from repro.index import search as jsearch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import distributed as dist  # noqa: E402
+from repro_torch.core import numerics  # noqa: E402
 from repro_torch.index import engine, ivf, search  # noqa: E402
 
 torch.set_num_threads(2)
@@ -117,6 +118,52 @@ def _engines(data, meshes, kind, **kw):
     te = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE, mesh=tmesh,
                                    **dict(kw, vectors=tv))
     return je, te
+
+
+def _stream_rows(kind, ti, x) -> dict:
+    """Each per-lane tensor of ``kind``'s stream, as the index keeps it."""
+    if kind == "ivf":
+        return {"vectors": x}
+    if kind == "pq":
+        return {"vectors": ti.vectors, "codes": ti.codes}
+    return {"vectors": ti.vectors, "codes": ti.rq.codes,
+            "norm_o": ti.rq.norm_o, "f_o": ti.rq.f_o}
+
+
+STREAM_SMALL = {"ivf": set(), "pq": {"pq"}, "rq": {"rot", "cl", "s2"}}
+
+
+@pytest.mark.parametrize("on_mesh", [False, True],
+                         ids=["one_device", "rank_block"])
+@pytest.mark.parametrize("kind", ["ivf", "pq", "rq"])
+def test_engine_stream_is_the_index_in_stream_order(data, meshes, kind,
+                                                    on_mesh):
+    """``SearchEngine.build`` gathers the corpus and its codes into stream
+    order once: every per-lane tensor of ``eng.stream`` is the index's at
+    ``layout.order``, bit for bit, on one device and on this rank's block
+    of the one-rank mesh; the small tensors are the index's, and the
+    fields of the other methods are None."""
+    x = torch.from_numpy(data["x"])
+    ti = data["tpq"].ivf if kind == "ivf" else data["t" + kind]
+    kw = dict(vectors=x) if kind == "ivf" else {}
+    where = dict(mesh=meshes[0]) if on_mesh else dict(device="cpu")
+    eng = engine.SearchEngine.build(ti, k=K, n_probe=N_PROBE, **kw, **where)
+    layout = eng.shard_layout if on_mesh else eng.layout
+    st, rows = eng.stream, _stream_rows(kind, ti, x)
+    for name, src in rows.items():
+        assert torch.equal(getattr(st, name), src[layout.order]), name
+    ivf_index = ti if kind == "ivf" else ti.ivf
+    assert torch.equal(st.centroids, ivf_index.centroids)
+    assert {f for f in st._fields if getattr(st, f) is not None} == \
+        {"centroids", *rows, *STREAM_SMALL[kind]}
+    if kind == "pq":
+        assert torch.equal(st.pq.centroids, ti.pq.centroids)
+    if kind == "rq":
+        assert torch.equal(st.rot, ti.rq.rot)
+        assert torch.equal(st.cl, torch.clamp(layout.cluster_of,
+                                              max=C - 1).to(torch.int32))
+        h = numerics.rotate(ivf_index.centroids, ti.rq.rot)
+        assert torch.equal(st.s2, numerics.rabitq_s2(st.codes, h, st.cl))
 
 
 FORMS = [("ivf", {}), ("pq", {}), ("rq", {}), ("rq", {"fused": False})]

@@ -224,8 +224,10 @@ def test_greedy_plan_and_phases_match_reference(rng, k):
     jp = jrr.greedy_rerank_plan(jnp.asarray(lb), jnp.asarray(ub), k,
                                 jnp.asarray(valid), m=128)
     tp = rr.greedy_rerank_plan(_t(lb), _t(ub), k, _t(valid), m=128)
-    for name, a, b in zip(tp._fields, jp, tp):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    for name in tp._fields:
+        np.testing.assert_array_equal(getattr(tp, name).numpy(),
+                                      np.asarray(getattr(jp, name)),
+                                      err_msg=name)
     jm, tm = jrr.phase1_mask(jp), rr.phase1_mask(tp)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     p1 = np.where(np.asarray(jm), exact, np.inf).astype(np.float32)

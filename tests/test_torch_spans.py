@@ -18,8 +18,8 @@ from repro_torch.kernels import ops  # noqa: E402
 
 torch.set_num_threads(2)
 
-PQ_STAGES = ["engine.h2d", "pq.route", "pq.stream", "pq.tables", "pq.sample",
-             "pq.scan", "collect", "rerank.second_pass", "select"]
+PQ_STAGES = ["engine.h2d", "pq.route", "pq.tables", "pq.sample", "pq.scan",
+             "collect", "rerank.second_pass", "select"]
 RABITQ_STAGES = ["engine.h2d", "rabitq.route", "rabitq.sample", "rabitq.scan",
                  "rabitq.band", "rerank.stragglers", "select"]
 WAITS = {"collect": ["wait.collect_overflow"],
@@ -217,8 +217,8 @@ def test_select_full_width_span_only_on_its_branch(engines, data, short_row):
     assert int(lanes.min()) < int(lanes.max())
     k = int(lanes.min()) + 1 if short_row else eng.k
     got = _stage_names(lambda: search.ivf_rabitq_search_batch(
-        eng.index, qs, eng.layout, k=k, n_probe=eng.n_probe, use_bbc=True,
-        stream=eng.stream))
+        eng.index, eng.stream, qs, eng.layout, k=k, n_probe=eng.n_probe,
+        use_bbc=True))
     assert ("select", None) in got
     assert (("select.full_width", "select") in got) == short_row
     assert sum(name == "select.full_width" for name, _ in got) == short_row

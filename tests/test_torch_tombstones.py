@@ -219,8 +219,9 @@ def test_searcher_rejects_a_mask_of_the_wrong_width(data):
     _, te = _engines(data, "ivfpq", use_bbc=True)
     with pytest.raises(ValueError, match="live mask"):
         search.ivf_pq_search_batch(
-            te.index, torch.from_numpy(data["qs"]), te.layout, k=K,
-            n_probe=N_PROBE, n_cand=te.n_cand, live=torch.ones(5, dtype=bool))
+            te.index, te.stream, torch.from_numpy(data["qs"]), te.layout,
+            k=K, n_probe=N_PROBE, n_cand=te.n_cand,
+            live=torch.ones(5, dtype=bool))
 
 
 def _tombstoned_lanes(data):
@@ -476,15 +477,15 @@ def card_inputs(data, cuda):
     layout, probed, lv, qs = _tombstoned_lanes(data)
     ti = data["tpq"]
     lv, qs = lv.to(cuda), qs.to(cuda)
-    codes = ti.codes[layout.order].to(cuda)
-    vecs = ti.vectors[layout.order].to(cuda)
+    pq_stream = search.build_stream(ti, layout)
+    codes, vecs = pq_stream.codes.to(cuda), pq_stream.vectors.to(cuda)
     luts = search.pq_mod.adc_table(ti.pq, qs.cpu()).to(cuda)
     est = search._sqrt_est(ref.pq_adc_batch(codes, luts), lv)
     cb = rb.build_codebook(est, k=K, m=M)
     tau = torch.full((NQ,), M // 3, dtype=torch.int32, device=cuda)
     trq = search.index_to(data["trq"], cuda)
     rlayout = ivf.flat_layout(trq.ivf)
-    stream = search.rabitq_stream(trq, rlayout)
+    stream = search.build_stream(trq, rlayout)
     live = torch.from_numpy(data["live"]).to(cuda)
     _, rlv, d2 = search._routing(trq.ivf, rlayout, qs, N_PROBE,
                                  live[rlayout.order.clamp(0, N - 1)])
