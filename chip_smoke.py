@@ -252,6 +252,9 @@ KERNELS = {
     # no TPU kernel: the JAX package gathers the second pass's rows in XLA
     "l2_gather_rows_batch": ("src/repro_torch/kernels/csrc/l2_rerank.cu",
                              "src/repro/index/search.py:501"),
+    # no TPU kernel: the JAX package maps the RaBitQ sample's bounds in XLA
+    "rabitq_sample_ub_batch": ("src/repro_torch/kernels/csrc/rabitq_fused.cu",
+                               "src/repro/index/search.py:914"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -531,19 +534,20 @@ def rabitq_kernel_inputs(seed, b, n, d, c, m=128, density=0.0625,
     diff = cent[None] - qs[:, None]
     d2 = nm.ordered_sum(diff * diff)
     s2 = nm.rabitq_s2(codes, nm.rotate(cent, rot), cl)
-    _, _, ub = nm.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, rot, qs,
-                                       d2, valid, RQ_EPS0)
+    rq_g, nq = nm.rotate(qs, rot), nm.sqrt_rn(d2)
+    _, _, ub = nm.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, rq_g, nq,
+                                       valid, RQ_EPS0)
     lane = torch.arange(n, device=dev)
     sample = torch.where(valid & (lane % 16 == 0)[None], ub, float("inf"))
     cb = rb.build_codebook(sample, k=min(RQ_K, max(n // 32, 1)), m=m)
     tau = torch.randint(-1, m, (b,), generator=g, device=dev).to(torch.int32)
     return dict(codes=codes, vectors=vectors, s2=s2, norm_o=norm_o, f_o=f_o,
-                cl=cl, rot=rot, qs=qs, d2=d2, valid=valid, d_min=cb.d_min,
+                cl=cl, g=rq_g, qs=qs, nq=nq, valid=valid, d_min=cb.d_min,
                 delta=cb.delta, ew_maps=cb.ew_map, m=m, tau_inline=tau)
 
 
-RQ_ARGS = ("codes", "vectors", "s2", "norm_o", "f_o", "cl", "rot", "qs",
-           "d2", "valid", "d_min", "delta", "ew_maps", "m", "tau_inline")
+RQ_ARGS = ("codes", "vectors", "s2", "norm_o", "f_o", "cl", "g", "qs",
+           "nq", "valid", "d_min", "delta", "ew_maps", "m", "tau_inline")
 RQ_OUT = ("est", "lb", "ub", "bucket_lb", "bucket_ub", "hist_lb", "hist_ub",
           "exact", "certified", "nmiss")
 
@@ -1357,6 +1361,10 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
     launches = dict(ops.LAUNCHES)
     check(launches["fused_rabitq_scan_batch"] > 0,
           "the RaBitQ path never ran the bound-fused kernel")
+    check(launches["rabitq_sample_ub_batch"]
+          == launches["fused_rabitq_scan_batch"],
+          f"the fused RaBitQ path: {launches['rabitq_sample_ub_batch']} "
+          f"sample launches for {launches['fused_rabitq_scan_batch']} scans")
     for r in res + pres + two:
         check_result(r, b, k, "rabitq bbc", ascending=False)
     check_result(base[0], b, k, "rabitq baseline")
@@ -3578,7 +3586,8 @@ def sharded_path(summary: dict, card: str, pq_eng, rq_eng, ivf_eng, qs_main,
                                           ptiers)
     launches = dict(ops.LAUNCHES)
     for kname in ("pq_adc_batch", "l2_exact_batch", "fused_rabitq_scan_batch",
-                  "shard_collect_batch", "spec_compact_batch"):
+                  "shard_collect_batch", "spec_compact_batch",
+                  "rabitq_sample_ub_batch"):
         check(launches[kname] > 0, f"the sharded path never ran {kname}")
 
     out = {}
@@ -3902,19 +3911,23 @@ def against_row_kernel(name: str, t: dict) -> str:
 
 def rabitq_kernel_args(eng, qs) -> dict:
     """The RaBitQ scan's arguments as the fused static path builds them for
-    one batch (routing, the engine's stream, sample codebooks, gate)."""
+    one batch (routing, the engine's stream, sample codebooks, gate), and
+    the sample kernel's (``sample``)."""
     from repro_torch.index import search as S
     ix, lay, st = eng.index, eng.layout, eng.stream
     probed, lane_valid, d2 = S._routing(ix.ivf, lay, qs, eng.n_probe)
     n_st = min(4, eng.n_probe)
-    sample_ub, _ = S._rabitq_sample_ub(st, lay, probed, qs, d2, n_st,
+    g, nq = S._rabitq_query_terms(st, qs, d2)
+    sample_ub, _ = S._rabitq_sample_ub(st, lay, probed, g, nq, n_st,
                                        ix.ivf.cap, RQ_EPS0)
     cbs, tau = S._rabitq_sample_plan(sample_ub, eng.k, eng.k, n_st,
                                      eng.n_probe, eng.m)
     return dict(codes=st.codes, vectors=st.vectors, s2=st.s2,
-                norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, rot=st.rot, qs=qs,
-                d2=d2, valid=lane_valid, d_min=cbs.d_min, delta=cbs.delta,
-                ew_maps=cbs.ew_map, m=eng.m, tau_inline=tau)
+                norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, g=g, qs=qs,
+                nq=nq, valid=lane_valid, d_min=cbs.d_min, delta=cbs.delta,
+                ew_maps=cbs.ew_map, m=eng.m, tau_inline=tau,
+                sample=(st.codes, st.s2, st.norm_o, st.f_o, st.cl,
+                        lay.offsets, probed[:, :n_st], ix.ivf.cap, g, nq))
 
 
 def timing_rabitq(a, errs: dict) -> dict:
@@ -3925,7 +3938,7 @@ def timing_rabitq(a, errs: dict) -> dict:
     args = [a[k] for k in RQ_ARGS]
     valid = a["valid"]
     b, n = valid.shape
-    d, c = a["codes"].shape[1], a["d2"].shape[1]
+    d, c = a["codes"].shape[1], a["nq"].shape[1]
     n_ew, m = a["ew_maps"].shape[1], a["m"]
     certified = ops.fused_rabitq_scan_batch(*args, eps0=RQ_EPS0)[8]
     lanes_probed = int(valid.any(0).sum().item())
@@ -3953,6 +3966,53 @@ def timing_rabitq(a, errs: dict) -> dict:
     return {"fused_rabitq_scan_batch": t}
 
 
+def timing_rabitq_sample(a, errs: dict) -> dict:
+    """The codebook sample's RaBitQ bounds at the RaBitQ path's sample
+    (phase 9's batch): bitwise its plain version on the same card tensors,
+    one launch a call, then timed beside its bound (the sampled lanes'
+    codes and 16 B of factors read once, the (B, w) ub and ok written) and
+    the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = a["sample"]
+    codes, clusters, cap, g = args[0], args[6], args[7], args[8]
+    b, d, w = g.shape[0], codes.shape[1], clusters.shape[1] * cap
+    before = ops.LAUNCHES["rabitq_sample_ub_batch"]
+    got = ops.rabitq_sample_ub_batch(*args, eps0=RQ_EPS0)
+    check(ops.LAUNCHES["rabitq_sample_ub_batch"] == before + 1,
+          "rabitq_sample_ub_batch: more than one launch a call")
+    want = ref.rabitq_sample_ub_batch(*args, eps0=RQ_EPS0)
+    errs["rabitq_sample_ub_batch"] = max(
+        errs.get("rabitq_sample_ub_batch", 0.0), max_abs(got[0], want[0]))
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"rabitq_sample_ub_batch at the RaBitQ path's sample (B={b}, "
+          f"w={w}, d={d}) not bitwise its plain version")
+    offs = args[5]
+    lanes = int((offs[1:] - offs[:-1])[torch.unique(clusters)].clamp(
+        max=cap).sum().item())              # the sampled clusters' lanes
+    pairs = int(got[1].sum().item())
+    fn = lambda: ops.rabitq_sample_ub_batch(*args, eps0=RQ_EPS0)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20),
+             plain_ms=cuda_ms(lambda: ref.rabitq_sample_ub_batch(
+                 *args, eps0=RQ_EPS0), 3, warm=1),
+             library_ms=None,
+             work={"B": b, "w": w, "d": d, "lanes": lanes, "pairs": pairs,
+                   "plan": ops._sample_ub_plan(w, d)._asdict(),
+                   "device_ms": device_ms(fn, "rabitq_sample_ub_kernel")})
+    # codes and 16 B of factors of each sampled lane once, the rotated
+    # queries and routing norms, ub (4 B) and ok (1 B) a (query, lane);
+    # 2d - 1 products and adds and ~20 bound operations a pair
+    t["bound_ms"], t["bound_by"] = bound(
+        lanes * (d + 16) + 4 * b * (d + args[9].shape[1]) + 5 * b * w,
+        pairs * (2 * d + 20))
+    log(f"[timing] rabitq_sample_ub_batch at the RaBitQ path's sample (B={b},"
+        f" w={w}, d={d}; {lanes} lanes, {pairs} pairs): bitwise, "
+        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
+        f"{t['plain_ms']:.4f} ms; plan {t['work']['plan']}")
+    return {"rabitq_sample_ub_batch": t}
+
+
 def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
     """The two compaction kernels' arguments as phase 11's static sharded
     PQ and RaBitQ paths build them for one batch (routing, the local scan,
@@ -3977,11 +4037,12 @@ def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
     e = forms["ivfrabitq_bbc"]
     st, lay, qs = e.stream, e.shard_layout, qs_rq[:32]
     probed, valid, d2 = S._routing(st, lay, qs, e.n_probe)
-    sample, _ = S._rabitq_sample_ub(st, lay, probed, qs, d2, 4, e.cap_shard,
+    g, nq = S._rabitq_query_terms(st, qs, d2)
+    sample, _ = S._rabitq_sample_ub(st, lay, probed, g, nq, 4, e.cap_shard,
                                     RQ_EPS0)
     cbs, tau = S._rabitq_sample_plan(sample, e.k, e.k, 4, e.n_probe, e.m)
     out = ops.fused_rabitq_scan_batch(st.codes, st.vectors, st.s2, st.norm_o,
-                                      st.f_o, st.cl, st.rot, qs, d2, valid,
+                                      st.f_o, st.cl, g, qs, nq, valid,
                                       cbs.d_min, cbs.delta, cbs.ew_map, e.m,
                                       tau, eps0=RQ_EPS0)
     rq = dict(bucket=out[3], valid=valid, tau_spec=tau,
@@ -4515,8 +4576,9 @@ def main(argv=None) -> int:
                                    "the d960 cell's shapes"))
         times.update(timing_delta())
         if rq_eng is not None:
-            times.update(timing_rabitq(
-                rabitq_kernel_args(rq_eng, rq_queries[:32]), errs))
+            rq_args = rabitq_kernel_args(rq_eng, rq_queries[:32])
+            times.update(timing_rabitq(rq_args, errs))
+            times.update(timing_rabitq_sample(rq_args, errs))
         if shard_forms is not None:
             times.update(timing_shard(
                 shard_kernel_args(shard_forms, main_queries, rq_queries),

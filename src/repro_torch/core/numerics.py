@@ -15,7 +15,9 @@ fp32 inputs, while the card's is IEEE.
 * ``sqrt_rn``: the IEEE round-to-nearest fp32 square root on both devices.
 
 * ``ordered_sum``: a fixed pairwise order, for the rotations, the RaBitQ
-  centroid correction ``s2`` and the routing distances.
+  centroid correction ``s2``, the routing distances and the code products
+  of the RaBitQ codebook sample (which the sample kernel adds in the same
+  order).
 * ``code_dot`` and ``exact_dist``: ascending coordinate order from 0, the
   order in which the CUDA kernels add ``s1`` and ``(x - q)^2`` (with
   ``__fmul_rn``/``__fadd_rn``, so nvcc contracts nothing into an FMA).
@@ -148,15 +150,16 @@ def rabitq_bounds(s1, s2, nq, norm_o, f_o, d: int, eps0: float):
     return dist(ip), dist(ip + err), dist(ip - err)
 
 
-def rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, rot, qs, d2,
-                         lane_valid, eps0: float):
+def rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, g, nq, lane_valid,
+                         eps0: float):
     """Batched RaBitQ estimator over a shared stream: (est, lb, ub), each
     (B, n) and +inf off ``lane_valid``.  ``codes`` (n, d) int8 +-1, ``s2``
     (n,) the stream's centroid correction, ``cl`` (n,) clamped owning
-    cluster, ``d2`` (B, C) squared query-centroid distances.  The P(q - c)
-    = Pq - Pc decomposition of the JAX oracle, in fixed summation order."""
+    cluster, ``g`` (B, d) the rotated queries ``rotate(qs, rot)``, ``nq``
+    (B, C) the query-centroid distances ``sqrt_rn(d2)``.  The P(q - c) =
+    Pq - Pc decomposition of the JAX oracle, in fixed summation order."""
     d = codes.shape[1]
-    s1 = code_dot(codes, rotate(qs, rot))
-    nq = sqrt_rn(d2)[:, cl.long()]
-    bounds = rabitq_bounds(s1, s2[None], nq, norm_o[None], f_o[None], d, eps0)
+    s1 = code_dot(codes, g)
+    bounds = rabitq_bounds(s1, s2[None], nq[:, cl.long()], norm_o[None],
+                           f_o[None], d, eps0)
     return tuple(torch.where(lane_valid, t, INF) for t in bounds)

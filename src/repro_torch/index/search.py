@@ -760,28 +760,24 @@ def _rabitq_sample_plan(sample_ub: torch.Tensor, k: int, count: int,
         torch.int32)
 
 
+def _rabitq_query_terms(stream: Stream, qs: torch.Tensor, d2: torch.Tensor):
+    """The rotated queries ``g`` (B, d) and the query-centroid distances
+    ``nq`` (B, C) that the bounds of every lane read, once a call."""
+    return numerics.rotate(qs, stream.rot), numerics.sqrt_rn(d2)
+
+
 def _rabitq_sample_ub(stream: Stream, layout: ivf_mod.FlatLayout,
-                      probed: torch.Tensor, qs: torch.Tensor,
-                      d2: torch.Tensor, st: int, cap: int, eps0: float):
+                      probed: torch.Tensor, g: torch.Tensor, nq: torch.Tensor,
+                      st: int, cap: int, eps0: float):
     """Upper bounds (B, st*cap) over each query's nearest ``st`` probed
-    tiles, the codebook sample the fused scan needs before it runs.  One
-    batched gather of the sampled lanes (the reference maps over queries);
-    the code products go through ``ordered_sum``, so the sample has the
-    same bits on both devices."""
-    spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
-    b, w = spos.shape
-    d = stream.codes.shape[1]
-    g = numerics.rotate(qs, stream.rot)
-    s1 = torch.empty(b, w, dtype=torch.float32, device=qs.device)
-    step = max(1, numerics.CHUNK // max(w * d, 1))
-    for i in range(0, b, step):
-        c = stream.codes[spos[i:i + step]].to(torch.float32)
-        s1[i:i + step] = numerics.ordered_sum(c * g[i:i + step, None, :])
-    nq = torch.gather(numerics.sqrt_rn(d2), 1, stream.cl.long()[spos])
-    _, _, ub = numerics.rabitq_bounds(s1, stream.s2[spos], nq,
-                                      stream.norm_o[spos], stream.f_o[spos],
-                                      d, eps0)
-    return torch.where(sok, ub, INF), sok
+    tiles (``ivf.tile_positions``' lanes, +inf off them), the codebook
+    sample the fused scan needs before it runs, and the lanes' mask: one
+    launch on the card (the reference maps over queries); the code products
+    are added in ``ordered_sum``'s order, so the sample has the same bits on
+    both devices."""
+    return ops.rabitq_sample_ub_batch(
+        stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
+        layout.offsets, probed[:, :st], cap, g, nq, eps0=eps0)
 
 
 def ivf_rabitq_search_batch(index: RabitqIndex, stream: Stream,
@@ -819,7 +815,7 @@ def ivf_rabitq_search_batch(index: RabitqIndex, stream: Stream,
                                        pred_state, pred_count)
     est, lb, ub = numerics.rabitq_bounds_stream(
         stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
-        stream.rot, qs, d2, lane_valid, eps0)
+        *_rabitq_query_terms(stream, qs, d2), lane_valid, eps0)
     if not use_bbc:
         d, i, n_rr = _rabitq_threshold_baseline(index, stream, layout,
                                                 probed, lb, qs, k)
@@ -889,7 +885,8 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     st = min(SAMPLE_TILES, n_probe)
     count = k if pred_count is None else max(pred_count, k)
     with spans.span("rabitq.sample"):
-        sample_ub, _ = _rabitq_sample_ub(stream, layout, probed, qs, d2, st,
+        g, nq = _rabitq_query_terms(stream, qs, d2)
+        sample_ub, _ = _rabitq_sample_ub(stream, layout, probed, g, nq, st,
                                          ivf.cap, eps0)
         cbs, tau_inline = _rabitq_sample_plan(sample_ub, k, count, st,
                                               n_probe, m)
@@ -905,7 +902,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
         (est, lb, _, bucket_lb, bucket_ub, hist_lb, hist_ub, exact_c,
          certified, _) = ops.fused_rabitq_scan_batch(
             stream.codes, stream.vectors, stream.s2, stream.norm_o,
-            stream.f_o, stream.cl, stream.rot, qs, d2, lane_valid,
+            stream.f_o, stream.cl, g, qs, nq, lane_valid,
             cbs.d_min, cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
     with spans.span("rabitq.band"):
         tau_ub, _ = rb.threshold_bucket(hist_ub, k)
@@ -1284,13 +1281,14 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
     bud = _shard_budget(budget, k, _n_shards(mesh), layout.n_flat, 4.0)
     count = k if pred_count is None else max(pred_count, k)
     probed, lane_valid, d2 = _routing(stream, layout, qs, n_probe, slive)
+    g, nq = _rabitq_query_terms(stream, qs, d2)
     ghist = None
     n_second = torch.zeros(b, dtype=torch.int32, device=qs.device)
 
     def bounds():
         return numerics.rabitq_bounds_stream(
             stream.codes, stream.s2, stream.norm_o, stream.f_o, stream.cl,
-            stream.rot, qs, d2, lane_valid, eps0)
+            g, nq, lane_valid, eps0)
 
     if not use_bbc:
         est, _, _ = bounds()
@@ -1299,7 +1297,7 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
     else:
         st = min(SAMPLE_TILES, n_probe)
         if fused:
-            s_local, _ = _rabitq_sample_ub(stream, layout, probed, qs, d2,
+            s_local, _ = _rabitq_sample_ub(stream, layout, probed, g, nq,
                                            st, cap_shard, eps0)
         else:
             _, lb, ub = bounds()
@@ -1319,8 +1317,7 @@ def ivf_rabitq_search_sharded(mesh, qs: torch.Tensor, stream: Stream,
             (_, lb, _, bucket_lb, _, _, hist_ub, exact_c, certified,
              _) = ops.fused_rabitq_scan_batch(
                 stream.codes, stream.vectors, stream.s2, stream.norm_o,
-                stream.f_o, stream.cl, stream.rot, qs, d2, lane_valid,
-                cbs.d_min,
+                stream.f_o, stream.cl, g, qs, nq, lane_valid, cbs.d_min,
                 cbs.delta, cbs.ew_map, m, tau_inline, eps0=eps0)
         else:
             bucket_lb = rb.bucketize(cbs, lb)

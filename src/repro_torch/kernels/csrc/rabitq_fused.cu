@@ -8,7 +8,7 @@
 //
 // Per query b and stream lane i (g = qs rot^T, the rotated queries, and
 // s2[i] = code_i . (rot c_cl[i]), the query-independent centroid
-// correction, come in from the wrapper and the stream):
+// correction, come in from the caller and the stream):
 //   s1 = sum_j code[i,j] g[b,j]            (ascending j, from 0)
 //   ip = ((s1 - s2) / (sqrt(d) max(nq, 1e-12))) / f_o,  nq = ||q_b - c_cl[i]||
 //   err = eps0 sqrt((1 - f_o^2) / (f_o^2 (d - 1)))
@@ -66,6 +66,30 @@ __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 __device__ __forceinline__ float bound_dist(float base, float scale,
                                             float t) {
   return __fsqrt_rn(clamp0(__fsub_rn(base, __fmul_rn(scale, t))));
+}
+
+// The lane's error bound eps0 sqrt((1 - f_o^2) / (f_o^2 (d - 1))), dm1 =
+// d - 1: numerics.lane_err's operations in its order.
+__device__ __forceinline__ float lane_err(float fo, float eps0, float dm1) {
+  const float ff = __fmul_rn(fo, fo);
+  return __fmul_rn(eps0, __fsqrt_rn(__fdiv_rn(__fsub_rn(1.f, ff),
+                                              __fmul_rn(ff, dm1))));
+}
+
+// What numerics.rabitq_bounds forms of one (query, lane) pair before its
+// three bound_dist calls, in its order: the estimated inner product ip,
+// scale = (2 nq) norm_o and base = nq^2 + norm_o^2.
+struct BoundTerms {
+  float ip, scale, base;
+};
+
+__device__ __forceinline__ BoundTerms bound_terms(float s1, float s2v,
+                                                  float nqv, float no,
+                                                  float fo, float sqrt_d) {
+  const float den = __fmul_rn(fmaxf(nqv, 1e-12f), sqrt_d);
+  return {__fdiv_rn(__fdiv_rn(__fsub_rn(s1, s2v), den), fo),
+          __fmul_rn(__fmul_rn(2.f, nqv), no),
+          __fadd_rn(__fmul_rn(nqv, nqv), __fmul_rn(no, no))};
 }
 
 template <int BQ>
@@ -161,9 +185,7 @@ rabitq_fused_kernel(const int8_t* __restrict__ codes,
       no = __ldg(norm_o + lane);
       fo = __ldg(f_o + lane);
       c = __ldg(cl + lane);
-      const float ff = __fmul_rn(fo, fo);
-      err = __fmul_rn(eps0, __fsqrt_rn(__fdiv_rn(__fsub_rn(1.f, ff),
-                                                  __fmul_rn(ff, dm1))));
+      err = lane_err(fo, eps0, dm1);
     }
     bool cert[BQ];
     bool any_c = false;
@@ -176,13 +198,10 @@ rabitq_fused_kernel(const int8_t* __restrict__ codes,
       int bl = m, bu = m;
       if (v[j]) {
         const float nqv = __ldg(nq + static_cast<size_t>(q0 + j) * C + c);
-        const float den = __fmul_rn(fmaxf(nqv, 1e-12f), sqrt_d);
-        const float ip = __fdiv_rn(__fdiv_rn(__fsub_rn(s1[j], s2v), den), fo);
-        const float scale = __fmul_rn(__fmul_rn(2.f, nqv), no);
-        const float base = __fadd_rn(__fmul_rn(nqv, nqv), __fmul_rn(no, no));
-        e = bound_dist(base, scale, ip);
-        l = bound_dist(base, scale, __fadd_rn(ip, err));
-        u = bound_dist(base, scale, __fsub_rn(ip, err));
+        const BoundTerms bt = bound_terms(s1[j], s2v, nqv, no, fo, sqrt_d);
+        e = bound_dist(bt.base, bt.scale, bt.ip);
+        l = bound_dist(bt.base, bt.scale, __fadd_rn(bt.ip, err));
+        u = bound_dist(bt.base, bt.scale, __fsub_rn(bt.ip, err));
         const float dm = par_s[2 * j], dl = par_s[2 * j + 1];
         bl = bbc::bucket_of(l, dm, dl, ew_s + j * n_ew, n_ew, m);
         bu = bbc::bucket_of(u, dm, dl, ew_s + j * n_ew, n_ew, m);
@@ -242,6 +261,119 @@ int launch(const Args& a, int n, int d, int B, int C, int n_ew, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The codebook sample's upper bounds: each query's ub over the lanes of its
+// nearest probed clusters, each padded to cap lanes, before the scan runs.
+//
+// Replaces no TPU kernel: the JAX package computes the sample with XLA ops
+// (src/repro/index/search.py _rabitq_sample_ub, a lax.map over queries),
+// and the port did the same until this kernel, about a hundred launches a
+// call (kernels/ref.py rabitq_sample_ub_batch is that composition, the
+// plain version).  Query b's sample lane j = t cap + l is lane l of
+// cluster clusters[b, t]: inside the cluster (ok) when l < its size, at
+// stream position offsets[cluster] + l, as ivf.tile_positions places it.
+// s1 = code . g[b] is added in numerics.ordered_sum's pairwise order (the
+// first half plus the second, elementwise, until one column is left, an
+// odd column riding along), every product and add one __f*_rn rounding;
+// the ub is numerics.rabitq_bounds' with the scan's device functions
+// above.  So ub equals the plain version's bitwise at every d.  Lanes off
+// the sample are +inf and read nothing.
+//
+// What bounds it on an H100.  Bytes: each sampled lane's d bytes of codes
+// and 16 bytes of factors (clusters shared by queries read again, mostly
+// from L2), and the (B, w) ub and ok written; at B = 32, w = 16,384,
+// d = 128 ~78 MB at most, ~0.02 ms.  The composition it replaces builds a
+// (B, w, d) fp32 block of 64 MB a chunk and halves it in seven launches.
+//
+// What the design does about it.  A block serves one query (blockIdx.y)
+// and stages its rotated query in shared memory once; each thread takes
+// one lane at a time, with a stride of gridDim.x threads.  The thread
+// forms the first halving round while it reads the code row (columns i and
+// i + d/2 together, 16-byte words where d is a multiple of 32 and the
+// codes start on a 16-byte boundary) into its own shared row of ceil(d/2)
+// floats, then halves the row in place.  A row's odd stride puts a warp's
+// 32 rows in 32 banks, and g is read as broadcasts.
+template <bool kVec>
+__global__ void __launch_bounds__(bbc::kThreads)
+rabitq_sample_ub_kernel(const int8_t* __restrict__ codes,
+                        const float* __restrict__ s2,
+                        const float* __restrict__ norm_o,
+                        const float* __restrict__ f_o,
+                        const int* __restrict__ cl,
+                        const int64_t* __restrict__ offsets,
+                        const int64_t* __restrict__ clusters, int ld,
+                        const float* __restrict__ g,
+                        const float* __restrict__ nq,
+                        float* __restrict__ ub, uint8_t* __restrict__ ok,
+                        int d, int C, int cap, int w, int stride,
+                        float sqrt_d, float eps0, float dm1) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  float* g_s = smem;                                     // d
+  float* s = g_s + d + threadIdx.x * stride;             // this thread's row
+  bbc::stage_rows(g_s, g, b, 1, d);
+  __syncthreads();
+  const int64_t* cls = clusters + static_cast<size_t>(b) * ld;
+  const float* nq_b = nq + static_cast<size_t>(b) * C;
+  const size_t row0 = static_cast<size_t>(b) * w;
+  const int h0 = d >> 1;
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < w;
+       j += gridDim.x * blockDim.x) {
+    const int t = j / cap;
+    const int l = j - t * cap;
+    const int64_t c = __ldg(cls + t);
+    const int64_t off = __ldg(offsets + c);
+    const bool in = l < __ldg(offsets + c + 1) - off;
+    float u = INFINITY;
+    if (in) {
+      const int64_t pos = off + l;
+      const int8_t* crow = codes + pos * d;
+      // the first round: s[i] = p[i] + p[i + h0], p[i] = code[i] g[i]
+      if constexpr (kVec) {
+        const int4* c16 = reinterpret_cast<const int4*>(crow);
+        const int hw = h0 / 16;
+        for (int q = 0; q < hw; ++q) {
+          const int4 lo = __ldg(c16 + q);
+          const int4 hi = __ldg(c16 + q + hw);
+          const int8_t* a = reinterpret_cast<const int8_t*>(&lo);
+          const int8_t* z = reinterpret_cast<const int8_t*>(&hi);
+#pragma unroll
+          for (int v = 0; v < 16; ++v) {
+            const int i = 16 * q + v;
+            s[i] = __fadd_rn(__fmul_rn(static_cast<float>(a[v]), g_s[i]),
+                             __fmul_rn(static_cast<float>(z[v]),
+                                       g_s[i + h0]));
+          }
+        }
+      } else {
+        for (int i = 0; i < h0; ++i)
+          s[i] = __fadd_rn(
+              __fmul_rn(static_cast<float>(__ldg(crow + i)), g_s[i]),
+              __fmul_rn(static_cast<float>(__ldg(crow + i + h0)),
+                        g_s[i + h0]));
+        if (d & 1)
+          s[h0] = __fmul_rn(static_cast<float>(__ldg(crow + 2 * h0)),
+                            g_s[2 * h0]);
+      }
+      // the later rounds, in place; an odd column moves down to s[h]
+      for (int len = h0 + (d & 1); len > 1;) {
+        const int h = len >> 1;
+        for (int i = 0; i < h; ++i) s[i] = __fadd_rn(s[i], s[i + h]);
+        if (len & 1) s[h] = s[2 * h];
+        len = h + (len & 1);
+      }
+      const float fo = __ldg(f_o + pos);
+      const BoundTerms bt = bound_terms(s[0], __ldg(s2 + pos),
+                                        __ldg(nq_b + __ldg(cl + pos)),
+                                        __ldg(norm_o + pos), fo, sqrt_d);
+      u = bound_dist(bt.base, bt.scale,
+                     __fsub_rn(bt.ip, lane_err(fo, eps0, dm1)));
+    }
+    ub[row0 + j] = u;
+    ok[row0 + j] = in;
+  }
+}
+
 }  // namespace
 
 // Shared-memory bytes one block needs for a chunk of bq queries.
@@ -275,4 +407,35 @@ extern "C" int fused_rabitq_scan_batch_launch(
                              smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The sample's upper bounds over (B, t*cap) lanes: `threads` lanes a block
+// (32 to 256, a multiple of 32), `grid_x` blocks a query, `stride` floats
+// a thread's shared row (odd, at least ceil(d/2)) and `smem` bytes of
+// shared memory (at least the rotated query and the rows); `vec` takes
+// 16-byte code words (d a multiple of 32, 16-byte aligned codes).  Anything
+// else is refused.
+extern "C" int rabitq_sample_ub_launch(
+    const int8_t* codes, const float* s2, const float* norm_o,
+    const float* f_o, const int* cl, const int64_t* offsets,
+    const int64_t* clusters, int ld, const float* g, const float* nq,
+    float* ub, uint8_t* ok, int d, int B, int C, int t, int cap, int vec,
+    int threads, int grid_x, int stride, int smem, float sqrt_d, float eps0,
+    float dm1, cudaStream_t stream) {
+  const long long rows = 4LL * (d + static_cast<long long>(threads) * stride);
+  if (d < 1 || B < 1 || B > 65535 || C < 1 || t < 1 || cap < 1
+      || static_cast<long long>(t) * cap >= (1LL << 31) || grid_x < 1
+      || threads < 32 || threads > bbc::kThreads || threads % 32 != 0
+      || stride < (d + 1) / 2 || stride % 2 == 0 || smem < rows
+      || (vec && (d % 32 != 0
+                  || reinterpret_cast<uintptr_t>(codes) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = vec ? rabitq_sample_ub_kernel<true>
+                    : rabitq_sample_ub_kernel<false>;
+  cudaError_t err = bbc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(grid_x, B), threads, smem, stream>>>(
+      codes, s2, norm_o, f_o, cl, offsets, clusters, ld, g, nq, ub, ok, d, C,
+      cap, t * cap, stride, sqrt_d, eps0, dm1);
+  return static_cast<int>(cudaGetLastError());
 }

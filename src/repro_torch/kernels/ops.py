@@ -20,9 +20,9 @@ signatures; the first three launch their batched kernel at B = 1, and
 ``chip_smoke.py`` zeroes it before a run and reads it after.  A launch of
 the PQ, l2, bucket or fused kernel at B = 1 counts under its single-query
 key, whichever wrapper made it; B > 1 under the ``*_batch`` key.  The
-codebook sample's ADC and the second pass's gather have no single-query
-form and count under ``pq_sample_adc_batch`` and ``l2_gather_rows_batch``
-at every B.
+codebook sample's ADC, its RaBitQ upper bounds and the second pass's
+gather have no single-query form and count under ``pq_sample_adc_batch``,
+``rabitq_sample_ub_batch`` and ``l2_gather_rows_batch`` at every B.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -33,10 +33,11 @@ The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
 over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
 persistent grid over chunks, the RaBitQ estimator's (``_est_lanes``) the
 lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
-query and whether a query's LUT is staged, the second pass's gather's
-(``_gather_plan``) its lanes a row, load width and shared memory.  The CPU
-tests check the plans;
-the kernels refuse a shared-memory size below their layout's.
+query and whether a query's LUT is staged, the sample's RaBitQ bounds'
+(``_sample_ub_plan``) its threads a block and shared rows, the second
+pass's gather's (``_gather_plan``) its lanes a row, load width and shared
+memory.  The CPU tests check the plans; the kernels refuse a shared-memory
+size below their layout's.
 """
 from __future__ import annotations
 
@@ -47,7 +48,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -56,7 +56,7 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "shard_collect_batch": 0, "spec_compact_batch": 0,
             "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
             "bucket_hist": 0, "pq_sample_adc_batch": 0,
-            "l2_gather_rows_batch": 0}
+            "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -75,6 +75,9 @@ ADC_BLOCKS_PER_SM = 2
 # pq_adc.cu's sample kernel: the lanes of a query one block walks (four a
 # thread)
 SAMPLE_LANES = 4 * LANE_TILE
+# rabitq_fused.cu's sample kernel: the shared memory a block may take, so
+# that three blocks share an SM
+SAMPLE_UB_SMEM = SMEM_PER_SM // 3 - 1024
 # l2_rerank.cu's gather kernel: the slots of one query a block takes, and
 # the first round's pairs a lane loads at once (4-byte words, 16-byte)
 GATHER_TILE = 1024
@@ -118,7 +121,9 @@ _SIGNATURES = {
     "rabitq_fused": {
         "fused_rabitq_scan_batch_launch":
             [_P] * 24 + [_I] * 6 + [_F] * 3 + [_I] * 3 + [_P],
-        "rabitq_fused_smem_bytes": [_I] * 4},
+        "rabitq_fused_smem_bytes": [_I] * 4,
+        "rabitq_sample_ub_launch":
+            [_P] * 7 + [_I] + [_P] * 4 + [_I] * 10 + [_F] * 3 + [_P]},
     "shard_collect": {
         "shard_collect_batch_launch": [_P] * 13 + [_I] * 10 + [_P],
         "spec_compact_batch_launch": [_P] * 8 + [_I] * 7 + [_P],
@@ -660,8 +665,8 @@ def _fused_scan_one(codes: torch.Tensor, vectors: torch.Tensor,
 def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
                             s2: torch.Tensor, norm_o: torch.Tensor,
                             f_o: torch.Tensor, cl: torch.Tensor,
-                            rot: torch.Tensor, qs: torch.Tensor,
-                            d2: torch.Tensor, valid: torch.Tensor,
+                            g: torch.Tensor, qs: torch.Tensor,
+                            nq: torch.Tensor, valid: torch.Tensor,
                             d_min: torch.Tensor, delta: torch.Tensor,
                             ew_maps: torch.Tensor, m: int,
                             tau_inline: torch.Tensor, eps0: float = 3.0):
@@ -670,19 +675,23 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     ``codes`` (n, d) int8 +-1, ``vectors`` (n, d), ``s2`` (n,) (the
     query-independent centroid correction, ``RabitqStream.s2``),
     ``norm_o``/``f_o`` (n,) and ``cl`` (n,) int32 (each lane's clamped
-    owning cluster) are the stream every query shares; ``qs`` (B, d), the
-    (B, C) squared routing distances ``d2``, ``valid`` (B, n), the codebook
-    parameters and ``tau_inline`` (B,) are per query.  The JAX wrapper's
-    signature with ``centroids`` replaced by the build-time ``s2``.
+    owning cluster) are the stream every query shares; the rotated queries
+    ``g`` (B, d) (``numerics.rotate(qs, rot)``), ``qs`` (B, d), the (B, C)
+    query-centroid distances ``nq`` (``numerics.sqrt_rn(d2)``), ``valid``
+    (B, n), the codebook parameters and ``tau_inline`` (B,) are per query.
+    The JAX wrapper's signature with ``centroids`` replaced by the
+    build-time ``s2``, and the rotation and the routing distances by ``g``
+    and ``nq``, which the caller computes once for the codebook sample
+    too.
     Returns ``(est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
     certified, nmiss)``; see ``kernels.ref.fused_rabitq_scan_batch``."""
-    if not _on_cuda(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2, valid,
+    if not _on_cuda(codes, vectors, s2, norm_o, f_o, cl, g, qs, nq, valid,
                     d_min, delta, ew_maps, tau_inline):
         return _ref.fused_rabitq_scan_batch(
-            codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2, valid, d_min,
+            codes, vectors, s2, norm_o, f_o, cl, g, qs, nq, valid, d_min,
             delta, ew_maps, m, tau_inline, eps0=eps0)
     n, d = codes.shape
-    b, c = d2.shape
+    b, c = nq.shape
     n_ew = ew_maps.shape[1]
     _need(codes, "codes", torch.int8, (n, d))
     _need(vectors, "vectors", torch.float32, (n, d))
@@ -692,8 +701,8 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     _need(qs, "qs", torch.float32, (b, d))
     _need(valid, "valid", torch.bool, (b, n))
     _need(s2, "s2", torch.float32, (n,))
-    g = numerics.rotate(qs, rot)
-    nq = _need(numerics.sqrt_rn(d2).contiguous(), "d2", torch.float32, (b, c))
+    _need(g, "g", torch.float32, (b, d))
+    _need(nq, "nq", torch.float32, (b, c))
     d_min = _params(d_min, torch.float32)
     delta = _params(delta, torch.float32)
     ew_maps = _params(ew_maps, torch.int32)
@@ -727,6 +736,86 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     _check(rc, "fused_rabitq_scan_batch")
     LAUNCHES["fused_rabitq_scan_batch"] += 1
     return outs
+
+
+class SampleUbPlan(NamedTuple):
+    """One launch of the codebook sample's RaBitQ upper bounds."""
+    threads: int         # lanes a block, one a thread
+    grid_x: int          # blocks a query
+    stride: int          # floats of one thread's shared row (odd)
+    smem: int            # the rotated query and the rows, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def _sample_ub_plan(w: int, d: int) -> SampleUbPlan:
+    """The sample bounds' launch over w lanes a query at width d: each
+    thread keeps the ceil(d/2) sums of ``ordered_sum``'s first round in a
+    shared row of odd stride (a warp's 32 rows then fall in 32 banks), the
+    most threads (256 down to 32) whose rows fit ``SAMPLE_UB_SMEM``, 32
+    beyond it.  Raises when 32 rows exceed a block's shared memory."""
+    stride = (d + 1) // 2 | 1
+    threads = 256
+    while threads > 32 and 4 * (d + threads * stride) > SAMPLE_UB_SMEM:
+        threads //= 2
+    smem = 4 * (d + threads * stride)
+    if smem > MAX_SMEM:
+        raise ValueError(f"rabitq_sample_ub_batch: d={d} needs {smem} bytes "
+                         f"of shared memory, more than the {MAX_SMEM} a "
+                         f"block may use")
+    return SampleUbPlan(threads, max(1, -(-w // threads)), stride, smem)
+
+
+def rabitq_sample_ub_batch(codes: torch.Tensor, s2: torch.Tensor,
+                           norm_o: torch.Tensor, f_o: torch.Tensor,
+                           cl: torch.Tensor, offsets: torch.Tensor,
+                           clusters: torch.Tensor, cap: int,
+                           g: torch.Tensor, nq: torch.Tensor,
+                           eps0: float = 3.0):
+    """The codebook sample's RaBitQ upper bounds over each query's sampled
+    clusters: the stream's ``codes`` (n, d) int8 +-1, ``s2``, ``norm_o``,
+    ``f_o`` (n,), ``cl`` (n,) int32 and cluster starts ``offsets`` (C + 1,)
+    int64; ``clusters`` (B, t) int64 (a column slice of the probe list will
+    do), ``cap`` lanes a cluster, the rotated queries ``g`` (B, d) and the
+    query-centroid distances ``nq`` (B, C).  Returns ``(ub (B, t*cap), ok
+    (B, t*cap))``, ub +inf off ``ok``; see
+    ``kernels.ref.rabitq_sample_ub_batch``.  One launch at any d."""
+    if not _on_cuda(codes, s2, norm_o, f_o, cl, offsets, clusters, g, nq):
+        return _ref.rabitq_sample_ub_batch(codes, s2, norm_o, f_o, cl,
+                                           offsets, clusters, cap, g, nq,
+                                           eps0=eps0)
+    n, d = codes.shape
+    b, t = clusters.shape
+    c = nq.shape[1]
+    w = t * cap
+    _need(codes, "codes", torch.int8, (n, d))
+    for name, x in (("s2", s2), ("norm_o", norm_o), ("f_o", f_o)):
+        _need(x, name, torch.float32, (n,))
+    _need(cl, "cl", torch.int32, (n,))
+    _need(offsets, "offsets", torch.int64, (c + 1,))
+    _need(g, "g", torch.float32, (b, d))
+    _need(nq, "nq", torch.float32, (b, c))
+    if clusters.dtype != torch.int64 or (t > 1 and clusters.stride(1) != 1):
+        raise ValueError(f"clusters: the CUDA kernel takes int64 rows of "
+                         f"unit stride, got {clusters.dtype} strides "
+                         f"{clusters.stride()}")
+    if b > 65535 or w >= 2 ** 31:
+        raise ValueError(f"rabitq_sample_ub_batch: {b} queries of {w} lanes, "
+                         f"past the kernel's grid (65535 queries, 2^31 lanes)")
+    ub = torch.empty(b, w, dtype=torch.float32, device=codes.device)
+    ok = torch.empty(b, w, dtype=torch.bool, device=codes.device)
+    if b == 0 or w == 0:
+        return ub, ok
+    p = _sample_ub_plan(w, d)
+    vec = d % 32 == 0 and _aligned(codes)     # 16-byte code words
+    rc = _lib("rabitq_fused").rabitq_sample_ub_launch(
+        codes.data_ptr(), s2.data_ptr(), norm_o.data_ptr(), f_o.data_ptr(),
+        cl.data_ptr(), offsets.data_ptr(), clusters.data_ptr(),
+        clusters.stride(0), g.data_ptr(), nq.data_ptr(), ub.data_ptr(),
+        ok.data_ptr(), d, b, c, t, cap, vec, p.threads, p.grid_x, p.stride,
+        p.smem, math.sqrt(d), eps0, float(d - 1), _stream())
+    _check(rc, "rabitq_sample_ub_batch")
+    LAUNCHES["rabitq_sample_ub_batch"] += 1
+    return ub, ok
 
 
 class CollectPlan(NamedTuple):

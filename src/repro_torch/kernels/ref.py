@@ -128,10 +128,11 @@ def fused_scan_batch(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
     return est, bucket, hist, early, nmiss
 
 
-def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2,
+def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, g, qs, nq,
                             valid, d_min, delta, ew_maps, m: int, tau_inline,
                             eps0: float = 3.0):
-    """Plain version of the bound-fused RaBitQ scan.
+    """Plain version of the bound-fused RaBitQ scan; ``g`` (B, d) are the
+    rotated queries and ``nq`` (B, C) the query-centroid distances.
 
     Returns ``(est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
     certified, nmiss)``: (B, n) lanes, (B, m+1) histograms over the valid
@@ -139,7 +140,7 @@ def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2,
     the exact distance on certified lanes (valid, lower-bound bucket at or
     below ``tau_inline``) and +inf elsewhere."""
     est, lb, ub = numerics.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl,
-                                                rot, qs, d2, valid, eps0)
+                                                g, nq, valid, eps0)
     bucket_lb = bucketize_batch(lb, d_min, delta, ew_maps, m)
     bucket_ub = bucketize_batch(ub, d_min, delta, ew_maps, m)
     hist_lb = histogram_batch(bucket_lb, valid, m)
@@ -149,6 +150,38 @@ def fused_rabitq_scan_batch(codes, vectors, s2, norm_o, f_o, cl, rot, qs, d2,
     nmiss = torch.sum(valid & ~certified, dim=1).to(torch.int32)
     return (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
             certified, nmiss)
+
+
+def rabitq_sample_ub_batch(codes, s2, norm_o, f_o, cl, offsets, clusters,
+                           cap: int, g, nq, eps0: float = 3.0):
+    """Plain version of the codebook sample's RaBitQ upper bounds.
+
+    ``codes`` (n, d) int8 +-1, ``s2``, ``norm_o``, ``f_o`` (n,) and ``cl``
+    (n,) int32 are the shared stream; ``offsets`` (C + 1,) its cluster
+    starts; ``clusters`` (B, t) each query's sampled clusters, each padded
+    to ``cap`` lanes (``ivf.tile_positions``' lanes); ``g`` (B, d) the
+    rotated queries and ``nq`` (B, C) the query-centroid distances.
+    Returns ``(ub (B, t*cap), ok (B, t*cap))``: the upper bound of each
+    sampled lane, +inf off ``ok``, the lanes inside their cluster.  One
+    gather of the sampled code rows in query chunks of at most
+    ``numerics.CHUNK`` products, summed by ``numerics.ordered_sum``."""
+    offs = offsets[clusters]
+    sizes = offsets[clusters + 1] - offs
+    lane = torch.arange(cap, device=clusters.device)
+    ok = lane < sizes[..., None]
+    b = clusters.shape[0]
+    pos = torch.where(ok, offs[..., None] + lane, 0).reshape(b, -1)
+    ok = ok.reshape(b, -1)
+    w, d = pos.shape[1], codes.shape[1]
+    s1 = torch.empty(b, w, dtype=torch.float32, device=g.device)
+    step = max(1, numerics.CHUNK // max(w * d, 1))
+    for i in range(0, b, step):
+        c = codes[pos[i:i + step]].to(torch.float32)
+        s1[i:i + step] = numerics.ordered_sum(c * g[i:i + step, None, :])
+    nq_l = torch.gather(nq, 1, cl.long()[pos])
+    _, _, ub = numerics.rabitq_bounds(s1, s2[pos], nq_l, norm_o[pos],
+                                      f_o[pos], d, eps0)
+    return torch.where(ok, ub, INF), ok
 
 
 def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,

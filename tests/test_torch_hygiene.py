@@ -175,8 +175,8 @@ def test_build_dir_is_gitignored():
 def test_launch_counters_cover_the_four_kernels():
     """One counter per TPU kernel of the repository: the seven batched
     kernels, the RaBitQ estimator and the four single-query forms; and one
-    each for the codebook sample's ADC and the second pass's gather, which
-    no TPU kernel computes."""
+    each for the codebook sample's ADC, its RaBitQ upper bounds and the
+    second pass's gather, which no TPU kernel computes."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
@@ -184,7 +184,8 @@ def test_launch_counters_cover_the_four_kernels():
                                  "rabitq_est", "fused_scan", "pq_adc",
                                  "l2_exact", "bucket_hist",
                                  "pq_sample_adc_batch",
-                                 "l2_gather_rows_batch"}
+                                 "l2_gather_rows_batch",
+                                 "rabitq_sample_ub_batch"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
                                    "shard_collect", "rabitq_est"}

@@ -193,10 +193,12 @@ def test_exact_dist_is_the_ascending_fp32_sum(d):
 def _scan_args(jindex, tindex, scan, tau):
     ti, _ = tindex
     ts, cbs = scan["tstream"], scan["cbs"]
+    qs = _t(scan["qs"])
     return (ts.codes, ts.vectors, ts.s2, ts.norm_o, ts.f_o, ts.cl,
-            ti.rq.rot, _t(scan["qs"]), _t(scan["d2"]),
-            _t(scan["lane_valid"]), _t(cbs.d_min), _t(cbs.delta),
-            _t(cbs.ew_map), M, _t(tau, torch.int32))
+            numerics.rotate(qs, ti.rq.rot), qs,
+            numerics.sqrt_rn(_t(scan["d2"])), _t(scan["lane_valid"]),
+            _t(cbs.d_min), _t(cbs.delta), _t(cbs.ew_map), M,
+            _t(tau, torch.int32))
 
 
 @pytest.mark.parametrize("gate", ["static", "cold", "all"])
@@ -312,8 +314,9 @@ def test_port_build_bounds_hold(corpus):
     q = torch.from_numpy(qs)
     _, lane_valid, d2 = search._routing(ti.ivf, tl, q, N_PROBE)
     _, lb, ub = numerics.rabitq_bounds_stream(
-        ts.codes, ts.s2, ts.norm_o, ts.f_o, ts.cl, ti.rq.rot, q, d2,
-        lane_valid, EPS0)
+        ts.codes, ts.s2, ts.norm_o, ts.f_o, ts.cl,
+        numerics.rotate(q, ti.rq.rot), numerics.sqrt_rn(d2), lane_valid,
+        EPS0)
     exact = ref.l2_exact_batch(ts.vectors, q)
     tol = 1e-4
     ok = (lb <= exact + tol) & (exact <= ub + tol)
@@ -368,11 +371,12 @@ def test_cuda_kernel_matches_plain_version():
     diff = cent[None] - qs[:, None]
     d2 = numerics.ordered_sum(diff * diff)
     s2 = numerics.rabitq_s2(codes, numerics.rotate(cent, rot), cl)
-    _, _, ub = numerics.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl,
-                                             rot, qs, d2, valid, EPS0)
+    g, nq = numerics.rotate(qs, rot), numerics.sqrt_rn(d2)
+    _, _, ub = numerics.rabitq_bounds_stream(codes, s2, norm_o, f_o, cl, g,
+                                             nq, valid, EPS0)
     cb = rb.build_codebook(ub, k=300, m=m)
     tau = torch.tensor([-1, m // 2, m - 1], dtype=torch.int32)
-    args = [codes, vecs, s2, norm_o, f_o, cl, rot, qs, d2, valid,
+    args = [codes, vecs, s2, norm_o, f_o, cl, g, qs, nq, valid,
             cb.d_min, cb.delta, cb.ew_map, m, tau]
     want = ref.fused_rabitq_scan_batch(*args, eps0=EPS0)
     cuda_args = [a.to(dev) if torch.is_tensor(a) else a for a in args]

@@ -492,13 +492,14 @@ def card_inputs(data, cuda):
     ub = torch.where(rlv, torch.rand(rlv.shape, device=cuda) + 1.0,
                      float("inf"))
     rcb = rb.build_codebook(ub, k=K, m=M)
+    g, nq = search._rabitq_query_terms(stream, qs, d2)
     return dict(
         pq=(codes, vecs, lv, luts, qs, cb.d_min, cb.delta, cb.ew_map, M,
             tau),
         est=est, lv=lv, cb=(cb.d_min, cb.delta, cb.ew_map), tau=tau,
         rq=(stream.codes, stream.vectors, stream.s2, stream.norm_o,
-            stream.f_o, stream.cl, trq.rq.rot, qs, d2, rlv, rcb.d_min,
-            rcb.delta, rcb.ew_map, M, tau))
+            stream.f_o, stream.cl, g, qs, nq, rlv, rcb.d_min, rcb.delta,
+            rcb.ew_map, M, tau))
 
 
 def _tombstoned_call(name, a):
