@@ -50,7 +50,12 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      card;
   6. the unfused, unfused predictive and plain IVF+PQ forms and the IVF
      forms at the JAX serving CLI's defaults (100,000 x 96, k=5000, 316
-     clusters);
+     clusters); then the fused IVF+PQ+BBC engine on a GIST-width index at
+     8-bit codes (3,000 x 960, 16 clusters, PQ 240 x 8 bits: a query's LUT
+     past a block's shared memory), built on the card: a batch of 8 and
+     three predictive singletons through ``SearchEngine.search``, id sets,
+     distances and counters equal to the CPU engine's on the same index,
+     every scan the chunked-LUT kernel's;
   7. each kernel's time at its path's full-width shapes beside its bound,
      its plain version's and (where one exists) one PyTorch call's (the
      single-query kernels at phase 12's shapes, and they, the batched
@@ -62,7 +67,9 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      ADC at phase 4's sample, first held bitwise to its plain version on
      the same card tensors; the second pass's gather at phase 4's second
      pass and at the GIST1M-width cell's shapes, B=32 x 40,000 slots, 88%
-     set, d=960, held bitwise the same way); for #2 and #3 also
+     set, d=960, held bitwise the same way; the fused scan's chunked-LUT
+     kernel at the GIST1M-width 8-bit cell's shapes, B=32 x 1M lanes, M =
+     240 one-byte codes, d=960, held bitwise the same way); for #2 and #3 also
      the ceiling their numerics leave (shared memory, instruction issue)
      and the one-thread-per-row kernels' times they replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
@@ -255,6 +262,9 @@ KERNELS = {
     # no TPU kernel: the JAX package maps the RaBitQ sample's bounds in XLA
     "rabitq_sample_ub_batch": ("src/repro_torch/kernels/csrc/rabitq_fused.cu",
                                "src/repro/index/search.py:914"),
+    # #1 where one query's LUT outgrows a block (8-bit codes at wide d)
+    "fused_scan_chunked_batch": ("src/repro_torch/kernels/csrc/fused_scan.cu",
+                                 "src/repro/kernels/fused_scan.py:284"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -1654,6 +1664,68 @@ def other_forms(summary: dict, card: str) -> dict:
     summary["other_forms_100k"] = out
     log(f"[forms] {json.dumps(out)}")
     return launches, engs["ivf_bbc"], x, qs
+
+
+def pq8_path(summary: dict, card: str) -> dict:
+    """Phase 6's 8-bit GIST-width index (3,000 x 960, 16 clusters, PQ 240 x
+    8 bits: a query's (240, 256) LUT outgrows a block's shared memory),
+    built on the card, and the fused IVF+PQ+BBC engine over it on the card
+    and on the CPU: a batch of 8 and three predictive singletons (the
+    batched searcher at one query) through ``SearchEngine.search``.  Id
+    sets, sorted distances (1e-4) and both counters equal the CPU engine's;
+    the launches of the card's searches are counted, and every scan among
+    them is the chunked-LUT kernel's."""
+    import torch
+    from repro_torch.index import engine, search
+    from repro_torch.kernels import ops
+    x, qs = corpus(3000, 960, 11, seed=SEED + 9)
+    index = search.build_pq_index(x, 16, n_bits=8, n_iter=4, seed=SEED,
+                                  device="cuda")
+    check(tuple(index.codes.shape) == (3000, 240)
+          and index.pq.centroids.shape[1] == 256,
+          f"pq8: codes {tuple(index.codes.shape)}, centroids "
+          f"{tuple(index.pq.centroids.shape)}")
+    engs = [engine.SearchEngine.build(ix, k=50, n_probe=8, fused=True,
+                                      device=dev)
+            for ix, dev in ((index, "cuda"),
+                            (search.index_to(index, "cpu"), "cpu"))]
+    states = [e.predictor_init() for e in engs]
+    runs = [[], []]
+    for i, e in enumerate(engs):
+        if i == 0:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+        runs[i].append(e.search(qs[:8].to(e.device)))
+        for q in qs[8:11]:
+            r, states[i] = e.search(q.to(e.device), pred_state=states[i])
+            runs[i].append(r)
+        if i == 0:
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+    for j, (g, c) in enumerate(zip(*runs)):
+        gi, ci = g.ids.reshape(-1, 50).cpu(), c.ids.reshape(-1, 50)
+        for row in range(gi.shape[0]):
+            check(set(gi[row].tolist()) == set(ci[row].tolist()),
+                  f"pq8 search {j} query {row}: id sets differ")
+        gd = torch.sort(g.dists.reshape(-1, 50).cpu(), 1).values
+        cd = torch.sort(c.dists.reshape(-1, 50), 1).values
+        check(torch.allclose(gd, cd, rtol=1e-4, atol=1e-4),
+              f"pq8 search {j} dists: max abs diff "
+              f"{(gd - cd).abs().max().item()}")
+        for field in ("n_reranked", "n_second_pass"):
+            check(torch.equal(getattr(g, field).cpu().reshape(-1),
+                              getattr(c, field).reshape(-1)),
+                  f"pq8 search {j} {field} differs")
+    check(launches["fused_scan_chunked_batch"] == 4,
+          f"pq8: {launches['fused_scan_chunked_batch']} chunked-LUT scans "
+          f"for 4 searches")
+    check(launches["fused_scan_batch"] == launches["fused_scan"] == 0,
+          "pq8: a whole-LUT scan ran on the 8-bit index")
+    out = {"ids_equal": True, "counters_equal": True, "card": card,
+           "launches": {k: v for k, v in launches.items() if v}}
+    summary["pq8_d960_3k"] = out
+    log(f"[pq8] {json.dumps(out)}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -3864,6 +3936,87 @@ def timing_gather(args, errs: dict, key: str, where: str) -> dict:
     return {key: t}
 
 
+def d960_pq8_scan_args(b=32, n=1_000_064, d=960, m_sub=240, k_codes=256,
+                       run=976, pred=12_500):
+    """The GIST1M-width 8-bit cell's scan in shape: B=32 queries over the
+    1M-lane stream, 240 one-byte codes a lane (K = 256), d=960; each query
+    probes runs of ``run`` lanes (clusters) at 1 in 16, and its threshold
+    predicts about ``pred`` lanes (the searcher's pred_count at k=5000)."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    codes = torch.randint(0, k_codes, (n, m_sub), generator=g, device=DEV,
+                          dtype=torch.uint8)
+    vectors = torch.randn(n, d, generator=g, device=DEV)
+    runs = torch.rand(b, -(-n // run), generator=g, device=DEV) < 0.0625
+    valid = runs.repeat_interleave(run, dim=1)[:, :n].contiguous()
+    luts = torch.rand(b, m_sub, k_codes, generator=g, device=DEV) * 2
+    qs = torch.randn(b, d, generator=g, device=DEV)
+    est = torch.where(valid, torch.sqrt(ref.pq_adc_batch(codes, luts)),
+                      float("inf"))
+    cb = rb.build_codebook(est, k=40_000, m=128)
+    _, hist = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
+                                    cb.ew_map, 128)
+    tau = (torch.cumsum(hist, 1) < pred).sum(1).to(torch.int32)
+    return dict(codes=codes, vectors=vectors, valid=valid, luts=luts, qs=qs,
+                d_min=cb.d_min, delta=cb.delta, ew_maps=cb.ew_map, m=128,
+                tau_pred=tau)
+
+
+def timing_chunked(a, errs: dict) -> dict:
+    """The chunked-LUT scan at the 8-bit d960 cell's shapes: the plan takes
+    it, one launch a call, bitwise its plain version on the same card
+    tensors; then the wrapper and the kernel alone timed beside the bound
+    (``timing``'s arithmetic at one byte a code) and the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, n = a["valid"].shape
+    m_sub, d = a["codes"].shape[1], a["vectors"].shape[1]
+    k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
+    args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
+            a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
+    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0))
+    check(p.chunked, f"the plan at B={b}, M={m_sub}, K={k_codes}, d={d} is "
+          f"not the chunked kernel: {p}")
+    before = ops.LAUNCHES["fused_scan_chunked_batch"]
+    got = ops.fused_scan_batch(*args)
+    check(ops.LAUNCHES["fused_scan_chunked_batch"] == before + 1,
+          "fused_scan_chunked_batch: not one launch a call")
+    want = ref.fused_scan_batch(*args)
+    errs["fused_scan_chunked_batch"] = max(
+        errs.get("fused_scan_chunked_batch", 0.0), max_abs(got[0], want[0]),
+        max_abs(got[3], want[3]))
+    check(all(same(x, y) for x, y in zip(got, want)),
+          f"fused_scan_chunked at the d960 8-bit shapes (B={b}, n={n}, "
+          f"M={m_sub}, K={k_codes}) not bitwise its plain version")
+    valid, pred = a["valid"], torch.isfinite(got[3])
+    lanes_probed = int(valid.any(0).sum().item())
+    rows_pred = int(pred.any(0).sum().item())
+    pairs_valid, pairs_pred = int(valid.sum().item()), int(pred.sum().item())
+    params = 4 * b * (m_sub * k_codes + d + n_ew + 3)
+    nbytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
+              + 3 * 4 * b * n + 4 * b * (m + 2) + params)
+    fn = lambda: ops.fused_scan_batch(*args)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20),
+             plain_ms=cuda_ms(lambda: ref.fused_scan_batch(*args), 3, warm=1),
+             library_ms=None,
+             work={"B": b, "n": n, "M": m_sub, "K": k_codes, "d": d,
+                   "mc": p.mc, "blocks": p.blocks, "lut_loads": p.blocks,
+                   "lanes_probed": lanes_probed, "rows_predicted": rows_pred,
+                   "pairs_valid": pairs_valid, "pairs_predicted": pairs_pred,
+                   "device_ms": device_ms(fn, "fused_scan_chunked_kernel")})
+    t["bound_ms"], t["bound_by"] = bound(
+        nbytes, pairs_valid * m_sub + 3 * d * pairs_pred)
+    log(f"[timing] fused_scan_chunked_batch at the d960 8-bit shapes (B={b}, "
+        f"n={n}, M={m_sub}, K={k_codes}, chunks of {p.mc}, {p.blocks} blocks "
+        f"a query: {p.blocks} LUT loads a query): bitwise, {t['ms']:.4f} ms, "
+        f"kernel {t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} "
+        f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms; "
+        f"{pairs_valid} probed pairs, {pairs_pred} predicted")
+    return {"fused_scan_chunked_batch": t}
+
+
 def timing_delta() -> dict:
     """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
     4096 rows of d=128): the wrapper call and the kernel alone beside the
@@ -4509,7 +4662,8 @@ def main(argv=None) -> int:
     ivf_eng = ivf_x = ivf_queries = shard_forms = None
     if 6 in phases:
         l6, ivf_eng, ivf_x, ivf_queries = other_forms(summary, card)
-        launches = {k: launches[k] + l6[k] for k in launches}
+        l6b = pq8_path(summary, card)
+        launches = {k: launches[k] + l6[k] + l6b[k] for k in launches}
     if 12 in phases:
         check(None not in (eng, rq_eng, ivf_eng), "phase 12 serves single "
               "queries on the indexes of phases 4, 9 and 6 and needs them")
@@ -4575,6 +4729,7 @@ def main(argv=None) -> int:
                                    "l2_gather_rows_batch@d960",
                                    "the d960 cell's shapes"))
         times.update(timing_delta())
+        times.update(timing_chunked(d960_pq8_scan_args(), errs))
         if rq_eng is not None:
             rq_args = rabitq_kernel_args(rq_eng, rq_queries[:32])
             times.update(timing_rabitq(rq_args, errs))

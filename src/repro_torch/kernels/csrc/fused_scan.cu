@@ -1,11 +1,15 @@
 // Fused scan: ADC estimate + Eq. 6 bucket + (B, m+1) histogram + inline
 // exact distance of the predicted lanes + miss count, in one pass over the
-// shared candidate stream.  Two kernels: the batched one (B > 1) and a
-// one-query form (B = 1), chosen by the wrapper (kernels/ops.py).
+// shared candidate stream.  Three kernels: the batched one (B > 1), a
+// one-query form (B = 1) and, where one query's LUT outgrows a block's
+// shared memory, a chunked-LUT form at any B, chosen by the wrapper
+// (kernels/ops.py).
 //
 // Replaces: src/repro/kernels/fused_scan.py::fused_scan_batch_pallas (and
-// its helper bucketize_hist_tile) with fused_scan_kernel, and
-// ::fused_scan_pallas (the one-query kernel) with fused_scan_b1_kernel.
+// its helper bucketize_hist_tile) with fused_scan_kernel and, past the
+// whole-LUT limit, fused_scan_chunked_kernel, and ::fused_scan_pallas (the
+// one-query kernel) with fused_scan_b1_kernel (past the limit, the chunked
+// kernel at one query).
 // Plain versions: kernels/ref.py fused_scan_batch and fused_scan.
 //
 // What bounds it on an H100: device-memory bytes.  Per call it reads the
@@ -80,6 +84,33 @@
 //      to wait behind the other warps' 12 MB of stores;
 //   6. the histogram and nmiss are zeroed by one memset in the launch
 //      function, with no PyTorch call between it and the kernel.
+//  Chunked-LUT kernel (any B, where one query's LUT outgrows a block: at
+//  8-bit codes, K = 256, a query's LUT is M KB, 240 KB at GIST1M's M =
+//  240).  Both kernels above stage every LUT a block uses whole, and the
+//  batched one does so in each of up to 1,024 lane-tile blocks a query
+//  chunk: at K = 256 that would be 8 GB of LUT copies a call of 32 queries.
+//  Here:
+//   1. a block takes one query and a fixed set of 1,024-lane tiles
+//      (blockIdx.y, then every gridDim.y-th), and walks them once for each
+//      chunk of mc sub-quantizers, staging only that chunk of its query's
+//      LUT: each block loads its query's LUT once, so the plan's gridDim.y
+//      is the number of loads a query.  (Tried on an H100 80GB HBM3 and
+//      dropped: two queries a block, with 80 sub-quantizers a chunk, ran
+//      3-10% slower at the 8-bit cell's shapes; four spilled registers.)
+//   2. the sum over m ascending is carried from chunk to chunk in ``est``
+//      by the lane's own thread (a valid lane's partial sum, written at the
+//      end of a chunk and read at the start of the next): the same fp32
+//      adds in the same order as the plain version's, from a -0.0 start,
+//      so the estimate, and with it bucket, histogram, tau test, early
+//      exact distance and nmiss, are bitwise the plain version's;
+//   3. the last chunk finishes the lane as the batched kernel does: bucket,
+//      histogram, threshold, the predicted row's exact sum (bbc::sq_dists)
+//      and the outputs; bucket m and the misses are counted per warp by
+//      ballot.  (Tried on an H100 80GB HBM3 and dropped: the row's sum with
+//      four 16-byte loads issued before its adds, 2.06 ms a call at the
+//      8-bit cell's shapes against 1.75.)
+//   4. 1,024 threads a block and one block an SM (a chunk takes ~130 KB):
+//      the threads hide the code, LUT and row reads' latency.
 // Integer adds commute, so bucket, hist and nmiss equal the plain version's
 // under any block schedule.
 #include "scan_common.cuh"
@@ -373,6 +404,166 @@ int launch_b1(const uint8_t* codes, const float* vectors, const uint8_t* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The chunked-LUT kernel: a query's LUT past one block's shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kCThreads = 1024;                     // lanes a tile
+
+// acc += LUT[c0 + mm, code[mm]] for mm ascending over one chunk of a code
+// row (row: the chunk's first code byte; lut_s: the query's chunk).  VEC:
+// the chunk is a whole number of 16-byte words on a 16-byte boundary.
+template <bool VEC>
+__device__ __forceinline__ float adc_chunk(const uint8_t* __restrict__ row,
+                                           int cm, int K, const float* lut_s,
+                                           float acc) {
+  if constexpr (VEC) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    for (int t = 0; t < cm / 16; ++t) {
+      const uint4 x = __ldg(r4 + t);
+      const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        acc = __fadd_rn(acc, lut_s[(16 * t + u) * K +
+                                   ((w[u >> 2] >> (8 * (u & 3))) & 0xffu)]);
+    }
+  } else {
+    for (int mm = 0; mm < cm; ++mm)
+      acc = __fadd_rn(acc, lut_s[mm * K + __ldg(row + mm)]);
+  }
+  return acc;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kCThreads, 1)
+fused_scan_chunked_kernel(const uint8_t* __restrict__ codes,
+                          const float* __restrict__ vectors,
+                          const uint8_t* __restrict__ valid,
+                          const float* __restrict__ luts,
+                          const float* __restrict__ qs,
+                          const float* __restrict__ d_min,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ ew_maps,
+                          const int* __restrict__ tau_ptr, int tau_val,
+                          float* est, int* __restrict__ bucket,
+                          float* __restrict__ early, int* __restrict__ hist,
+                          int* __restrict__ nmiss, int n, int M, int K, int d,
+                          int n_ew, int m, int mc) {
+  extern __shared__ __align__(16) float smemc[];
+  const int q = blockIdx.x;
+  const int m1 = m + 1;
+  const int wl = threadIdx.x & 31;
+  float* lut_s = smemc;                                  // mc * K
+  float* q_s = lut_s + mc * K;                           // d
+  float* par_s = q_s + d;                                // 2
+  int* ew_s = reinterpret_cast<int*>(par_s + 2);         // n_ew
+  int* hist_s = ew_s + n_ew;                             // m1
+  int* tau_s = hist_s + m1;                              // 1
+  int* miss_s = tau_s + 1;                               // 1
+  int* binf_s = miss_s + 1;                              // 1
+
+  bbc::stage_rows(q_s, qs, q, 1, d);
+  bbc::stage_rows(ew_s, ew_maps, q, 1, n_ew);
+  for (int i = threadIdx.x; i < m1; i += blockDim.x) hist_s[i] = 0;
+  if (threadIdx.x == 0) {
+    par_s[0] = d_min[q];
+    par_s[1] = delta[q];
+    tau_s[0] = tau_ptr ? tau_ptr[q] : tau_val;
+    miss_s[0] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)         // the bucket of a lane off the probe (+inf)
+    binf_s[0] = bbc::bucket_of_inf(kInf, par_s[0], par_s[1],
+                                   bbc::inf_to_m(par_s[0], par_s[1]), ew_s,
+                                   n_ew, m);
+  int cnt_m = 0, cnt_miss = 0;  // this warp's, in its lane 0
+  const size_t row0 = static_cast<size_t>(q) * n;
+
+  for (int c0 = 0; c0 < M; c0 += mc) {
+    const int cm = min(mc, M - c0);
+    const bool last = c0 + cm == M;
+    __syncthreads();                // every read of the last chunk is done
+    const float* src = luts + (static_cast<size_t>(q) * M + c0) * K;
+    const int cnt = cm * K;
+    if ((cnt & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const float4* s4 = reinterpret_cast<const float4*>(src);
+      float4* d4 = reinterpret_cast<float4*>(lut_s);
+      for (int i = threadIdx.x; i < cnt / 4; i += blockDim.x)
+        d4[i] = __ldg(s4 + i);
+    } else {
+      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+        lut_s[i] = __ldg(src + i);
+    }
+    __syncthreads();
+
+    for (int tile = blockIdx.y; tile * kCThreads < n; tile += gridDim.y) {
+      const int lane = tile * kCThreads + threadIdx.x;
+      const bool in = lane < n;
+      const bool v = in && valid[row0 + lane];
+      float acc = -0.f;
+      if (v) {
+        if (c0 > 0) acc = est[row0 + lane];   // this thread's partial sum
+        acc = adc_chunk<VEC>(codes + static_cast<size_t>(lane) * M + c0, cm,
+                             K, lut_s, acc);
+        if (!last) est[row0 + lane] = acc;
+      }
+      if (!last) continue;        // uniform across the block
+
+      float e = kInf;
+      int b = binf_s[0];
+      bool p = false;
+      if (v) {
+        e = bbc::clamp0_sqrt(acc);
+        b = bbc::bucket_of(e, par_s[0], par_s[1], ew_s, n_ew, m);
+        if (b != m) atomicAdd(&hist_s[b], 1);
+        p = b <= tau_s[0];
+      }
+      // bucket m and the misses: by ballot, with no atomic a lane
+      const unsigned bm = __ballot_sync(0xffffffffu, v && b == m);
+      const unsigned bx = __ballot_sync(0xffffffffu, v && !p);
+      if (wl == 0) {
+        cnt_m += __popc(bm);
+        cnt_miss += __popc(bx);
+      }
+      float sq[1] = {0.f};
+      if (p)
+        bbc::sq_dists<1>(vectors + static_cast<size_t>(lane) * d, q_s, d, sq);
+      if (in) {
+        est[row0 + lane] = e;
+        bucket[row0 + lane] = b;
+        early[row0 + lane] = p ? sqrtf(sq[0]) : kInf;
+      }
+    }
+  }
+  if (wl == 0) {
+    if (cnt_m) atomicAdd(&hist_s[m], cnt_m);
+    if (cnt_miss) atomicAdd(&miss_s[0], cnt_miss);
+  }
+  __syncthreads();
+  bbc::flush_hist(hist_s, hist, q, 1, m1);
+  if (threadIdx.x == 0 && miss_s[0]) atomicAdd(&nmiss[q], miss_s[0]);
+}
+
+template <bool VEC>
+int launch_chunked(const uint8_t* codes, const float* vectors,
+                   const uint8_t* valid, const float* luts, const float* qs,
+                   const float* d_min, const float* delta, const int* ew_maps,
+                   const int* tau_ptr, float* est, int* bucket, float* early,
+                   int* counts, int tau_val, int n, int M, int K, int d, int B,
+                   int n_ew, int m, int mc, int blocks, int smem,
+                   cudaStream_t stream) {
+  cudaError_t err = bbc::allow_smem(fused_scan_chunked_kernel<VEC>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counts, 0, sizeof(int) * B * (m + 2), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B, blocks);
+  fused_scan_chunked_kernel<VEC><<<grid, kCThreads, smem, stream>>>(
+      codes, vectors, valid, luts, qs, d_min, delta, ew_maps, tau_ptr,
+      tau_val, est, bucket, early, counts, counts + B * (m + 1), n, M, K, d,
+      n_ew, m, mc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared-memory bytes one block of the batched kernel needs for a chunk of
@@ -443,4 +634,31 @@ extern "C" int fused_scan_b1_launch(
 #undef FS_B1
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int fused_scan_chunked_tile() { return kCThreads; }
+
+// The chunked-LUT scan (any B, one query included): the outputs as
+// fused_scan_batch_launch's; a (B, blocks) grid of kCThreads lanes a block;
+// each block stages its query's LUT mc sub-quantizers at a time
+// (fused_scan_smem_bytes(1, mc, ...) bytes) and walks its lane tiles
+// (blockIdx.y, then every `blocks`-th) once a chunk.  tau_ptr: B device
+// ints, or null for tau_val.  vec: M and mc multiples of 16 and the codes
+// on a 16-byte boundary.  Returns the CUDA error code.
+extern "C" int fused_scan_chunked_launch(
+    const uint8_t* codes, const float* vectors, const uint8_t* valid,
+    const float* luts, const float* qs, const float* d_min,
+    const float* delta, const int* ew_maps, const int* tau_ptr, float* est,
+    int* bucket, float* early, int* counts, int tau_val, int n, int M, int K,
+    int d, int B, int n_ew, int m, int mc, int blocks, int vec, int smem,
+    cudaStream_t stream) {
+  if (vec)
+    return launch_chunked<true>(codes, vectors, valid, luts, qs, d_min, delta,
+                                ew_maps, tau_ptr, est, bucket, early, counts,
+                                tau_val, n, M, K, d, B, n_ew, m, mc, blocks,
+                                smem, stream);
+  return launch_chunked<false>(codes, vectors, valid, luts, qs, d_min, delta,
+                               ew_maps, tau_ptr, est, bucket, early, counts,
+                               tau_val, n, M, K, d, B, n_ew, m, mc, blocks,
+                               smem, stream);
 }

@@ -22,7 +22,8 @@ the PQ, l2, bucket or fused kernel at B = 1 counts under its single-query
 key, whichever wrapper made it; B > 1 under the ``*_batch`` key.  The
 codebook sample's ADC, its RaBitQ upper bounds and the second pass's
 gather have no single-query form and count under ``pq_sample_adc_batch``,
-``rabitq_sample_ub_batch`` and ``l2_gather_rows_batch`` at every B.
+``rabitq_sample_ub_batch`` and ``l2_gather_rows_batch`` at every B; so does
+the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -31,7 +32,9 @@ each serves every B.  The shard collector's (``_collect_plan``) is its
 chunk count, grid and the layout of the scratch that one memset zeroes.
 The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
 over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
-persistent grid over chunks, the RaBitQ estimator's (``_est_lanes``) the
+persistent grid over chunks, the batched one's (``_batch_scan_plan``) its
+query chunk, grid and whether the LUT is staged whole or in chunks of
+sub-quantizers, the RaBitQ estimator's (``_est_lanes``) the
 lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
 query and whether a query's LUT is staged, the sample's RaBitQ bounds'
 (``_sample_ub_plan``) its threads a block and shared rows, the second
@@ -56,7 +59,8 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "shard_collect_batch": 0, "spec_compact_batch": 0,
             "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
             "bucket_hist": 0, "pq_sample_adc_batch": 0,
-            "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0}
+            "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0,
+            "fused_scan_chunked_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -94,6 +98,10 @@ BH_CHUNK, BH_BLOCKS_PER_SM = 1024, 4
 # (16-byte words; 8-byte words for 24)
 FS_TILE, FS_WARPS, FS_BLOCKS_PER_SM = 32, 8, 6
 FS_WORD_ROWS = {16: 16, 24: 8, 32: 16}
+# fused_scan.cu's chunked-LUT kernel: lanes a tile (its threads; one block
+# an SM, its __launch_bounds__), the waves of such blocks a launch fills,
+# and the grid's largest second axis
+FS_CHUNK_LANES, FS_CHUNK_WAVES, GRID_Y = 1024, 2, 65535
 # rabitq_est.cu: the most lanes (threads) a block holds
 EST_LANES = 128
 
@@ -104,7 +112,9 @@ _SIGNATURES = {
         "fused_scan_smem_bytes": [_I] * 6,
         "fused_scan_b1_launch": [_P] * 13 + [_I] * 11 + [_P],
         "fused_scan_b1_smem_bytes": [_I] * 5,
-        "fused_scan_b1_tile": []},
+        "fused_scan_b1_tile": [],
+        "fused_scan_chunked_launch": [_P] * 13 + [_I] * 12 + [_P],
+        "fused_scan_chunked_tile": []},
     "pq_adc": {
         "pq_adc_batch_launch": [_P] * 3 + [_I] * 9 + [_P],
         "pq_adc_tiled_smem_bytes": [_I] * 4,
@@ -201,6 +211,73 @@ def _pick_bq(b: int, smem_bytes) -> tuple[int, int]:
 
 def _tiles(n: int) -> int:
     return max(1, min((n + LANE_TILE - 1) // LANE_TILE, MAX_TILES))
+
+
+def _scan_smem(bq: int, m_sub: int, k_codes: int, d: int, n_ew: int,
+               m: int) -> int:
+    """``fused_scan_smem_bytes`` of ``fused_scan.cu``: one block of the
+    batched or the chunked-LUT scan with ``bq`` queries' LUTs of ``m_sub``
+    sub-quantizers (a chunk's, in the chunked kernel), queries, codebooks,
+    histograms and counters."""
+    return 4 * bq * (m_sub * k_codes + d + 2 + n_ew + (m + 1) + 3)
+
+
+def _b1_smem(m_sub: int, k_codes: int, d: int, n_ew: int, m: int) -> int:
+    """``fused_scan_b1_smem_bytes``: one block of the one-query kernel (the
+    whole LUT, the query, the ew_map, a histogram and a counter a warp)."""
+    return 4 * (m_sub * k_codes + d + n_ew + FS_WARPS * (m + 1) + FS_WARPS)
+
+
+class ScanPlan(NamedTuple):
+    """One launch of the batched fused PQ scan."""
+    chunked: bool        # fused_scan_chunked_kernel; else fused_scan_kernel
+    bq: int              # queries a block (the chunked kernel's: one)
+    mc: int              # sub-quantizers a staged LUT chunk (M: the whole)
+    blocks: int          # lane-tile blocks of a query chunk (the grid's y)
+    smem: int            # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def _batch_scan_plan(b: int, n: int, m_sub: int, k_codes: int, d: int,
+                     n_ew: int, m: int, sms: int = SMS) -> ScanPlan:
+    """The batched scan's launch.  Where one query's whole LUT fits a
+    block, ``fused_scan_kernel<BQ>`` as ever: the widest query chunk that
+    fits (``_pick_bq``) and up to ``MAX_TILES`` lane-tile blocks a chunk,
+    each of which stages its queries' LUTs.  Past that, the chunked-LUT
+    kernel (``_chunked_plan``)."""
+    if _scan_smem(1, m_sub, k_codes, d, n_ew, m) <= MAX_SMEM:
+        bq, smem = _pick_bq(b, lambda q: _scan_smem(q, m_sub, k_codes, d,
+                                                    n_ew, m))
+        return ScanPlan(False, bq, m_sub, _tiles(n), smem)
+    return _chunked_plan(b, n, m_sub, k_codes, d, n_ew, m, sms=sms)
+
+
+def _chunked_plan(b: int, n: int, m_sub: int, k_codes: int, d: int,
+                  n_ew: int, m: int, mc: int | None = None,
+                  sms: int = SMS) -> ScanPlan:
+    """``fused_scan_chunked_kernel``: one query a block, its LUT staged
+    ``mc`` sub-quantizers at a time; by default the fewest chunks that fit
+    a block, each a multiple of 16 sub-quantizers where M is one (16-byte
+    code words).  A block holds its lane tiles through every chunk, the
+    partial sums kept in ``est`` by the lane's own thread, so it loads its
+    query's LUT once; there are ``FS_CHUNK_WAVES`` waves of one block an
+    SM, split over the queries, and no more blocks than lane tiles:
+    ``blocks`` loads of each query's LUT a call.  Raises where not even one
+    sub-quantizer's rows fit."""
+    step = 16 if m_sub % 16 == 0 else 1
+    if mc is None:
+        for chunks in range(1, m_sub + 1):
+            mc = -(-(-(-m_sub // chunks)) // step) * step
+            if _scan_smem(1, mc, k_codes, d, n_ew, m) <= MAX_SMEM:
+                break
+    smem = _scan_smem(1, mc, k_codes, d, n_ew, m)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_scan: a query's LUT rows of K={k_codes} at "
+                         f"d={d} need {smem} bytes of shared memory, more "
+                         f"than the {MAX_SMEM} a block may use")
+    tiles = max(1, -(-n // FS_CHUNK_LANES))
+    blocks = min(tiles, GRID_Y, max(1, sms * FS_CHUNK_WAVES // b))
+    return ScanPlan(True, 1, mc, blocks, smem)
 
 
 class Plan(NamedTuple):
@@ -543,7 +620,8 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     tau_pred, the lanes left to the second gather.  On the card the launch
     function zeroes hist and nmiss (one memset) and launches the kernel:
     the one-query kernel at B = 1 (``_fused_scan_one``), else the batched
-    one."""
+    one; where one query's LUT outgrows a block's shared memory, the
+    chunked-LUT kernel at any B (``_batch_scan_plan``)."""
     if not _on_cuda(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
                     tau_pred):
         return _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
@@ -553,6 +631,14 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
                               qs.reshape(-1), d_min, delta, ew_maps, m,
                               tau_pred)
         return tuple(t[None] for t in out)
+    return _scan_batch(None, codes, vectors, valid, luts, qs, d_min, delta,
+                       ew_maps, m, tau_pred)
+
+
+def _scan_batch(plan: ScanPlan | None, codes, vectors, valid, luts, qs,
+                d_min, delta, ew_maps, m: int, tau_pred):
+    """``fused_scan_batch`` on CUDA tensors under ``plan`` (None: the one
+    ``_batch_scan_plan`` picks; a test may force either kernel)."""
     n, m_sub = codes.shape
     d = vectors.shape[1]
     b, _, k_codes = luts.shape
@@ -571,18 +657,37 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     if b == 0 or n == 0:
         counts.zero_()
         return est, bucket, hist, early, nmiss
-    lib = _lib("fused_scan")
-    bq, smem = _pick_bq(b, lambda q: lib.fused_scan_smem_bytes(
-        q, m_sub, k_codes, d, n_ew, m))
-    rc = lib.fused_scan_batch_launch(
-        codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
-        luts.data_ptr(), qs.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
-        ew_maps.data_ptr(), tau_pred.data_ptr(), est.data_ptr(),
-        bucket.data_ptr(), early.data_ptr(), counts.data_ptr(), n, m_sub,
-        k_codes, d, b, n_ew, m, bq, _tiles(n), smem, _stream())
+    lib = _scan_lib()
+    p = plan or _batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m,
+                                 _sms(dev.index))
+    args = (codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+            luts.data_ptr(), qs.data_ptr(), d_min.data_ptr(),
+            delta.data_ptr(), ew_maps.data_ptr(), tau_pred.data_ptr(),
+            est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
+            counts.data_ptr())
+    if p.chunked:
+        _launch_chunked(lib, p, args, 0, n, m_sub, k_codes, d, b, n_ew, m,
+                        codes)
+        return est, bucket, hist, early, nmiss
+    rc = lib.fused_scan_batch_launch(*args, n, m_sub, k_codes, d, b, n_ew, m,
+                                     p.bq, p.blocks, p.smem, _stream())
     _check(rc, "fused_scan_batch")
     _count("fused_scan", b)
     return est, bucket, hist, early, nmiss
+
+
+def _launch_chunked(lib, p: ScanPlan, args: tuple, tau_val: int, n: int,
+                    m_sub: int, k_codes: int, d: int, b: int, n_ew: int,
+                    m: int, codes: torch.Tensor) -> None:
+    """One launch of ``fused_scan_chunked_kernel`` under ``p``, counted:
+    ``args`` the 13 pointers of ``fused_scan_chunked_launch`` (the
+    threshold's may be None, for ``tau_val``)."""
+    vec = m_sub % 16 == 0 and p.mc % 16 == 0 and _aligned(codes)
+    rc = lib.fused_scan_chunked_launch(*args, tau_val, n, m_sub, k_codes, d,
+                                       b, n_ew, m, p.mc, p.blocks, vec,
+                                       p.smem, _stream())
+    _check(rc, "fused_scan_chunked")
+    LAUNCHES["fused_scan_chunked_batch"] += 1
 
 
 def _scan_outputs(b: int, n: int, m: int, dev):
@@ -604,6 +709,15 @@ def _scan_lib() -> ctypes.CDLL:
     if lib.fused_scan_b1_tile() != FS_TILE:
         raise RuntimeError(f"fused_scan.cu takes {lib.fused_scan_b1_tile()} "
                            f"lanes a work item, ops.FS_TILE says {FS_TILE}")
+    if lib.fused_scan_chunked_tile() != FS_CHUNK_LANES:
+        raise RuntimeError(f"fused_scan.cu's chunked kernel takes "
+                           f"{lib.fused_scan_chunked_tile()} lanes a tile, "
+                           f"ops.FS_CHUNK_LANES says {FS_CHUNK_LANES}")
+    shape = (240, 256, 960, 256, 128)
+    if (lib.fused_scan_smem_bytes(3, *shape) != _scan_smem(3, *shape)
+            or lib.fused_scan_b1_smem_bytes(*shape) != _b1_smem(*shape)):
+        raise RuntimeError("fused_scan.cu's shared-memory layouts differ "
+                           "from ops._scan_smem / ops._b1_smem")
     return lib
 
 
@@ -613,8 +727,10 @@ def _fused_scan_one(codes: torch.Tensor, vectors: torch.Tensor,
                     ew_map: torch.Tensor, m: int, tau_pred):
     """The one-query kernel (``fused_scan_b1_kernel``) on CUDA tensors:
     (n,) validity, (M, K) LUT, (d,) query, one codebook and ``tau_pred``, a
-    Python int or a one-element CUDA tensor (read by the kernel).  Returns
-    (est (n,), bucket (n,), hist (m+1,), early (n,), nmiss ())."""
+    Python int or a one-element CUDA tensor (read by the kernel).  Where the
+    LUT outgrows its block, the chunked-LUT kernel at one query, with the
+    threshold passed the same way.  Returns (est (n,), bucket (n,), hist
+    (m+1,), early (n,), nmiss ())."""
     n, m_sub = codes.shape
     d = vectors.shape[1]
     k_codes = lut.shape[1]
@@ -642,11 +758,18 @@ def _fused_scan_one(codes: torch.Tensor, vectors: torch.Tensor,
         counts.zero_()
         return out
     lib = _scan_lib()
-    smem = lib.fused_scan_b1_smem_bytes(m_sub, k_codes, d, n_ew, m)
-    if smem > MAX_SMEM:
-        raise ValueError(f"fused_scan: M={m_sub}, K={k_codes}, d={d}, "
-                         f"n_ew={n_ew}, m={m} need {smem} bytes of shared "
-                         f"memory")
+    smem = _b1_smem(m_sub, k_codes, d, n_ew, m)
+    if smem > MAX_SMEM:             # the LUT past a block: staged in chunks
+        p = _chunked_plan(1, n, m_sub, k_codes, d, n_ew, m,
+                          sms=_sms(dev.index))
+        _launch_chunked(lib, p, (
+            codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
+            lut.data_ptr(), q.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
+            ew_map.data_ptr(), None if tau_ptr is None else tau_ptr.data_ptr(),
+            est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
+            counts.data_ptr()), tau_val, n, m_sub, k_codes, d, 1, n_ew, m,
+            codes)
+        return out
     p = _scan_plan(n, smem, _sms(dev.index))
     word = FS_WORD_ROWS.get(m_sub)
     mc = m_sub if word and codes.data_ptr() % word == 0 else 0

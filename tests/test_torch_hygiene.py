@@ -176,7 +176,8 @@ def test_launch_counters_cover_the_four_kernels():
     """One counter per TPU kernel of the repository: the seven batched
     kernels, the RaBitQ estimator and the four single-query forms; and one
     each for the codebook sample's ADC, its RaBitQ upper bounds and the
-    second pass's gather, which no TPU kernel computes."""
+    second pass's gather, which no TPU kernel computes; one for the fused
+    scan's chunked-LUT form (#1 where a query's LUT outgrows a block)."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
@@ -185,7 +186,8 @@ def test_launch_counters_cover_the_four_kernels():
                                  "l2_exact", "bucket_hist",
                                  "pq_sample_adc_batch",
                                  "l2_gather_rows_batch",
-                                 "rabitq_sample_ub_batch"}
+                                 "rabitq_sample_ub_batch",
+                                 "fused_scan_chunked_batch"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
                                    "shard_collect", "rabitq_est"}

@@ -145,6 +145,48 @@ def test_gist_width_sample_matches_reference(gist_setup):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def gist8_setup():
+    """GIST1M's width at Faiss's default 8-bit codes (IVF,PQ240: M = 240,
+    K = 256), the reference's index on a small corpus."""
+    rng = np.random.default_rng(968)
+    x = synthetic.clustered(rng, GIST_N, GIST_D, n_centers=24)
+    qs = synthetic.queries_from(rng, x, 3)
+    ji = jsearch.build_pq_index(jax.random.key(8), jnp.asarray(x), GIST_C,
+                                n_bits=8, n_iter=2)
+    arrays = {
+        "ivf_centroids": ji.ivf.centroids, "member_ids": ji.ivf.member_ids,
+        "member_valid": ji.ivf.member_valid,
+        "cluster_sizes": ji.ivf.cluster_sizes,
+        "pq_centroids": ji.pq.centroids, "codes": ji.codes,
+        "vectors": ji.vectors}
+    ti, tl = convert.pq_index_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()}, device="cpu")
+    return ji, jivf.flat_layout(ji.ivf), ti, tl, qs
+
+
+def test_gist_width_8bit_matches_reference(gist8_setup):
+    """The batched fused searcher on an 8-bit GIST-width index (its LUTs
+    are (B, 240, 256)): id sets and both counters equal the reference's;
+    sorted distances held as test_gist_width_matches_reference holds them,
+    to the reference at atol 2e-3 and the port's alone to float64 at
+    1e-4."""
+    ji, jl, ti, tl, qs = gist8_setup
+    assert ti.codes.shape == (GIST_N, 240) and ti.pq.centroids.shape[1] == 256
+    assert int(ti.codes.max()) > 15
+    jr = jsearch.ivf_pq_search_batch(
+        ji, jnp.asarray(qs), jl, k=GIST_K, n_probe=GIST_PROBE,
+        n_cand=8 * GIST_K, use_bbc=True, fused=True, backend="ref")
+    tr = search.ivf_pq_search_batch(
+        ti, search.build_stream(ti, tl), torch.from_numpy(qs), tl, k=GIST_K,
+        n_probe=GIST_PROBE, n_cand=8 * GIST_K, use_bbc=True, fused=True)
+    _assert_same(jr, tr, atol=2e-3)
+    x = np.asarray(ji.vectors).astype(np.float64)
+    exact = np.sqrt(((x[tr.ids.numpy()] - qs[:, None, :]) ** 2).sum(-1))
+    np.testing.assert_allclose(tr.dists.numpy(), exact, rtol=1e-4,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_predictive_sequence_matches_reference(setup, fused):
     ji, jl, ti, tl, qs = setup
