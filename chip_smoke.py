@@ -38,10 +38,14 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      x 128 fp32), index built on the card (its k-means and PQ training run
      twice more, and must give the same bits), 64 queries through the fused
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
+     one sample-plan launch a call and no plain plan, and none of the
+     composition's topk, kthvalue, searchsorted or sort left inside the
+     ``pq.sample`` span of a profiled call (``[plan]`` line);
   9. the IVF+RaBitQ path at the same size (1024 clusters, n_probe=64,
      k=5000, B=32, m=128, eps0=3.0): 64 queries through the bound-fused
      engine, 4 predictive batches, the two-phase form and the threshold
-     baseline; recall@k, which must reach 0.95 on the BBC forms;
+     baseline; recall@k, which must reach 0.95 on the BBC forms; the
+     sample-plan check of phase 4 in the fused form's ``rabitq.sample``;
   5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
      form, batched and sharded: the CPU engine on a one-rank gloo mesh, the
      card's on a one-rank NCCL mesh; each form also on single (d,)
@@ -265,6 +269,11 @@ KERNELS = {
     # #1 where one query's LUT outgrows a block (8-bit codes at wide d)
     "fused_scan_chunked_batch": ("src/repro_torch/kernels/csrc/fused_scan.cu",
                                  "src/repro/kernels/fused_scan.py:284"),
+    # no TPU kernel: the JAX package builds the sample's codebooks and
+    # threshold bucket in XLA (its sorted-row mode counts apart, as
+    # sample_plan_sorted_batch)
+    "sample_plan_batch": ("src/repro_torch/kernels/csrc/sample_plan.cu",
+                          "src/repro/core/buffer.py:82"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -1243,6 +1252,72 @@ def kmeans_repro(x, index) -> dict:
     return out
 
 
+PLAN_OPS = ("aten::topk", "aten::kthvalue", "aten::searchsorted",
+            "aten::sort")
+
+
+class PlainPlanCalls:
+    """Counts the sample plan's plain-version calls while open (none may
+    come from card tensors: the wrapper launches the kernel or raises)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.calls, self._real = 0, ref.sample_plan_batch
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._real(*a, **kw)
+
+        ref.sample_plan_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        ref.sample_plan_batch = self._real
+
+
+def stage_ops(search_fn, stage: str) -> dict:
+    """The host operators (``aten::*``, nested ones too) that run inside
+    the span ``stage`` of one profiled ``search_fn()`` call, by name and
+    count."""
+    import torch
+    from repro_torch import spans
+    spans.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        search_fn()
+        torch.cuda.synchronize()
+    base = prof.profiler.kineto_results.trace_start_ns()
+    wins = [((r.t0_ns - base) / 1e3, (r.t1_ns - base) / 1e3)
+            for r in spans.records() if r.name == stage]
+    spans.clear()
+    check(len(wins) == 1, f"{len(wins)} {stage} spans in one call")
+    (t0, t1), out = wins[0], {}
+    for e in prof.events():
+        if e.name.startswith("aten::") and t0 <= e.time_range.start < t1:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def check_plan_stage(search_fn, stage: str, tag: str) -> dict:
+    """One plan launch in one call, no plain plan, and none of the
+    composition's selections (``PLAN_OPS``) left in the sample stage."""
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    with PlainPlanCalls() as plain:
+        search_fn()
+    got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v - before[k]}
+    check(got.get("sample_plan_batch") == 1
+          and not got.get("sample_plan_sorted_batch") and plain.calls == 0,
+          f"{tag}: plan launches {got}, plain plan calls {plain.calls}")
+    inside = stage_ops(search_fn, stage)
+    left = {k: v for k, v in inside.items() if k in PLAN_OPS}
+    check(not left, f"{tag}: {left} inside {stage}")
+    log(f"[plan] {tag}: one sample_plan_batch launch a call, no plain plan; "
+        f"{sum(inside.values())} aten operators inside {stage}: {inside}")
+    return inside
+
+
 def main_path(summary: dict, card: str):
     import torch
     from repro_torch.index import engine, search
@@ -1276,6 +1351,14 @@ def main_path(summary: dict, card: str):
     launches = dict(ops.LAUNCHES)
     check(launches["fused_scan_batch"] > 0, "main path never ran the fused "
           "kernel")
+    n_calls = len(static_q) + len(pred_q)
+    check(launches["sample_plan_batch"] == n_calls
+          and launches["sample_plan_sorted_batch"] == 0,
+          f"main path: {launches['sample_plan_batch']} + "
+          f"{launches['sample_plan_sorted_batch']} plan launches in "
+          f"{n_calls} calls")
+    plan_ops = check_plan_stage(lambda: eng.search(qs[:b]), "pq.sample",
+                                "main path")
     for r in res + pres:
         check_result(r, b, k, "main path")
     rec = recall(x, qs[:8], res[0].ids[:8], k)
@@ -1292,7 +1375,7 @@ def main_path(summary: dict, card: str):
         "predictive_second_pass_mean": [
             float(r.n_second_pass.float().mean().item()) for r in pres],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "card": card}
+        "sample_stage_ops": plan_ops, "launches": launches, "card": card}
     log(f"[main] fused static ms/batch {ms}, QPS {1e3 * b / steady:.1f}, "
         f"recall@{k} {rec:.4f} (8 queries); predictive ms/batch {pms}, "
         f"recall {prec:.4f}; launches {launches}; {card}")
@@ -1366,6 +1449,11 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
 
     pred_q = [qs[64 + i * b:64 + (i + 1) * b] for i in range(4)]
     pres, pms = timed_batches(pred, pred_q)
+    fused_plans = ops.LAUNCHES["sample_plan_batch"]
+    check(fused_plans == 2 + len(pred_q)
+          and ops.LAUNCHES["sample_plan_sorted_batch"] == 0,
+          f"the fused RaBitQ path: {fused_plans} plan launches in "
+          f"{2 + len(pred_q)} calls")
     two, tms = timed_batches(engs["two_phase"].search, [qs[:b]])
     base, bms = timed_batches(engs["baseline"].search, [qs[:b]])
     launches = dict(ops.LAUNCHES)
@@ -1375,6 +1463,8 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
           == launches["fused_rabitq_scan_batch"],
           f"the fused RaBitQ path: {launches['rabitq_sample_ub_batch']} "
           f"sample launches for {launches['fused_rabitq_scan_batch']} scans")
+    plan_ops = check_plan_stage(lambda: engs["fused"].search(qs[:b]),
+                                "rabitq.sample", "RaBitQ path")
     for r in res + pres + two:
         check_result(r, b, k, "rabitq bbc", ascending=False)
     check_result(base[0], b, k, "rabitq baseline")
@@ -1406,7 +1496,7 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
         "baseline_reranked_mean": mean(base[0].n_reranked),
         "fused_vs_two_phase_overlap": same,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "card": card}
+        "sample_stage_ops": plan_ops, "launches": launches, "card": card}
     log(f"[rabitq] {json.dumps(summary['rabitq_path'])}")
     return engs["fused"], qs, launches, state[0]
 
@@ -3738,15 +3828,19 @@ def main_path_kernel_args(eng, qs):
     luts = pq_mod.adc_table(ix.pq, qs).contiguous()
     st = min(S.SAMPLE_TILES, eng.n_probe)
     spos, sok = ivf_mod.tile_positions(lay, probed[:, :st], ix.ivf.cap)
-    sample = S._pq_sample_est(lay, probed, codes, luts, st, ix.ivf.cap)
-    plans = rerank.early_rerank_plan(sample, n_cand=eng.n_cand,
-                                     n_sample=sample.shape[1],
+    est2, _ = S._pq_sample_adc(lay, probed, codes, luts, st, ix.ivf.cap)
+    plans = rerank.early_rerank_plan(est2, n_cand=eng.n_cand,
+                                     n_sample=est2.shape[1],
                                      n_total=eng.n_probe * ix.ivf.cap,
-                                     m=eng.m)
+                                     m=eng.m, valid=sok, squared=True)
     return dict(codes=codes, vectors=vecs, valid=lane_valid, luts=luts,
                 qs=qs, d_min=plans.cb.d_min, delta=plans.cb.delta,
                 ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred,
-                spos=spos, sok=sok)
+                spos=spos, sok=sok, plan=dict(
+                    vals=est2, ok=sok, k_cb=min(eng.n_cand, est2.shape[1]),
+                    m=eng.m, sqrt=True, rank=max(1, round(
+                        eng.n_cand * est2.shape[1]
+                        / (eng.n_probe * ix.ivf.cap)))))
 
 
 def bound(nbytes: float, ops32: float) -> tuple[float, str]:
@@ -4075,10 +4169,15 @@ def rabitq_kernel_args(eng, qs) -> dict:
                                        ix.ivf.cap, RQ_EPS0)
     cbs, tau = S._rabitq_sample_plan(sample_ub, eng.k, eng.k, n_st,
                                      eng.n_probe, eng.m)
+    k_cb = min(eng.k, sample_ub.shape[1])
     return dict(codes=st.codes, vectors=st.vectors, s2=st.s2,
                 norm_o=st.norm_o, f_o=st.f_o, cl=st.cl, g=g, qs=qs,
                 nq=nq, valid=lane_valid, d_min=cbs.d_min, delta=cbs.delta,
                 ew_maps=cbs.ew_map, m=eng.m, tau_inline=tau,
+                plan=dict(vals=sample_ub, ok=None, k_cb=k_cb, m=eng.m,
+                          rank=S._rabitq_inline_rank(eng.k, n_st,
+                                                     eng.n_probe, k_cb),
+                          margin=S._TAU_INLINE_MARGIN, cap=eng.m - 1),
                 sample=(st.codes, st.s2, st.norm_o, st.f_o, st.cl,
                         lay.offsets, probed[:, :n_st], ix.ivf.cap, g, nq))
 
@@ -4164,6 +4263,52 @@ def timing_rabitq_sample(a, errs: dict) -> dict:
         f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
         f"{t['plain_ms']:.4f} ms; plan {t['work']['plan']}")
     return {"rabitq_sample_ub_batch": t}
+
+
+def timing_plan(plan: dict, errs: dict, where: str) -> dict:
+    """The sample plan at a path's real sample (phase 4's or phase 9's
+    batch): bitwise its plain version on the same card tensors, in one
+    launch a call, then timed beside its bound (the row and its mask read
+    once, the codebooks and the bucket written once), the plain version
+    (the composition the searchers ran before) and ``torch.topk`` alone at
+    the same k_cb (the composition's first operator)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    kw = {k: v for k, v in plan.items() if k not in ("vals", "ok")}
+    vals, ok = plan["vals"], plan["ok"]
+    b, w = vals.shape
+    m, n_ew = plan["m"], 256
+    before = dict(ops.LAUNCHES)
+    got = ops.sample_plan_batch(vals, ok, **kw)
+    n = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v - before[k]}
+    check(n == {"sample_plan_batch": 1},
+          f"sample_plan_batch at {where}: launches {n}")
+    want = ref.sample_plan_batch(vals, ok, **kw)
+    for g, r in zip(list(got[0]) + [got[1]], list(want[0]) + [want[1]]):
+        errs["sample_plan_batch"] = max(errs.get("sample_plan_batch", 0.0),
+                                        max_abs(g.float(), r.float()))
+        check(same(g, r), f"sample_plan_batch at {where} (B={b}, w={w}, "
+              f"k_cb={kw['k_cb']}) not bitwise its plain version")
+    fn = lambda: ops.sample_plan_batch(vals, ok, **kw)  # noqa: E731
+    s = ref.sample_values(vals, ok, plan.get("sqrt", False))
+    t = dict(ms=cuda_ms(fn, 50),
+             plain_ms=cuda_ms(lambda: ref.sample_plan_batch(vals, ok, **kw),
+                              5, warm=1),
+             library_ms=cuda_ms(lambda: torch.topk(
+                 s, kw["k_cb"], dim=1, largest=False, sorted=True), 20),
+             work={"B": b, "w": w, "k_cb": kw["k_cb"], "rank": kw["rank"],
+                   "launch": ops._sample_plan_launch(w, m, n_ew)._asdict(),
+                   "device_ms": device_ms(fn, "sample_plan_kernel")})
+    # the (B, w) row (and mask) once; edges, d_min, delta, ew_map and tau
+    t["bound_ms"], t["bound_by"] = bound(
+        b * w * (4 + (ok is not None))
+        + 4 * b * (m + 1 + 2 + n_ew + 1), 0)
+    log(f"[timing] sample_plan_batch at {where} (B={b}, w={w}, k_cb="
+        f"{kw['k_cb']}, rank {kw['rank']}): bitwise, {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, torch.topk alone "
+        f"{t['library_ms']:.4f} ms; launch {t['work']['launch']}")
+    return t
 
 
 def shard_kernel_args(forms, qs_main, qs_rq) -> dict:
@@ -4722,6 +4867,8 @@ def main(argv=None) -> int:
         main_args = main_path_kernel_args(eng, qb)
         times = timing(main_args)
         times.update(timing_sample(main_args, errs))
+        times["sample_plan_batch"] = timing_plan(
+            main_args["plan"], errs, "the main path's sample")
         times.update(timing_gather(second_pass_args(eng, qb), errs,
                                    "l2_gather_rows_batch",
                                    "phase 4's second pass"))
@@ -4734,6 +4881,8 @@ def main(argv=None) -> int:
             rq_args = rabitq_kernel_args(rq_eng, rq_queries[:32])
             times.update(timing_rabitq(rq_args, errs))
             times.update(timing_rabitq_sample(rq_args, errs))
+            times["sample_plan_batch@rabitq"] = timing_plan(
+                rq_args["plan"], errs, "the RaBitQ path's sample")
         if shard_forms is not None:
             times.update(timing_shard(
                 shard_kernel_args(shard_forms, main_queries, rq_queries),

@@ -6,7 +6,8 @@ leading query axis: a codebook holds (B, ...) fields and distances are
 
   1. ``build_codebook``   — per-query equal-depth quantizer over the local
      top-k of a sample (256 equal-width bins remapped to ``m`` equal-depth
-     buckets, Eq. 6).
+     buckets, Eq. 6); ``sample_plan`` also gives the bucket of a rank-th
+     sampled value, one kernel launch on the card.
   2. ``bucketize``        — Eq. 6 bucket ids, overflow bucket ``m``.
   3. ``histogram``        — the (B, m+1) bucket histogram.
   4. ``threshold_bucket`` — first bucket whose cumulative count reaches k.
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
 INF = float("inf")
@@ -63,55 +65,40 @@ def default_num_buckets(vmem_bytes: int = 16 * 1024 * 1024,
     return (m // 128) * 128
 
 
+def sample_plan(vals: torch.Tensor, k_cb: int, m: int, n_ew: int = 256,
+                valid: torch.Tensor | None = None, sqrt: bool = False,
+                rank: int | None = None, margin: int = 0,
+                cap: int | None = None):
+    """A query batch's codebook sample plan (``ops.sample_plan_batch``: one
+    launch on the card): equal-depth codebooks over the ``k_cb`` smallest
+    of each row of ``vals`` (B, w), ``valid`` masking lanes to +inf and
+    ``sqrt`` taking squared PQ estimates to distances first; with a
+    ``rank``, the bucket of each row's rank-th smallest value (plus
+    ``margin``, at most ``cap``).  Returns (codebooks, tau (B,) int32 or
+    None)."""
+    cb, tau = ops.sample_plan_batch(vals, valid, k_cb=k_cb, m=m, n_ew=n_ew,
+                                    rank=rank, sqrt=sqrt, margin=margin,
+                                    cap=cap)
+    return BucketCodebook(*cb), tau
+
+
 def build_codebook(sample_dists: torch.Tensor, k: int, m: int,
                    n_ew: int = 256,
                    valid: torch.Tensor | None = None) -> BucketCodebook:
     """Equal-depth codebooks over the local top-k of each query's sample
     (B, w); ``valid`` masks padding lanes."""
-    if valid is not None:
-        sample_dists = torch.where(valid, sample_dists, INF)
-    k = min(k, sample_dists.shape[-1])
-    topk = torch.topk(sample_dists, k, dim=-1, largest=False,
-                      sorted=True).values
-    return build_codebook_from_topk(topk, m, n_ew)
+    return sample_plan(sample_dists, k, m, n_ew, valid=valid)[0]
 
 
 def build_codebook_from_topk(topk: torch.Tensor, m: int,
                              n_ew: int = 256) -> BucketCodebook:
-    """Codebooks from already-selected ascending local top-k rows (B, k).
-
-    +inf entries (fewer valid lanes than k) are clamped to the row's largest
-    finite value; a row with none falls back to an all-zero range.  The
-    range keeps a 2% margin above d_max and the edges are made strictly
-    increasing, exactly as the reference does."""
-    dev = topk.device
-    finite = torch.isfinite(topk)
-    top_finite = torch.where(finite, topk, -INF).amax(dim=-1)
-    top_finite = torch.where(torch.isfinite(top_finite), top_finite, 0.0)
-    topk = torch.where(finite, topk, top_finite[:, None])
-    d_min = topk[:, 0]
-    d_max = topk[:, -1]
-    k = topk.shape[-1]
-    span = torch.maximum(d_max - d_min, torch.full_like(d_max, 1e-6)) * 1.02
-    delta = span / n_ew
-    # jnp.linspace(0, k-1, m+1) in float32: (k-1) * (i/m), then the endpoint
-    step = torch.arange(m, dtype=torch.float32, device=dev) / m
-    pos = torch.cat([(k - 1.0) * step,
-                     torch.full((1,), k - 1.0, device=dev)])
-    lo = torch.floor(pos).long()
-    hi = torch.clamp(lo + 1, max=k - 1)
-    frac = pos - lo.to(torch.float32)
-    edges = topk[:, lo] + (topk[:, hi] - topk[:, lo]) * frac
-    eps = span * 1e-7
-    edges = edges + eps[:, None] * torch.arange(m + 1, dtype=torch.float32,
-                                                device=dev)
-    centers = d_min[:, None] + (torch.arange(
-        n_ew, dtype=torch.float32, device=dev) + 0.5) * delta[:, None]
-    ew_map = torch.searchsorted(edges.contiguous(), centers.contiguous(),
-                                right=True) - 1
-    ew_map = ew_map.clamp(0, m - 1).to(torch.int32)
-    return BucketCodebook(edges=edges, d_min=d_min, delta=delta,
-                          ew_map=ew_map)
+    """Codebooks from already-selected ascending local top-k rows (B, k)
+    (``kernels.ref.codebook_from_topk``'s rules: +inf clamped to the row's
+    largest finite value, a 2% margin above d_max, strictly increasing
+    edges)."""
+    cb, _ = ops.sample_plan_batch(topk, None, k_cb=topk.shape[-1], m=m,
+                                  n_ew=n_ew, presorted=True)
+    return BucketCodebook(*cb)
 
 
 def bucketize(cb: BucketCodebook, dists: torch.Tensor) -> torch.Tensor:

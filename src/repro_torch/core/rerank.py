@@ -309,16 +309,17 @@ class EarlyRerankPlan(NamedTuple):
 
 def early_rerank_plan(sample_est: torch.Tensor, n_cand: int, n_sample: int,
                       n_total: int, m: int = 128,
-                      valid: torch.Tensor | None = None) -> EarlyRerankPlan:
+                      valid: torch.Tensor | None = None,
+                      squared: bool = False) -> EarlyRerankPlan:
     """Alg. 4 line 4: tau_pred is the bucket of the
-    (|sample| / |O| * n_cand)-th smallest sampled estimate of each query."""
+    (|sample| / |O| * n_cand)-th smallest sampled estimate of each query.
+    ``squared`` takes the sample's squared PQ estimates (their distances
+    are the square roots, +inf off ``valid``), as the sample ADC gives
+    them; codebooks and tau_pred are one ``rb.sample_plan``."""
     w = sample_est.shape[1]
-    cb = rb.build_codebook(sample_est, k=min(n_cand, w), m=m, valid=valid)
     rank = max(int(round(n_cand * n_sample / max(n_total, 1))), 1)
-    rank = min(rank, w)
-    s = sample_est if valid is None else torch.where(valid, sample_est, INF)
-    kth = torch.kthvalue(s, rank, dim=1).values
-    tau_pred = rb.bucketize(cb, kth[:, None])[:, 0]
+    cb, tau_pred = rb.sample_plan(sample_est, min(n_cand, w), m, valid=valid,
+                                  sqrt=squared, rank=min(rank, w))
     return EarlyRerankPlan(tau_pred=tau_pred, cb=cb)
 
 

@@ -239,16 +239,16 @@ def _pred_budget(count: int, n: int) -> int:
     return int(min(n, ((b + 127) // 128) * 128))
 
 
-def _pq_sample_est(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
+def _pq_sample_adc(layout: ivf_mod.FlatLayout, probed: torch.Tensor,
                    stream_codes: torch.Tensor, luts: torch.Tensor, st: int,
-                   cap: int) -> torch.Tensor:
-    """Per-query ADC estimates (B, st*cap) over the nearest ``st`` probed
-    clusters: the codebook sample, in one launch of the sample ADC at any
-    M.  Summed in ascending m like the kernels, so the sample's estimates
-    equal the scan's for the same lanes."""
+                   cap: int):
+    """The codebook sample's squared ADC estimates (B, st*cap) over the
+    nearest ``st`` probed clusters, +inf off the sample, and the sample's
+    lanes ``ok``: one launch of the sample ADC at any M.  Summed in
+    ascending m like the kernels, so the sample's estimates equal the
+    scan's for the same lanes."""
     spos, sok = ivf_mod.tile_positions(layout, probed[:, :st], cap)
-    return _sqrt_est(ops.pq_sample_adc_batch(stream_codes, luts, spos, sok),
-                     sok)
+    return ops.pq_sample_adc_batch(stream_codes, luts, spos, sok), sok
 
 
 def _topk_est_id(est: torch.Tensor, gids: torch.Tensor, width: int):
@@ -538,11 +538,11 @@ def ivf_pq_search_batch(index: PQIndex, stream: Stream, qs: torch.Tensor,
         # histogram, and a second pass for the selected-but-not-predicted
         with spans.span("pq.sample"):
             st = min(SAMPLE_TILES, n_probe)
+            est2, sok = _pq_sample_adc(layout, probed, stream.codes, luts,
+                                       st, ivf.cap)
             plans = rerank.early_rerank_plan(
-                _pq_sample_est(layout, probed, stream.codes, luts, st,
-                               ivf.cap),
-                n_cand=n_cand, n_sample=st * ivf.cap,
-                n_total=n_probe * ivf.cap, m=m)
+                est2, n_cand=n_cand, n_sample=st * ivf.cap,
+                n_total=n_probe * ivf.cap, m=m, valid=sok, squared=True)
         with spans.span("pq.scan"):
             est, bucket, hist, early, nmiss = ops.fused_scan_batch(
                 stream.codes, stream.vectors, lane_valid, luts, qs,
@@ -609,10 +609,10 @@ def _ivf_pq_predictive_batch(index, stream, qs, layout, probed, lane_valid,
     n_flat = layout.n_flat
     count = _resolve_pred_count(pred_count, k, n_cand)
     st = min(SAMPLE_TILES, n_probe)
-    sample_est = _pq_sample_est(layout, probed, stream.codes, luts, st,
-                                ivf.cap)
-    cbs = rb.build_codebook(sample_est, k=min(n_cand, sample_est.shape[1]),
-                            m=m)
+    est2, sok = _pq_sample_adc(layout, probed, stream.codes, luts, st,
+                               ivf.cap)
+    cbs, _ = rb.sample_plan(est2, min(n_cand, est2.shape[1]), m, valid=sok,
+                            sqrt=True)
     tau_pred = torch.full((b,), rerank.predict_tau(pred_state, count),
                           dtype=torch.int32, device=qs.device)
 
@@ -749,15 +749,12 @@ def _rabitq_sample_plan(sample_ub: torch.Tensor, k: int, count: int,
                         st: int, n_probe: int, m: int):
     """Per-query codebooks over the k smallest sampled upper bounds, and
     the static inline gate: the bucket of the rank-scaled ``count``-th
-    sampled ub, plus ``_TAU_INLINE_MARGIN``.  Returns (codebooks, tau)."""
+    sampled ub, plus ``_TAU_INLINE_MARGIN`` (at most m - 1), in one
+    ``rb.sample_plan``.  Returns (codebooks, tau)."""
     k_cb = min(k, sample_ub.shape[1])
-    topk_s = torch.topk(sample_ub, k_cb, dim=1, largest=False,
-                        sorted=True).values
-    cbs = rb.build_codebook_from_topk(topk_s, m=m)
-    rank = _rabitq_inline_rank(count, st, n_probe, k_cb)
-    tau = rb.bucketize(cbs, topk_s[:, rank - 1:rank])[:, 0]
-    return cbs, torch.clamp(tau + _TAU_INLINE_MARGIN, max=m - 1).to(
-        torch.int32)
+    return rb.sample_plan(sample_ub, k_cb, m,
+                          rank=_rabitq_inline_rank(count, st, n_probe, k_cb),
+                          margin=_TAU_INLINE_MARGIN, cap=m - 1)
 
 
 def _rabitq_query_terms(stream: Stream, qs: torch.Tensor, d2: torch.Tensor):

@@ -23,7 +23,10 @@ key, whichever wrapper made it; B > 1 under the ``*_batch`` key.  The
 codebook sample's ADC, its RaBitQ upper bounds and the second pass's
 gather have no single-query form and count under ``pq_sample_adc_batch``,
 ``rabitq_sample_ub_batch`` and ``l2_gather_rows_batch`` at every B; so does
-the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``.
+the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``, and
+the sample plan's kernel, by mode: ``sample_plan_batch`` (the row sorted in
+shared memory) and ``sample_plan_sorted_batch`` (a row read sorted: a long
+row after ``torch.topk``, or a caller's top-k).
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -39,8 +42,9 @@ lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
 query and whether a query's LUT is staged, the sample's RaBitQ bounds'
 (``_sample_ub_plan``) its threads a block and shared rows, the second
 pass's gather's (``_gather_plan``) its lanes a row, load width and shared
-memory.  The CPU tests check the plans; the kernels refuse a shared-memory
-size below their layout's.
+memory, the sample plan's (``_sample_plan_launch``) whether a block sorts
+the row in shared memory.  The CPU tests check the plans; the kernels
+refuse a shared-memory size below their layout's.
 """
 from __future__ import annotations
 
@@ -60,7 +64,8 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "rabitq_est": 0, "fused_scan": 0, "pq_adc": 0, "l2_exact": 0,
             "bucket_hist": 0, "pq_sample_adc_batch": 0,
             "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0,
-            "fused_scan_chunked_batch": 0}
+            "fused_scan_chunked_batch": 0, "sample_plan_batch": 0,
+            "sample_plan_sorted_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -104,6 +109,10 @@ FS_WORD_ROWS = {16: 16, 24: 8, 32: 16}
 FS_CHUNK_LANES, FS_CHUNK_WAVES, GRID_Y = 1024, 2, 65535
 # rabitq_est.cu: the most lanes (threads) a block holds
 EST_LANES = 128
+# sample_plan.cu: the most threads a block has (its __launch_bounds__), the
+# keys a thread holds where a warp sorts 512 keys in registers (at least
+# 512 keys, at most 16 * 1024), and the threads that read a sorted row
+PLAN_THREADS, PLAN_LANE_KEYS, PLAN_SORTED_THREADS = 1024, 16, 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -142,6 +151,9 @@ _SIGNATURES = {
     "rabitq_est": {
         "rabitq_est_launch": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
         "rabitq_est_smem_bytes": [_I] * 2},
+    "sample_plan": {
+        "sample_plan_launch": [_P] * 2 + [ctypes.c_longlong] + [_I] * 10
+                              + [_F] * 3 + [_P] * 5 + [_I] * 3 + [_P]},
 }
 
 
@@ -939,6 +951,107 @@ def rabitq_sample_ub_batch(codes: torch.Tensor, s2: torch.Tensor,
     _check(rc, "rabitq_sample_ub_batch")
     LAUNCHES["rabitq_sample_ub_batch"] += 1
     return ub, ok
+
+
+class PlanLaunch(NamedTuple):
+    """One launch of the sample-plan kernel (``sample_plan.cu``)."""
+    sort: bool           # the row sorted in shared memory, else read sorted
+    padded: int          # keys a block sorts (w's power of two; 0 unsorted)
+    threads: int         # threads a block, one block a query
+    smem: int            # dynamic shared memory, bytes
+
+
+def _plan_smem(padded: int, m: int, n_ew: int) -> int:
+    """The kernel's shared memory: the keys, the m + 1 edges, the n_ew map
+    and 33 floats of the block's reduction."""
+    return 4 * (padded + m + 1 + n_ew + 33)
+
+
+@functools.lru_cache(maxsize=4096)
+def _sample_plan_launch(w: int, m: int, n_ew: int,
+                        presorted: bool = False) -> PlanLaunch:
+    """The sample plan's launch for rows of ``w`` values.  Where the row's
+    power of two of keys fits a block's shared memory beside the edges and
+    the map (w <= 32,768 at m = 128), the block sorts it there:
+    ``PLAN_LANE_KEYS`` keys a thread from 512 to 16,384 keys (the warps'
+    register stages), else a pair of keys a thread.  A longer row, or a
+    ``presorted`` one, is read sorted in place (the wrapper narrows a long
+    row with ``torch.topk`` first: the long-row mode).  Raises where not
+    even the edges and the map fit."""
+    if not presorted:
+        padded = 1 << max(0, (w - 1).bit_length())
+        smem = _plan_smem(padded, m, n_ew)
+        if smem <= MAX_SMEM:
+            lanes = padded // PLAN_LANE_KEYS
+            threads = (lanes if 32 <= lanes <= PLAN_THREADS
+                       else max(32, min(PLAN_THREADS, padded // 2)))
+            return PlanLaunch(True, padded, threads, smem)
+    smem = _plan_smem(0, m, n_ew)
+    if smem > MAX_SMEM:
+        raise ValueError(f"sample_plan: m={m} edges and an n_ew={n_ew} map "
+                         f"need {smem} bytes of shared memory, more than the "
+                         f"{MAX_SMEM} a block may use")
+    return PlanLaunch(False, 0, PLAN_SORTED_THREADS, smem)
+
+
+def sample_plan_batch(vals: torch.Tensor, ok: torch.Tensor | None = None, *,
+                      k_cb: int, m: int, n_ew: int = 256,
+                      rank: int | None = None, sqrt: bool = False,
+                      margin: int = 0, cap: int | None = None,
+                      presorted: bool = False):
+    """A query batch's codebook sample plan from (B, w) fp32 sample values
+    and an optional (B, w) lane mask ``ok``: the equal-depth codebooks over
+    each row's ``k_cb`` smallest (at most w) and, with a ``rank`` (1 to w),
+    the Eq. 6 bucket of each row's rank-th smallest, plus ``margin`` and
+    at most ``cap`` (default m).  ``sqrt`` takes squared PQ estimates:
+    lanes are ``ok ? sqrt(clamp(vals, min=0)) : +inf`` as loaded.
+    ``presorted`` rows are already ascending (a caller's top-k, its width
+    ``k_cb``).  Returns ((edges (B, m+1), d_min (B,), delta (B,), ew_map
+    (B, n_ew) int32), tau (B,) int32 or None); see
+    ``kernels.ref.sample_plan_batch``.  One launch on the card; a long row
+    (``_sample_plan_launch``) takes ``torch.topk`` first."""
+    b, w = vals.shape
+    k_cb = min(k_cb, w)
+    if k_cb < 1 or (rank is not None and not 1 <= rank <= w) \
+            or (presorted and (k_cb != w or ok is not None or sqrt)):
+        raise ValueError(f"sample_plan_batch: k_cb={k_cb}, rank={rank} over "
+                         f"rows of {w} (presorted={presorted}, a mask: "
+                         f"{ok is not None}, sqrt={sqrt})")
+    if not _on_cuda(vals, *(() if ok is None else (ok,))):
+        return _ref.sample_plan_batch(vals, ok, k_cb, m, n_ew, rank, sqrt,
+                                      margin, cap, presorted)
+    p = _sample_plan_launch(w, m, n_ew, presorted)
+    if not p.sort and not presorted:
+        # the long-row mode: the row's smallest, sorted, then the plan
+        vals = torch.topk(_ref.sample_values(vals, ok, sqrt),
+                          max(k_cb, rank or 0), dim=1, largest=False,
+                          sorted=True).values
+        ok, sqrt, w = None, False, vals.shape[1]
+    if vals.dtype != torch.float32 or (w > 1 and vals.stride(1) != 1):
+        raise ValueError(f"vals: the CUDA kernel takes fp32 rows of unit "
+                         f"stride, got {vals.dtype} strides {vals.stride()}")
+    if ok is not None:
+        _need(ok, "ok", torch.bool, (b, w))
+    dev = vals.device
+    edges = torch.empty(b, m + 1, dtype=torch.float32, device=dev)
+    d_min = torch.empty(b, dtype=torch.float32, device=dev)
+    delta = torch.empty(b, dtype=torch.float32, device=dev)
+    ew_map = torch.empty(b, n_ew, dtype=torch.int32, device=dev)
+    tau = None if rank is None else torch.empty(b, dtype=torch.int32,
+                                                device=dev)
+    if b == 0:
+        return (edges, d_min, delta, ew_map), tau
+    rc = _lib("sample_plan").sample_plan_launch(
+        vals.data_ptr(), None if ok is None else ok.data_ptr(),
+        vals.stride(0) if b > 1 else w, w, k_cb, p.sort, sqrt, b, m, n_ew,
+        rank or 0, margin, m if cap is None else cap, 1e-6, 1.02, 1e-7,
+        edges.data_ptr(), d_min.data_ptr(), delta.data_ptr(),
+        ew_map.data_ptr(), None if tau is None else tau.data_ptr(), p.padded,
+        p.threads, p.smem, _stream())
+    _check(rc, "sample_plan_batch")
+    LAUNCHES["sample_plan_batch" if p.sort else "sample_plan_sorted_batch"] \
+        += 1
+    return (edges, d_min, delta, ew_map), tau
 
 
 class CollectPlan(NamedTuple):

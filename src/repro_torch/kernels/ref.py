@@ -81,6 +81,84 @@ def bucket_hist_batch(dists: torch.Tensor, valid: torch.Tensor,
     return bucket, histogram_batch(bucket, valid, m)
 
 
+def codebook_from_topk(topk: torch.Tensor, m: int, n_ew: int = 256):
+    """Equal-depth codebooks from ascending local top-k rows (B, k):
+    returns (edges (B, m+1), d_min (B,), delta (B,), ew_map (B, n_ew)
+    int32), the fields of ``buffer.BucketCodebook``.
+
+    +inf entries (fewer valid lanes than k) are clamped to the row's largest
+    finite value; a row with none falls back to an all-zero range.  The
+    range keeps a 2% margin above d_max and the edges are made strictly
+    increasing, exactly as the reference does."""
+    dev = topk.device
+    finite = torch.isfinite(topk)
+    top_finite = torch.where(finite, topk, -INF).amax(dim=-1)
+    top_finite = torch.where(torch.isfinite(top_finite), top_finite, 0.0)
+    topk = torch.where(finite, topk, top_finite[:, None])
+    d_min = topk[:, 0]
+    d_max = topk[:, -1]
+    k = topk.shape[-1]
+    span = torch.maximum(d_max - d_min, torch.full_like(d_max, 1e-6)) * 1.02
+    delta = span / n_ew
+    # jnp.linspace(0, k-1, m+1) in float32: (k-1) * (i/m), then the endpoint
+    step = torch.arange(m, dtype=torch.float32, device=dev) / m
+    pos = torch.cat([(k - 1.0) * step,
+                     torch.full((1,), k - 1.0, device=dev)])
+    lo = torch.floor(pos).long()
+    hi = torch.clamp(lo + 1, max=k - 1)
+    frac = pos - lo.to(torch.float32)
+    edges = topk[:, lo] + (topk[:, hi] - topk[:, lo]) * frac
+    eps = span * 1e-7
+    edges = edges + eps[:, None] * torch.arange(m + 1, dtype=torch.float32,
+                                                device=dev)
+    centers = d_min[:, None] + (torch.arange(
+        n_ew, dtype=torch.float32, device=dev) + 0.5) * delta[:, None]
+    ew_map = torch.searchsorted(edges.contiguous(), centers.contiguous(),
+                                right=True) - 1
+    ew_map = ew_map.clamp(0, m - 1).to(torch.int32)
+    return edges, d_min, delta, ew_map
+
+
+def sample_values(vals: torch.Tensor, ok: torch.Tensor | None,
+                  sqrt: bool) -> torch.Tensor:
+    """A codebook sample's lanes as its plan ranks them: squared PQ
+    estimates (``sqrt``) become ``ok ? sqrt(clamp(vals, min=0)) : +inf``,
+    other values ``ok ? vals : +inf`` (``vals`` itself where ``ok`` is
+    None)."""
+    if sqrt:
+        vals = numerics.sqrt_rn(torch.clamp(vals, min=0.0))
+    return vals if ok is None else torch.where(ok, vals, INF)
+
+
+def sample_plan_batch(vals: torch.Tensor, ok: torch.Tensor | None, k_cb: int,
+                      m: int, n_ew: int = 256, rank: int | None = None,
+                      sqrt: bool = False, margin: int = 0,
+                      cap: int | None = None, presorted: bool = False):
+    """A query batch's sample plan from (B, w) sample values: the
+    equal-depth codebooks over each row's ``k_cb`` smallest (``sample_values``
+    of ``vals``, ``ok`` and ``sqrt``; ``torch.topk``'s order, NaN last),
+    and with a ``rank`` (1 to w) the Eq. 6 bucket of each row's rank-th
+    smallest, plus ``margin`` and at most ``cap`` where either is given.
+    ``presorted`` rows are already ascending (a caller's top-k; ``ok`` and
+    ``sqrt`` do not apply) and ``k_cb`` is their width.  Returns
+    (``codebook_from_topk``'s four fields, tau (B,) int32 or None)."""
+    k_cb = min(k_cb, vals.shape[-1])
+    if presorted:
+        srt = vals
+    else:
+        s = sample_values(vals, ok, sqrt)
+        srt = torch.topk(s, max(k_cb, rank or 0), dim=-1, largest=False,
+                         sorted=True).values
+    cb = codebook_from_topk(srt[:, :k_cb], m, n_ew)
+    if rank is None:
+        return cb, None
+    tau = bucketize_batch(srt[:, rank - 1:rank], cb[1], cb[2], cb[3], m)[:, 0]
+    if margin or cap is not None:
+        tau = torch.clamp(tau + margin, max=m if cap is None else cap).to(
+            torch.int32)
+    return cb, tau
+
+
 def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """(n, d) shared vectors, (B, d) queries -> (B, n) exact distances: the
     sum of (x - q)^2 in ascending coordinate order (``numerics.exact_dist``),

@@ -156,9 +156,12 @@ def test_fused_default_follows_the_device(rng):
 
 
 def test_kernel_sources_carry_their_notes():
+    """Each source names the TPU kernel it replaces, or says it replaces
+    none (a kernel for a composition the JAX package runs as XLA ops)."""
     for name in _build.KERNELS:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces: src/repro/kernels/" in src, name
+        assert ("Replaces: src/repro/kernels/" in src
+                or "Replaces no TPU kernel: the JAX package" in src), name
         assert "What bounds it on an H100" in src, name
         assert "What the design does about it" in src, name
         assert 'extern "C"' in src, name
@@ -177,7 +180,9 @@ def test_launch_counters_cover_the_four_kernels():
     kernels, the RaBitQ estimator and the four single-query forms; and one
     each for the codebook sample's ADC, its RaBitQ upper bounds and the
     second pass's gather, which no TPU kernel computes; one for the fused
-    scan's chunked-LUT form (#1 where a query's LUT outgrows a block)."""
+    scan's chunked-LUT form (#1 where a query's LUT outgrows a block); and
+    one for each mode of the sample plan's kernel (a row sorted in shared
+    memory, a row read sorted), which no TPU kernel computes either."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
@@ -187,10 +192,13 @@ def test_launch_counters_cover_the_four_kernels():
                                  "pq_sample_adc_batch",
                                  "l2_gather_rows_batch",
                                  "rabitq_sample_ub_batch",
-                                 "fused_scan_chunked_batch"}
+                                 "fused_scan_chunked_batch",
+                                 "sample_plan_batch",
+                                 "sample_plan_sorted_batch"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
-                                   "shard_collect", "rabitq_est"}
+                                   "shard_collect", "rabitq_est",
+                                   "sample_plan"}
     ops.LAUNCHES["pq_adc_batch"] = 3
     ops.reset_launches()
     assert set(ops.LAUNCHES.values()) == {0}

@@ -76,7 +76,8 @@ def _layout_inputs(rng, n_clusters, b, m_sub, n_probe):
 def test_sample_est_is_the_loop_bitwise(rng, m_sub):
     layout, probed, codes, luts, cap = _layout_inputs(rng, 40, 6, m_sub, 8)
     ops.reset_launches()
-    got = search._pq_sample_est(layout, probed, codes, luts, 4, cap)
+    got = search._sqrt_est(*search._pq_sample_adc(layout, probed, codes,
+                                                  luts, 4, cap))
     want = _loop_sample_est(layout, probed, codes, luts, 4, cap)
     assert got.shape == (6, 4 * cap)
     assert torch.equal(got, want)
@@ -142,17 +143,17 @@ def test_cuda_sample_adc_unstaged_luts(rng, cuda):
 
 @pytest.mark.cuda
 def test_cuda_sample_est_in_one_launch(rng, cuda):
-    """``_pq_sample_est`` on the card: one sample-ADC launch at M = 240 and
-    the CPU's bits."""
+    """``_pq_sample_adc`` on the card: one sample-ADC launch at M = 240 and
+    the CPU's bits (squares and lanes)."""
     layout, probed, codes, luts, cap = _layout_inputs(rng, 40, 32, 240, 8)
-    want = search._pq_sample_est(layout, probed, codes, luts, 4, cap)
+    want, want_ok = search._pq_sample_adc(layout, probed, codes, luts, 4, cap)
     dev_layout = ivf.FlatLayout(*(t.to(cuda) for t in layout))
     ops.reset_launches()
-    got = search._pq_sample_est(dev_layout, probed.to(cuda), codes.to(cuda),
-                                luts.to(cuda), 4, cap)
+    got, ok = search._pq_sample_adc(dev_layout, probed.to(cuda),
+                                    codes.to(cuda), luts.to(cuda), 4, cap)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["pq_sample_adc_batch"] == 1
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), want_ok)
 
 
 # ---- the second pass's chunks ---------------------------------------------

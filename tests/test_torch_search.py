@@ -135,7 +135,8 @@ def test_gist_width_sample_matches_reference(gist_setup):
     codes = search.build_stream(ti, tl).codes
     luts = tpq.adc_table(ti.pq, q)
     st = search.SAMPLE_TILES
-    got = search._pq_sample_est(tl, probed, codes, luts, st, ti.ivf.cap)
+    got = search._sqrt_est(*search._pq_sample_adc(tl, probed, codes, luts, st,
+                                                  ti.ivf.cap))
     want = np.asarray(jsearch._pq_sample_est(
         jl, jnp.asarray(probed.numpy()), jnp.asarray(codes.numpy()),
         jnp.asarray(luts.numpy()), st, ti.ivf.cap))
