@@ -73,9 +73,13 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      pass and at the GIST1M-width cell's shapes, B=32 x 40,000 slots, 88%
      set, d=960, held bitwise the same way; the fused scan's chunked-LUT
      kernel at the GIST1M-width 8-bit cell's shapes, B=32 x 1M lanes, M =
-     240 one-byte codes, d=960, held bitwise the same way); for #2 and #3 also
-     the ceiling their numerics leave (shared memory, instruction issue)
-     and the one-thread-per-row kernels' times they replaced;
+     240 one-byte codes, d=960, held bitwise the same way; the batched
+     fused scan at the deep-10M cell's shapes, B=32 x 10M lanes, M = 24
+     codes, d=96, 64 of 4,096 clusters probed, the kernel alone beside the
+     dense bound and the probed one, held bitwise the same way); for #2
+     and #3 also the ceiling their numerics leave (shared memory,
+     instruction issue) and the one-thread-per-row kernels' times they
+     replaced;
  12. the single-query path on the indexes of phases 4, 9 and 6: IVF+PQ+BBC,
      IVF+PQ, IVF+PQ+BBC predictive (singleton batches from cold),
      IVF+RaBitQ+BBC, the IVF+RaBitQ threshold baseline, IVF BBC and IVF
@@ -4111,6 +4115,105 @@ def timing_chunked(a, errs: dict) -> dict:
     return {"fused_scan_chunked_batch": t}
 
 
+def deep10m_scan_args(b=32, n=10_000_000, d=96, m_sub=24, c=4096,
+                      n_probe=64, pred=12_500):
+    """The deep-10M cell's scan in shape: B=32 queries over the 10M-lane
+    stream in ``c`` equal clusters, 24 4-bit codes a lane (a byte each,
+    no multiple of 16), d=96; each query probes ``n_probe`` distinct
+    clusters (1.6% of the lanes) and its threshold predicts about ``pred``
+    lanes (the searcher's pred_count at k=5000)."""
+    import torch
+    from repro_torch.core import buffer as rb
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    codes = torch.randint(0, 16, (n, m_sub), generator=g, device=DEV,
+                          dtype=torch.uint8)
+    vectors = torch.randn(n, d, generator=g, device=DEV)
+    probed = torch.rand(b, c, generator=g, device=DEV).argsort(1)[:, :n_probe]
+    hit = torch.zeros(b, c, dtype=torch.bool, device=DEV)
+    hit.scatter_(1, probed, True)
+    valid = hit.repeat_interleave(-(-n // c), dim=1)[:, :n].contiguous()
+    luts = torch.rand(b, m_sub, 16, generator=g, device=DEV) * 2
+    qs = torch.randn(b, d, generator=g, device=DEV)
+    est = torch.where(valid, torch.sqrt(ref.pq_adc_batch(codes, luts)),
+                      float("inf"))
+    cb = rb.build_codebook(est, k=40_000, m=128)
+    _, hist = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
+                                    cb.ew_map, 128)
+    tau = (torch.cumsum(hist, 1) < pred).sum(1).to(torch.int32)
+    return dict(codes=codes, vectors=vectors, valid=valid, luts=luts, qs=qs,
+                d_min=cb.d_min, delta=cb.delta, ew_maps=cb.ew_map, m=128,
+                tau_pred=tau, n_probe=n_probe)
+
+
+def timing_deep10m(a, errs: dict) -> dict:
+    """The batched fused scan (#1, ``fused_scan_kernel<8>``) at the deep-10M
+    cell's shapes: one launch of the whole-LUT kernel, bitwise its plain
+    version on the same card tensors; then the wrapper and the kernel alone
+    beside two bounds: the dense one of ``timing`` (the kernel's design:
+    the (B, n) mask read, three 4-byte (B, n) outputs written, a byte a
+    code) and the probed one (``portbench/roofline.py``'s
+    ``fused_scan_work``: 4 bits a probed lane's code, 12 B of outputs a
+    probed pair, each query's probe list)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    b, n = a["valid"].shape
+    m_sub, d = a["codes"].shape[1], a["vectors"].shape[1]
+    k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
+    args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
+            a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
+    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0))
+    check(not p.chunked and p.bq == 8 and p.blocks == ops.MAX_TILES,
+          f"the plan at the deep-10M shapes is not fused_scan_kernel<8>: {p}")
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_scan_batch(*args)
+    check(ops.LAUNCHES["fused_scan_batch"] == before["fused_scan_batch"] + 1
+          and ops.LAUNCHES["fused_scan_chunked_batch"]
+          == before["fused_scan_chunked_batch"],
+          "fused_scan_batch at the deep-10M shapes: not one whole-LUT launch")
+    t0 = time.monotonic()
+    want = ref.fused_scan_batch(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.monotonic() - t0)
+    errs["fused_scan_batch"] = max(
+        errs.get("fused_scan_batch", 0.0), max_abs(got[0], want[0]),
+        max_abs(got[3], want[3]))
+    check(all(same(x, y) for x, y in zip(got, want)),
+          f"fused_scan_batch at the deep-10M shapes (B={b}, n={n}, "
+          f"M={m_sub}) not bitwise its plain version")
+    del want
+    valid, pred = a["valid"], torch.isfinite(got[3])
+    lanes_probed = int(valid.any(0).sum().item())
+    rows_pred = int(pred.any(0).sum().item())
+    pairs_valid, pairs_pred = int(valid.sum().item()), int(pred.sum().item())
+    params = 4 * b * (m_sub * k_codes + d + n_ew + 3)
+    ops32 = pairs_valid * m_sub + 3 * d * pairs_pred
+    dense = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
+             + 3 * 4 * b * n + 4 * b * (m + 2) + params)
+    probed = (lanes_probed * m_sub // 2 + rows_pred * d * 4
+              + 4 * b * a["n_probe"] + 12 * pairs_valid + 4 * b * (m + 2)
+              + params)
+    del got
+    fn = lambda: ops.fused_scan_batch(*args)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20), plain_ms=plain_ms, library_ms=None,
+             work={"B": b, "n": n, "M": m_sub, "d": d,
+                   "lanes_probed": lanes_probed, "rows_predicted": rows_pred,
+                   "pairs_valid": pairs_valid, "pairs_predicted": pairs_pred,
+                   "dense_bytes": dense, "probed_bytes": probed,
+                   "device_ms": device_ms(fn, "fused_scan_kernel")})
+    t["bound_ms"], t["bound_by"] = bound(dense, ops32)
+    t["probed_bound_ms"], t["probed_bound_by"] = bound(probed, ops32)
+    log(f"[timing] fused_scan_batch at the deep-10M shapes (B={b}, n={n}, "
+        f"M={m_sub}, d={d}, {lanes_probed} lanes probed): bitwise, "
+        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms; dense "
+        f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({dense / 1e9:.3f} "
+        f"GB), probed bound {t['probed_bound_ms']:.4f} ms by "
+        f"{t['probed_bound_by']} ({probed / 1e9:.4f} GB); plain "
+        f"{plain_ms:.1f} ms; {pairs_valid} probed pairs, {pairs_pred} "
+        f"predicted")
+    return {"fused_scan_batch@deep10m": t}
+
+
 def timing_delta() -> dict:
     """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
     4096 rows of d=128): the wrapper call and the kernel alone beside the
@@ -4877,6 +4980,7 @@ def main(argv=None) -> int:
                                    "the d960 cell's shapes"))
         times.update(timing_delta())
         times.update(timing_chunked(d960_pq8_scan_args(), errs))
+        times.update(timing_deep10m(deep10m_scan_args(), errs))
         if rq_eng is not None:
             rq_args = rabitq_kernel_args(rq_eng, rq_queries[:32])
             times.update(timing_rabitq(rq_args, errs))

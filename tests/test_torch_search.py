@@ -188,6 +188,57 @@ def test_gist_width_8bit_matches_reference(gist8_setup):
                                atol=1e-4)
 
 
+# deep-10M's width: d = 96 under M = d/4 = 24 4-bit sub-quantizers, the one
+# M of the cells that is no multiple of 16 (the sample ADC's byte path)
+DEEP_N, DEEP_D, DEEP_C, DEEP_K, DEEP_PROBE = 4000, 96, 32, 100, 8
+
+
+@pytest.fixture(scope="module")
+def deep_setup():
+    rng = np.random.default_rng(96)
+    x = synthetic.clustered(rng, DEEP_N, DEEP_D, n_centers=24)
+    qs = synthetic.queries_from(rng, x, 4)
+    ji = jsearch.build_pq_index(jax.random.key(96), jnp.asarray(x), DEEP_C,
+                                n_iter=4)
+    arrays = {
+        "ivf_centroids": ji.ivf.centroids, "member_ids": ji.ivf.member_ids,
+        "member_valid": ji.ivf.member_valid,
+        "cluster_sizes": ji.ivf.cluster_sizes,
+        "pq_centroids": ji.pq.centroids, "codes": ji.codes,
+        "vectors": ji.vectors}
+    ti, tl = convert.pq_index_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()}, device="cpu")
+    return ji, jivf.flat_layout(ji.ivf), ti, tl, qs
+
+
+def test_deep_width_matches_reference(deep_setup):
+    """The batched fused searcher at deep-10M's width (M = 24): id sets and
+    both counters equal the reference's, and every distance lies within
+    1e-4 of the benchmark's float64 reference (``portbench/reference.py``)
+    for its id."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import reference
+
+    ji, jl, ti, tl, qs = deep_setup
+    assert ti.codes.shape == (DEEP_N, 24) and 24 % 16
+    jr = jsearch.ivf_pq_search_batch(
+        ji, jnp.asarray(qs), jl, k=DEEP_K, n_probe=DEEP_PROBE,
+        n_cand=8 * DEEP_K, use_bbc=True, fused=True, backend="ref")
+    tr = search.ivf_pq_search_batch(
+        ti, search.build_stream(ti, tl), torch.from_numpy(qs), tl, k=DEEP_K,
+        n_probe=DEEP_PROBE, n_cand=8 * DEEP_K, use_bbc=True, fused=True)
+    _assert_same(jr, tr)
+    assert int(tr.n_second_pass.sum()) > 0
+    exact = reference.exact_dists(torch.from_numpy(np.array(ji.vectors)),
+                                  torch.from_numpy(qs), tr.ids)
+    np.testing.assert_allclose(tr.dists.numpy(), exact.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_predictive_sequence_matches_reference(setup, fused):
     ji, jl, ti, tl, qs = setup
