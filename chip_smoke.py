@@ -40,12 +40,15 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      IVF+PQ+BBC engine at k=5000, then 4 predictive batches; recall@k;
      one sample-plan launch a call and no plain plan, and none of the
      composition's topk, kthvalue, searchsorted or sort left inside the
-     ``pq.sample`` span of a profiled call (``[plan]`` line);
+     ``pq.sample`` span of a profiled call (``[plan]`` line); one lane-mask
+     launch a call and no plain mask, and none of the mask composition's
+     index, bitwise_and or scatter_ left inside ``pq.route`` (``[route]``);
   9. the IVF+RaBitQ path at the same size (1024 clusters, n_probe=64,
      k=5000, B=32, m=128, eps0=3.0): 64 queries through the bound-fused
      engine, 4 predictive batches, the two-phase form and the threshold
      baseline; recall@k, which must reach 0.95 on the BBC forms; the
-     sample-plan check of phase 4 in the fused form's ``rabitq.sample``;
+     sample-plan check of phase 4 in the fused form's ``rabitq.sample``, the
+     lane-mask check in its ``rabitq.route``;
   5. CPU<->GPU parity of the engines (IVF+PQ, IVF+RaBitQ and IVF, every
      form, batched and sharded: the CPU engine on a one-rank gloo mesh, the
      card's on a one-rank NCCL mesh; each form also on single (d,)
@@ -76,7 +79,10 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      240 one-byte codes, d=960, held bitwise the same way; the batched
      fused scan at the deep-10M cell's shapes, B=32 x 10M lanes, M = 24
      codes, d=96, 64 of 4,096 clusters probed, the kernel alone beside the
-     dense bound and the probed one, held bitwise the same way); for #2
+     dense bound and the probed one, held bitwise the same way; the lane
+     mask at the deep-10M cell's routing, B=32 x 10M lanes, C = 4,096, 64
+     probed, and at the 1M cells', C = 1,024, bitwise ``ivf.probe_mask``
+     and beside that composition's time); for #2
      and #3 also the ceiling their numerics leave (shared memory,
      instruction issue) and the one-thread-per-row kernels' times they
      replaced;
@@ -278,6 +284,10 @@ KERNELS = {
     # sample_plan_sorted_batch)
     "sample_plan_batch": ("src/repro_torch/kernels/csrc/sample_plan.cu",
                           "src/repro/core/buffer.py:82"),
+    # no TPU kernel: the JAX package builds the lane mask with XLA's
+    # scatter, gather and AND
+    "probe_mask_batch": ("src/repro_torch/kernels/csrc/lane_mask.cu",
+                         "src/repro/index/ivf.py:159"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -1260,24 +1270,28 @@ PLAN_OPS = ("aten::topk", "aten::kthvalue", "aten::searchsorted",
             "aten::sort")
 
 
-class PlainPlanCalls:
-    """Counts the sample plan's plain-version calls while open (none may
-    come from card tensors: the wrapper launches the kernel or raises)."""
+class PlainCalls:
+    """Counts the calls of the plain version ``kernels.ref.<name>`` while
+    open (none may come from card tensors: the wrapper launches the kernel
+    or raises)."""
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
         from repro_torch.kernels import ref
-        self.calls, self._real = 0, ref.sample_plan_batch
+        self.calls, self._real = 0, getattr(ref, self.name)
 
         def counted(*a, **kw):
             self.calls += 1
             return self._real(*a, **kw)
 
-        ref.sample_plan_batch = counted
+        setattr(ref, self.name, counted)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ref
-        ref.sample_plan_batch = self._real
+        setattr(ref, self.name, self._real)
 
 
 def stage_ops(search_fn, stage: str) -> dict:
@@ -1308,7 +1322,7 @@ def check_plan_stage(search_fn, stage: str, tag: str) -> dict:
     composition's selections (``PLAN_OPS``) left in the sample stage."""
     from repro_torch.kernels import ops
     before = dict(ops.LAUNCHES)
-    with PlainPlanCalls() as plain:
+    with PlainCalls("sample_plan_batch") as plain:
         search_fn()
     got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v - before[k]}
     check(got.get("sample_plan_batch") == 1
@@ -1318,6 +1332,29 @@ def check_plan_stage(search_fn, stage: str, tag: str) -> dict:
     left = {k: v for k, v in inside.items() if k in PLAN_OPS}
     check(not left, f"{tag}: {left} inside {stage}")
     log(f"[plan] {tag}: one sample_plan_batch launch a call, no plain plan; "
+        f"{sum(inside.values())} aten operators inside {stage}: {inside}")
+    return inside
+
+
+# the lane mask's composition: the (B, n) gather hit[:, cluster_of], the
+# AND with the layout's validity, and the (B, C + 1) scatter before them
+ROUTE_OPS = ("aten::index", "aten::bitwise_and", "aten::scatter_")
+
+
+def check_route_stage(search_fn, stage: str, tag: str) -> dict:
+    """One lane-mask launch in one call, no plain mask, and none of the
+    composition's operators (``ROUTE_OPS``) left in the routing stage."""
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    with PlainCalls("probe_mask_batch") as plain:
+        search_fn()
+    got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v - before[k]}
+    check(got.get("probe_mask_batch") == 1 and plain.calls == 0,
+          f"{tag}: mask launches {got}, plain mask calls {plain.calls}")
+    inside = stage_ops(search_fn, stage)
+    left = {k: v for k, v in inside.items() if k in ROUTE_OPS}
+    check(not left, f"{tag}: {left} inside {stage}")
+    log(f"[route] {tag}: one probe_mask_batch launch a call, no plain mask; "
         f"{sum(inside.values())} aten operators inside {stage}: {inside}")
     return inside
 
@@ -1361,8 +1398,13 @@ def main_path(summary: dict, card: str):
           f"main path: {launches['sample_plan_batch']} + "
           f"{launches['sample_plan_sorted_batch']} plan launches in "
           f"{n_calls} calls")
+    check(launches["probe_mask_batch"] == n_calls,
+          f"main path: {launches['probe_mask_batch']} mask launches in "
+          f"{n_calls} calls")
     plan_ops = check_plan_stage(lambda: eng.search(qs[:b]), "pq.sample",
                                 "main path")
+    route_ops = check_route_stage(lambda: eng.search(qs[:b]), "pq.route",
+                                  "main path")
     for r in res + pres:
         check_result(r, b, k, "main path")
     rec = recall(x, qs[:8], res[0].ids[:8], k)
@@ -1379,7 +1421,8 @@ def main_path(summary: dict, card: str):
         "predictive_second_pass_mean": [
             float(r.n_second_pass.float().mean().item()) for r in pres],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "sample_stage_ops": plan_ops, "launches": launches, "card": card}
+        "sample_stage_ops": plan_ops, "route_stage_ops": route_ops,
+        "launches": launches, "card": card}
     log(f"[main] fused static ms/batch {ms}, QPS {1e3 * b / steady:.1f}, "
         f"recall@{k} {rec:.4f} (8 queries); predictive ms/batch {pms}, "
         f"recall {prec:.4f}; launches {launches}; {card}")
@@ -1469,6 +1512,8 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
           f"sample launches for {launches['fused_rabitq_scan_batch']} scans")
     plan_ops = check_plan_stage(lambda: engs["fused"].search(qs[:b]),
                                 "rabitq.sample", "RaBitQ path")
+    route_ops = check_route_stage(lambda: engs["fused"].search(qs[:b]),
+                                  "rabitq.route", "RaBitQ path")
     for r in res + pres + two:
         check_result(r, b, k, "rabitq bbc", ascending=False)
     check_result(base[0], b, k, "rabitq baseline")
@@ -1500,7 +1545,8 @@ def rabitq_path(summary: dict, card: str, x=None, qs=None):
         "baseline_reranked_mean": mean(base[0].n_reranked),
         "fused_vs_two_phase_overlap": same,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "sample_stage_ops": plan_ops, "launches": launches, "card": card}
+        "sample_stage_ops": plan_ops, "route_stage_ops": route_ops,
+        "launches": launches, "card": card}
     log(f"[rabitq] {json.dumps(summary['rabitq_path'])}")
     return engs["fused"], qs, launches, state[0]
 
@@ -4214,6 +4260,73 @@ def timing_deep10m(a, errs: dict) -> dict:
     return {"fused_scan_batch@deep10m": t}
 
 
+def mask_args(b: int, n: int, c: int, n_probe: int, seed: int) -> dict:
+    """A cell's routing in shape: a layout of ``n`` lanes in ``c``
+    clusters of random sizes (random cuts of the stream), cluster ``c`` on
+    its last 64 lanes, the padding, and B queries' ``n_probe`` distinct
+    probed clusters each (a strided view, as the routing's selection
+    gives)."""
+    import torch
+    from repro_torch.index import ivf
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    live = n - 64
+    cuts = torch.randint(0, live + 1, (c - 1,), generator=g, device=DEV)
+    offsets = torch.cat([cuts.new_zeros(1), torch.sort(cuts).values,
+                         cuts.new_full((1,), live)])
+    sizes = offsets.diff()
+    cluster_of = torch.full((n,), c, dtype=torch.int64, device=DEV)
+    cluster_of[:live] = torch.repeat_interleave(
+        torch.arange(c, device=DEV), sizes)
+    layout = ivf.FlatLayout(order=torch.arange(n, device=DEV),
+                            cluster_of=cluster_of, offsets=offsets,
+                            valid=torch.arange(n, device=DEV) < live)
+    probed = torch.rand(b, c, generator=g, device=DEV).argsort(1)[:, :n_probe]
+    return dict(layout=layout, probed=probed, c=c)
+
+
+def timing_mask(a, errs: dict, where: str) -> dict:
+    """The lane mask (``probe_mask_kernel``) at a cell's routing shapes:
+    one launch, bitwise ``ivf.probe_mask`` (the composition the routing ran
+    before the kernel: scatter, gather, AND) on the same card tensors; the
+    wrapper and the kernel alone beside the bound (B * n bytes written,
+    each lane's int64 cluster id and each probe read once) and the
+    composition's time."""
+    import torch
+    from repro_torch.index import ivf
+    from repro_torch.kernels import ops
+    layout, probed, c = a["layout"], a["probed"], a["c"]
+    b, n_probe = probed.shape
+    n = layout.n_flat
+    before = dict(ops.LAUNCHES)
+    got = ops.probe_mask_batch(layout.cluster_of, probed, c)
+    check({k: v - before[k] for k, v in ops.LAUNCHES.items()
+           if v - before[k]} == {"probe_mask_batch": 1},
+          f"probe_mask_batch at {where}: not one launch")
+    want = ivf.probe_mask(layout, probed, c)
+    errs["probe_mask_batch"] = max(errs.get("probe_mask_batch", 0.0),
+                                   float((got != want).sum().item()))
+    check(same(got, want), f"probe_mask_batch at {where} (B={b}, n={n}, "
+          f"C={c}) not bitwise ivf.probe_mask")
+    del got, want
+    nbytes = b * n + 8 * n + 8 * b * n_probe
+    fn = lambda: ops.probe_mask_batch(layout.cluster_of, probed, c)  # noqa
+    t = dict(ms=cuda_ms(fn, 20),
+             plain_ms=cuda_ms(lambda: ivf.probe_mask(layout, probed, c), 5),
+             library_ms=None,
+             work={"B": b, "n": n, "C": c, "n_probe": n_probe,
+                   "bytes": nbytes,
+                   "plan": ops._mask_plan(b, n, c, True,
+                                          ops._sms(0))._asdict(),
+                   "device_ms": device_ms(fn, "probe_mask_kernel")})
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 0)
+    log(f"[timing] probe_mask_batch at {where} (B={b}, n={n}, C={c}, "
+        f"n_probe={n_probe}): bitwise, {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']} ({nbytes / 1e9:.3f} GB); plain composition "
+        f"{t['plain_ms']:.4f} ms")
+    return t
+
+
 def timing_delta() -> dict:
     """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
     4096 rows of d=128): the wrapper call and the kernel alone beside the
@@ -4981,6 +5094,12 @@ def main(argv=None) -> int:
         times.update(timing_delta())
         times.update(timing_chunked(d960_pq8_scan_args(), errs))
         times.update(timing_deep10m(deep10m_scan_args(), errs))
+        times["probe_mask_batch"] = timing_mask(
+            mask_args(32, 10_000_000, 4096, 64, SEED + 11), errs,
+            "the deep-10M cell's shapes")
+        times["probe_mask_batch@1m"] = timing_mask(
+            mask_args(32, 1_000_064, 1024, 64, SEED + 12), errs,
+            "the 1M cells' shapes")
         if rq_eng is not None:
             rq_args = rabitq_kernel_args(rq_eng, rq_queries[:32])
             times.update(timing_rabitq(rq_args, errs))

@@ -4,7 +4,8 @@
 package (``cap`` is the largest cluster rounded up to 128).  ``FlatLayout``
 re-orders the corpus cluster by cluster with no per-cluster padding: the
 batched searchers gather the candidate stream once per batch in this order
-and give each query a boolean lane mask over it (``probe_mask``).  The
+and give each query a boolean lane mask over it (``probe_mask``; the
+routing computes the same bits with ``ops.probe_mask_batch``).  The
 single-query searchers read the padded table directly (``route``,
 ``gather_candidates``).
 """

@@ -204,21 +204,13 @@ def _routing(src, layout: ivf_mod.FlatLayout, qs: torch.Tensor,
     on every rank), and the (B, C) squared query-centroid distances.
     ``src`` is the ``IVFIndex`` or a ``Stream``: either carries the
     centroids.  ``live`` (n_flat,), the tombstone mask, is ANDed into the
-    lane masks: a dead lane is an unprobed one."""
+    lane masks: a dead lane is an unprobed one.  The masks are
+    ``ops.probe_mask_batch``, one kernel on the card, with the bits of
+    ``ivf.probe_mask``."""
     probed, d2 = ivf_mod.route_batch_centroids(src.centroids, qs, n_probe)
-    lane_valid = _live_lanes(
-        ivf_mod.probe_mask(layout, probed, src.centroids.shape[0]), live)
+    lane_valid = ops.probe_mask_batch(layout.cluster_of, probed,
+                                      src.centroids.shape[0], live)
     return probed, lane_valid, d2
-
-
-def _live_lanes(lane_valid: torch.Tensor, live: torch.Tensor | None):
-    """``lane_valid & live[None, :]`` (``live`` None: every lane live)."""
-    if live is None:
-        return lane_valid
-    if live.shape != lane_valid.shape[1:] or live.dtype != torch.bool:
-        raise ValueError(f"live mask {tuple(live.shape)} {live.dtype} for "
-                         f"{lane_valid.shape[1]} lanes")
-    return lane_valid & live[None, :]
 
 
 def _resolve_pred_count(pred_count: int | None, k: int,

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_scan", "pq_adc", "l2_rerank", "bucket_hist", "rabitq_fused",
-           "shard_collect", "rabitq_est", "sample_plan")
+           "shard_collect", "rabitq_est", "sample_plan", "lane_mask")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

@@ -1,6 +1,6 @@
 // Device functions shared by the port's kernels (fused_scan.cu, pq_adc.cu,
 // l2_rerank.cu, bucket_hist.cu, rabitq_fused.cu, shard_collect.cu,
-// rabitq_est.cu).
+// rabitq_est.cu, sample_plan.cu, lane_mask.cu).
 //
 // Numerics.  Build without --use_fast_math: the bucket id of an estimate
 // must equal the plain PyTorch version's for the same fp32 value, which

@@ -26,7 +26,8 @@ gather have no single-query form and count under ``pq_sample_adc_batch``,
 the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``, and
 the sample plan's kernel, by mode: ``sample_plan_batch`` (the row sorted in
 shared memory) and ``sample_plan_sorted_batch`` (a row read sorted: a long
-row after ``torch.topk``, or a caller's top-k).
+row after ``torch.topk``, or a caller's top-k).  The routing's lane mask
+counts under ``probe_mask_batch`` at every B.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -43,7 +44,8 @@ query and whether a query's LUT is staged, the sample's RaBitQ bounds'
 (``_sample_ub_plan``) its threads a block and shared rows, the second
 pass's gather's (``_gather_plan``) its lanes a row, load width and shared
 memory, the sample plan's (``_sample_plan_launch``) whether a block sorts
-the row in shared memory.  The CPU tests check the plans; the kernels
+the row in shared memory, the lane mask's (``_mask_plan``) its groups of
+queries, blocks a group and where a group's bitset lives.  The CPU tests check the plans; the kernels
 refuse a shared-memory size below their layout's.
 """
 from __future__ import annotations
@@ -65,7 +67,7 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "bucket_hist": 0, "pq_sample_adc_batch": 0,
             "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0,
             "fused_scan_chunked_batch": 0, "sample_plan_batch": 0,
-            "sample_plan_sorted_batch": 0}
+            "sample_plan_sorted_batch": 0, "probe_mask_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -113,6 +115,10 @@ EST_LANES = 128
 # keys a thread holds where a warp sorts 512 keys in registers (at least
 # 512 keys, at most 16 * 1024), and the threads that read a sorted row
 PLAN_THREADS, PLAN_LANE_KEYS, PLAN_SORTED_THREADS = 1024, 16, 256
+# lane_mask.cu: the queries a bitset word holds (a block's group), the
+# lanes a thread takes at a time, and the persistent blocks an SM holds
+# (its __launch_bounds__)
+MASK_GROUP, MASK_LANES, MASK_BLOCKS_PER_SM = 32, 16, 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -154,6 +160,9 @@ _SIGNATURES = {
     "sample_plan": {
         "sample_plan_launch": [_P] * 2 + [ctypes.c_longlong] + [_I] * 10
                               + [_F] * 3 + [_P] * 5 + [_I] * 3 + [_P]},
+    "lane_mask": {
+        "probe_mask_launch": [_P, _P, ctypes.c_longlong] + [_P] * 3
+                             + [ctypes.c_longlong] + [_I] * 6 + [_P]},
 }
 
 
@@ -1188,6 +1197,79 @@ def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
     _check(rc, "spec_compact_batch")
     LAUNCHES["spec_compact_batch"] += 1
     return pos, ok, count
+
+
+class MaskPlan(NamedTuple):
+    """One launch of the lane-mask kernel (``lane_mask.cu``)."""
+    groups: int          # groups of MASK_GROUP queries: the grid's 2nd axis
+    grid_x: int          # blocks a group
+    smem: int            # a group's bitset, bytes; 0: in device memory
+
+
+@functools.lru_cache(maxsize=4096)
+def _mask_plan(b: int, n: int, n_clusters: int, vec: bool,
+               sms: int = SMS) -> MaskPlan:
+    """The lane mask's launch: a group's (C + 1)-word bitset in shared
+    memory where it fits a block, else in device memory; a persistent grid
+    of at most ``MASK_BLOCKS_PER_SM`` blocks an SM (fewer where the bitset
+    limits them) shared among the groups, and no more blocks than give each
+    thread one step of ``MASK_LANES`` lanes (one lane unvectorised)."""
+    groups = -(-b // MASK_GROUP)
+    if groups > 65535:
+        raise ValueError(f"probe_mask_batch: {b} queries, more than the "
+                         f"65535 groups of a grid's second axis")
+    smem = 4 * (n_clusters + 1)
+    if smem > MAX_SMEM:
+        smem, per_sm = 0, MASK_BLOCKS_PER_SM
+    else:
+        per_sm = max(1, min(MASK_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    steps = n // MASK_LANES if vec else n
+    grid_x = max(1, min(-(-steps // LANE_TILE), -(-sms * per_sm // groups)))
+    return MaskPlan(groups, grid_x, smem)
+
+
+def probe_mask_batch(cluster_of: torch.Tensor, probed: torch.Tensor,
+                     n_clusters: int,
+                     live: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n) bool lane mask over a layout's (n,) int64 ``cluster_of`` (a
+    padding lane's cluster is ``n_clusters``): lane j is set for query b
+    iff ``probed[b]`` ((B, n_probe) int64, rows of unit stride) holds its
+    cluster, and ``live[j]`` where the (n,) bool tombstone mask is given.
+    See ``kernels.ref.probe_mask_batch``.  One launch on the card
+    (``_mask_plan``)."""
+    n = cluster_of.shape[0]
+    if live is not None and (live.shape != cluster_of.shape
+                             or live.dtype != torch.bool):
+        raise ValueError(f"live mask {tuple(live.shape)} {live.dtype} for "
+                         f"{n} lanes")
+    extra = () if live is None else (live,)
+    if not _on_cuda(cluster_of, probed, *extra):
+        return _ref.probe_mask_batch(cluster_of, probed, n_clusters, live)
+    b, p = probed.shape
+    _need(cluster_of, "cluster_of", torch.int64, (n,))
+    if live is not None:
+        _need(live, "live", torch.bool, (n,))
+    if probed.dtype != torch.int64 or (p > 1 and probed.stride(1) != 1):
+        raise ValueError(f"probed: the CUDA kernel takes int64 rows of unit "
+                         f"stride, got {probed.dtype} strides "
+                         f"{probed.stride()}")
+    dev = cluster_of.device
+    out = torch.empty(b, n, dtype=torch.bool, device=dev)
+    if b == 0 or n == 0:
+        return out
+    vec = n % MASK_LANES == 0 and _aligned(cluster_of, out, *extra)
+    pl = _mask_plan(b, n, n_clusters, vec, _sms(dev.index))
+    scratch = None if pl.smem else torch.empty(
+        pl.groups * (n_clusters + 1), dtype=torch.int32, device=dev)
+    rc = _lib("lane_mask").probe_mask_launch(
+        cluster_of.data_ptr(), probed.data_ptr(),
+        probed.stride(0) if b > 1 else p,
+        None if live is None else live.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, b, p, n_clusters,
+        vec, pl.grid_x, pl.smem, _stream())
+    _check(rc, "probe_mask_batch")
+    LAUNCHES["probe_mask_batch"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -262,6 +262,21 @@ def rabitq_sample_ub_batch(codes, s2, norm_o, f_o, cl, offsets, clusters,
     return torch.where(ok, ub, INF), ok
 
 
+def probe_mask_batch(cluster_of: torch.Tensor, probed: torch.Tensor,
+                     n_clusters: int,
+                     live: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n) lane mask: lane j is set for query b iff ``cluster_of[j]`` is
+    in ``probed[b]`` (and ``live[j]``, where given).  ``ivf.probe_mask``'s
+    scatter and gather; its ``& valid`` is left out, since a padding lane's
+    cluster is ``n_clusters``, whose column is cleared."""
+    hit = torch.zeros(probed.shape[0], n_clusters + 1, dtype=torch.bool,
+                      device=probed.device)
+    hit.scatter_(1, probed, True)
+    hit[:, n_clusters] = False
+    mask = hit[:, cluster_of]
+    return mask if live is None else mask & live[None, :]
+
+
 def spec_compact_batch(bucket: torch.Tensor, valid: torch.Tensor,
                        tau_spec: torch.Tensor, budget: int):
     """Stream-order compaction of the valid lanes at or below ``tau_spec``

@@ -180,9 +180,10 @@ def test_launch_counters_cover_the_four_kernels():
     kernels, the RaBitQ estimator and the four single-query forms; and one
     each for the codebook sample's ADC, its RaBitQ upper bounds and the
     second pass's gather, which no TPU kernel computes; one for the fused
-    scan's chunked-LUT form (#1 where a query's LUT outgrows a block); and
-    one for each mode of the sample plan's kernel (a row sorted in shared
-    memory, a row read sorted), which no TPU kernel computes either."""
+    scan's chunked-LUT form (#1 where a query's LUT outgrows a block); one
+    for each mode of the sample plan's kernel (a row sorted in shared
+    memory, a row read sorted), which no TPU kernel computes either; and
+    one for the routing's lane mask, which neither does."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
@@ -194,11 +195,12 @@ def test_launch_counters_cover_the_four_kernels():
                                  "rabitq_sample_ub_batch",
                                  "fused_scan_chunked_batch",
                                  "sample_plan_batch",
-                                 "sample_plan_sorted_batch"}
+                                 "sample_plan_sorted_batch",
+                                 "probe_mask_batch"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
                                    "shard_collect", "rabitq_est",
-                                   "sample_plan"}
+                                   "sample_plan", "lane_mask"}
     ops.LAUNCHES["pq_adc_batch"] = 3
     ops.reset_launches()
     assert set(ops.LAUNCHES.values()) == {0}
