@@ -204,6 +204,7 @@ def survivors_batch(bucket, valid, hist, k: int, m: int,
         most, top_tau = reads.tolist()
     budget = rb._collect_budget(k, n, slack_buckets, m)
     width = budget if most <= budget else min(n, -(-most // 128) * 128)
+    spans.count("collect.widened", int(most > budget))
     pos, ok, _ = ops.spec_compact_batch(bucket, valid, tau, width)
     return pos, ok, top_tau >= m or most > budget
 

@@ -917,6 +917,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     with spans.span("rerank.stragglers"):
         with spans.span("wait.straggler_budget"):
             most_second, most_kept, least_kept = reads.tolist()
+        spans.count("rerank.dense_stragglers", int(most_second > budget))
         if most_second > budget:
             stragglers = ops.l2_exact_batch(stream.vectors, qs)
         else:
@@ -931,6 +932,7 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
             tau_lb=tau_lb, a_lb=bucket_lb, a_ub=bucket_ub)
         if -least_kept < k:
             # a query with fewer than k valid lanes: the full-width sort
+            spans.count("select.full_width", 1)
             with spans.span("select.full_width"):
                 res = rerank.greedy_rerank_finalize(plan, exact_band, lb,
                                                     layout.order, k, est=est)

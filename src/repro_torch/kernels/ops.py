@@ -27,7 +27,12 @@ the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``, and
 the sample plan's kernel, by mode: ``sample_plan_batch`` (the row sorted in
 shared memory) and ``sample_plan_sorted_batch`` (a row read sorted: a long
 row after ``torch.topk``, or a caller's top-k).  The routing's lane mask
-counts under ``probe_mask_batch`` at every B.
+counts under ``probe_mask_batch`` at every B.  While a profiler records,
+the two batched fused scans also count (``spans.count``, in the wrapper
+that chooses the grid) the (query, lane) pairs their grid covers, B x n
+today, as ``scan.pairs_passed``, and the probed ones among them, the set
+bits of the lane mask that their histogram counts, as
+``scan.pairs_probed``.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -57,6 +62,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -374,6 +380,16 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+def _count_pairs(valid: torch.Tensor, hist: torch.Tensor) -> None:
+    """A fused scan's work, while a profiler records: the (query, lane)
+    pairs its grid covers (``scan.pairs_passed``, every lane of ``valid``)
+    and those of them probed, the lanes ``valid`` sets, which the scan's
+    (B, m+1) histogram ``hist`` counts once each (``scan.pairs_probed``,
+    its sum, read after the window)."""
+    spans.count("scan.pairs_passed", valid.shape[0] * valid.shape[1])
+    spans.count("scan.pairs_probed", hist)
+
+
 def _count(name: str, b: int) -> None:
     """One launch of a batched kernel: at B = 1 it is the single-query
     kernel's launch."""
@@ -645,15 +661,17 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     chunked-LUT kernel at any B (``_batch_scan_plan``)."""
     if not _on_cuda(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
                     tau_pred):
-        return _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
-                                     delta, ew_maps, m, tau_pred)
-    if luts.shape[0] == 1:
-        out = _fused_scan_one(codes, vectors, valid.reshape(-1), luts[0],
-                              qs.reshape(-1), d_min, delta, ew_maps, m,
-                              tau_pred)
-        return tuple(t[None] for t in out)
-    return _scan_batch(None, codes, vectors, valid, luts, qs, d_min, delta,
-                       ew_maps, m, tau_pred)
+        out = _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
+                                    delta, ew_maps, m, tau_pred)
+    elif luts.shape[0] == 1:
+        out = tuple(t[None] for t in _fused_scan_one(
+            codes, vectors, valid.reshape(-1), luts[0], qs.reshape(-1),
+            d_min, delta, ew_maps, m, tau_pred))
+    else:
+        out = _scan_batch(None, codes, vectors, valid, luts, qs, d_min,
+                          delta, ew_maps, m, tau_pred)
+    _count_pairs(valid, out[2])
+    return out
 
 
 def _scan_batch(plan: ScanPlan | None, codes, vectors, valid, luts, qs,
@@ -831,9 +849,11 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     certified, nmiss)``; see ``kernels.ref.fused_rabitq_scan_batch``."""
     if not _on_cuda(codes, vectors, s2, norm_o, f_o, cl, g, qs, nq, valid,
                     d_min, delta, ew_maps, tau_inline):
-        return _ref.fused_rabitq_scan_batch(
+        outs = _ref.fused_rabitq_scan_batch(
             codes, vectors, s2, norm_o, f_o, cl, g, qs, nq, valid, d_min,
             delta, ew_maps, m, tau_inline, eps0=eps0)
+        _count_pairs(valid, outs[5])
+        return outs
     n, d = codes.shape
     b, c = nq.shape
     n_ew = ew_maps.shape[1]
@@ -862,6 +882,7 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     nmiss = torch.zeros(b, dtype=torch.int32, device=dev)
     outs = (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
             certified, nmiss)
+    _count_pairs(valid, hist_lb)
     if b == 0 or n == 0:
         return outs
     lib = _lib("rabitq_fused")

@@ -1,4 +1,5 @@
-"""Stage spans of the search path, kept in memory while a profiler runs.
+"""Stage spans and work counters of the search path, kept in memory while
+a profiler runs.
 
 The batched searchers mark their stages (routing, stream gather, tables or
 sample bounds, sample and plan, scan, collection, second pass, selection)
@@ -6,6 +7,11 @@ and every host read that blocks on the device (``wait.<site>``):
 
     with spans.span("pq.scan"):
         ...
+
+and count, at the same boundaries, the work they decide inside a call:
+
+    spans.count("collect.widened", int(most > budget))
+    spans.count("scan.pairs_probed", hist)
 
 A span is recorded only while a torch profiler is recording in this thread
 (``torch.autograd.profiler.profile`` or ``torch.profiler.profile``); at any
@@ -18,10 +24,18 @@ stamped on (``(t - prof.kineto_results.trace_start_ns()) / 1e3`` puts a
 record on the profiler's microseconds).  The spans are not profiler events:
 ``record_function`` ranges would also appear on the device's timeline.
 
-Records go into a buffer of ``CAPACITY`` records; past it they are dropped
-and counted (``RECORDER.dropped``).  ``records()`` returns a copy,
-``clear()`` empties it.  There is no exporter: a reader takes the records
-from the process that made them.
+A counter is attached to the innermost open span: it holds that span's
+call id and id, its name and its value (with no span open it records
+nothing).  The value is a host int the caller already holds, or a small
+tensor the call makes anyway, whose sum ``counters()`` reads after the
+window: a counter adds no kernel, no allocation and no host read inside a
+call.
+
+Spans and counters go into one buffer of ``CAPACITY`` records; past it
+they are dropped and counted (``RECORDER.dropped``).  ``records()``
+returns a copy of the spans, ``counters()`` of the counters with every
+value an int, ``clear()`` empties the buffer.  There is no exporter: a
+reader takes the records from the process that made them.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ import threading
 import time
 from typing import NamedTuple
 
+import torch
 from torch._C._autograd import _profiler_enabled
 
 CAPACITY = 65536
@@ -46,9 +61,17 @@ class SpanRecord(NamedTuple):
     t1_ns: int
 
 
+class CountRecord(NamedTuple):
+    """One counter, attached to span ``span`` of call ``call``."""
+    call: int
+    span: int
+    name: str
+    value: object        # an int; before ``counters()``, maybe a tensor
+
+
 class Recorder:
-    """A fixed-capacity buffer of closed spans and the open spans of each
-    thread."""
+    """A fixed-capacity buffer of closed spans and counters, and the open
+    spans of each thread."""
 
     def __init__(self, capacity: int = CAPACITY):
         self.capacity = capacity
@@ -64,8 +87,32 @@ class Recorder:
             return _OFF
         return _Span(self, name)
 
+    def count(self, name: str, value) -> None:
+        """Attach ``(name, value)``, an int or a tensor to be summed, to
+        the innermost open span while a profiler is recording, else
+        nothing."""
+        if not _profiler_enabled():
+            return
+        stack = self._stack()
+        if stack:
+            top = stack[-1]
+            self._keep(CountRecord(top.call, top.id, name, value))
+
     def records(self) -> list[SpanRecord]:
-        return list(self._records)
+        return [r for r in self._records if type(r) is SpanRecord]
+
+    def counters(self) -> list[CountRecord]:
+        """The counters, each value an int.  A tensor's sum is read here,
+        once, and kept in its place (which lets go of the tensor), so read
+        this after the calls, never inside one."""
+        out = []
+        for i, r in enumerate(self._records):
+            if type(r) is CountRecord:
+                if isinstance(r.value, torch.Tensor):
+                    r = self._records[i] = r._replace(
+                        value=int(r.value.sum()))
+                out.append(r)
+        return out
 
     def clear(self) -> None:
         self._records.clear()
@@ -77,7 +124,7 @@ class Recorder:
             stack = self._open.stack = []
         return stack
 
-    def _keep(self, rec: SpanRecord) -> None:
+    def _keep(self, rec) -> None:
         if len(self._records) < self.capacity:
             self._records.append(rec)
         else:
@@ -113,5 +160,7 @@ class _Span:
 _OFF = contextlib.nullcontext()
 RECORDER = Recorder()
 span = RECORDER.span
+count = RECORDER.count
 records = RECORDER.records
+counters = RECORDER.counters
 clear = RECORDER.clear
