@@ -415,30 +415,39 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
     import torch
     from repro_torch.kernels import ops, ref
     a = inp
+    # #1 over each query's lists (a random quarter of them), as the
+    # searcher calls it: compared on the lists' lanes
+    valid, lists, on = probe_lists(a["valid"], SEED + a["valid"].shape[1])
     est, bucket, hist, early, nmiss = ops.fused_scan_batch(
-        a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"], a["d_min"],
-        a["delta"], a["ew_maps"], a["m"], a["tau_pred"])
+        a["codes"], a["vectors"], valid, a["luts"], a["qs"], a["d_min"],
+        a["delta"], a["ew_maps"], a["m"], a["tau_pred"], *lists)
     torch.cuda.synchronize()
     p_est, p_bucket, p_hist, p_early, p_nmiss = ref.fused_scan_batch(
-        a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"], a["d_min"],
+        a["codes"], a["vectors"], valid, a["luts"], a["qs"], a["d_min"],
         a["delta"], a["ew_maps"], a["m"], a["tau_pred"])
-    e1 = close(est, p_est, 1e-5, f"{tag} fused est")
+    e1 = close(est[on], p_est[on], 1e-5, f"{tag} fused est")
     # integer outputs: equal to the plain version run on the kernel's est
-    r_bucket, r_hist = ref.bucket_hist_batch(est, a["valid"], a["d_min"],
-                                             a["delta"], a["ew_maps"], a["m"])
-    pred = a["valid"] & (r_bucket <= a["tau_pred"][:, None])
-    r_nmiss = (a["valid"] & ~pred).sum(1).to(torch.int32)
+    # (its walked lanes; +inf elsewhere)
+    est = torch.where(on, est, float("inf"))
+    r_bucket, r_hist = ref.bucket_hist_batch(
+        est, valid, a["d_min"], a["delta"], a["ew_maps"], a["m"])
+    pred = valid & (r_bucket <= a["tau_pred"][:, None])
+    r_nmiss = (valid & ~pred).sum(1).to(torch.int32)
     # early against the exact distances of the same predicted lanes
     p_early = torch.where(pred, ref.l2_exact_batch(a["vectors"], a["qs"]),
                           float("inf"))
-    e2 = close(early, p_early, 1e-4, f"{tag} fused early")
-    check(torch.equal(early, p_early), f"{tag} fused early not bitwise equal")
-    log(f"[kernels] {tag}: fused est bit-identical to the plain version: "
-        f"{torch.equal(est, p_est)}; early bit-identical")
-    check(torch.equal(bucket, r_bucket), f"{tag} fused bucket")
+    e2 = close(early[on], p_early[on], 1e-4, f"{tag} fused early")
+    check(torch.equal(early[on], p_early[on]),
+          f"{tag} fused early not bitwise equal")
+    log(f"[kernels] {tag}: fused est over {lists[0].shape[1]} of "
+        f"{lists[1].shape[0] - 1} lists a query ({int(on.sum().item())} "
+        f"walked pairs of {on.numel()}) bit-identical to the plain version "
+        f"on the walked lanes: {torch.equal(est[on], p_est[on])}; early "
+        f"bit-identical")
+    check(torch.equal(bucket[on], r_bucket[on]), f"{tag} fused bucket")
     check(torch.equal(hist, r_hist), f"{tag} fused hist")
     check(torch.equal(nmiss, r_nmiss), f"{tag} fused nmiss")
-    check(torch.equal(torch.isfinite(early), pred),
+    check(torch.equal(torch.isfinite(early)[on], pred[on]),
           f"{tag} early finite exactly where bucket <= tau_pred")
     errs["fused_scan_batch"] = max(errs.get("fused_scan_batch", 0.0), e1, e2)
 
@@ -456,7 +465,7 @@ def check_kernels(inp, errs: dict, tag: str) -> None:
     check(torch.equal(l2, p_l2), f"{tag} l2 not bitwise equal")
     errs["l2_exact_batch"] = max(errs.get("l2_exact_batch", 0.0), e)
 
-    bkt, h = ops.bucket_hist_batch(est, a["valid"], a["d_min"], a["delta"],
+    bkt, h = ops.bucket_hist_batch(est, valid, a["d_min"], a["delta"],
                                    a["ew_maps"], a["m"])
     torch.cuda.synchronize()
     check(torch.equal(bkt, r_bucket), f"{tag} bucket_hist bucket")
@@ -955,6 +964,66 @@ def same(a, b) -> bool:
     return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
 
 
+def probe_lists(valid, seed: int, share: float = 0.25):
+    """#1's lists for a (B, n) lane mask: the n lanes cut at random points
+    into lists (some empty; one list where n < 128), each query given a
+    random ``share`` of them, distinct and in random order, and the mask
+    kept inside them.  Returns (mask, (probed (B, P) int64, offsets
+    (C + 1) int64, cap), walked (B, n): the lanes of each query's lists)."""
+    import torch
+    b, n = valid.shape
+    dev = valid.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = max(1, min(1024, n // 64))
+    cuts = torch.randint(0, n + 1, (c - 1,), generator=g, device=dev)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         cuts.sort().values,
+                         torch.full((1,), n, dtype=torch.int64, device=dev)])
+    probed = torch.rand(b, c, generator=g, device=dev).argsort(1)
+    probed = probed[:, :max(1, int(c * share))]
+    walked = lanes_of(probed, offsets, n)
+    cap = int((offsets[1:] - offsets[:-1]).max().item())
+    return valid & walked, (probed, offsets, cap), walked
+
+
+def lanes_of(probed, offsets, n: int):
+    """(B, n) bool: the lanes of each query's lists ``probed`` over the
+    list starts ``offsets``."""
+    import torch
+    c = offsets.shape[0] - 1
+    owner = torch.searchsorted(offsets[1:], torch.arange(n, device=DEV),
+                               right=True).clamp(max=c - 1)
+    hit = torch.zeros(probed.shape[0], c, dtype=torch.bool, device=DEV)
+    hit.scatter_(1, probed, True)
+    return hit[:, owner]
+
+
+def lists_holding(valid, offsets, seed: int):
+    """Each query's lists over ``offsets`` that hold a lane of ``valid``,
+    then others at random up to the widest query's count: (B, P) int64."""
+    import torch
+    b, n = valid.shape
+    c = offsets.shape[0] - 1
+    owner = torch.searchsorted(offsets[1:], torch.arange(n, device=DEV),
+                               right=True).clamp(max=c - 1)
+    held = torch.zeros(b, c, dtype=torch.int32, device=DEV).scatter_add_(
+        1, owner.expand(b, n), valid.int()) > 0
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    key = held.float() * 2 + torch.rand(b, c, generator=g, device=DEV)
+    width = int(held.sum(1).max().item())
+    return key.argsort(1, descending=True)[:, :max(1, width)]
+
+
+def same_on(got, want, walked, what: str) -> None:
+    """#1's outputs: est, bucket and early equal on the walked lanes (NaN
+    where NaN), hist and nmiss whole."""
+    names = ("est", "bucket", "hist", "early", "nmiss")
+    for name, x, y in zip(names, got, want):
+        if x.shape == walked.shape:
+            x, y = x[walked], y[walked]
+        check(same(x, y), f"{what}: {name} differs from the plain version")
+
+
 def fused_edge_inputs(seed, b, n, m_sub, d, shift: int = 0,
                       density: float = 0.5, odd: bool = True):
     """Fused-scan inputs with what its kernels must get right: per query a
@@ -1009,7 +1078,8 @@ FUSED_ARGS = ("codes", "vectors", "valid", "luts", "qs", "d_min", "delta",
 
 def check_fused_edges(errs: dict) -> None:
     """#1 and the one-query kernel #9 bitwise against the plain version
-    (every output, NaN where it is NaN) on ``fused_edge_inputs``: +inf and
+    (every output, NaN where it is NaN; #1 also over a quarter of random
+    lists a query, on the lists' lanes) on ``fused_edge_inputs``: +inf and
     NaN lanes and rows, degenerate codebooks, thresholds -1 and m, n not a
     multiple of 4 or of a work item, unaligned views, M of whole-word rows
     (16, 24, 32) and not (8, 33), d of several staging passes and not a
@@ -1037,8 +1107,12 @@ def check_fused_edges(errs: dict) -> None:
         for shift in (0, 1):
             a = fused_edge_inputs(SEED + i, 4, n, m_sub, d, shift)
             args = [a[k] for k in FUSED_ARGS]
+            what = f"fused_scan_batch B=4 n={n} M={m_sub} d={d} shift={shift}"
             hold(ops.fused_scan_batch(*args), ref.fused_scan_batch(*args),
-                 f"fused_scan_batch B=4 n={n} M={m_sub} d={d} shift={shift}")
+                 what)
+            args[2], lists, on = probe_lists(args[2], SEED + i)
+            same_on(ops.fused_scan_batch(*args, *lists),
+                    ref.fused_scan_batch(*args), on, what + " (lists)")
             for j in range(4):
                 one = one_args(a, j)
                 want = ref.fused_scan(*one)
@@ -1067,7 +1141,8 @@ def check_fused_edges(errs: dict) -> None:
         hold(got, want, "fused_scan: a repeated call")
     errs["fused_scan_batch"] = max(errs.get("fused_scan_batch", 0.0), 0.0)
     errs["fused_scan"] = max(errs.get("fused_scan", 0.0), 0.0)
-    log(f"[kernels] fused_scan (B=1) and fused_scan_batch (B=4) at (n, M, "
+    log(f"[kernels] fused_scan (B=1) and fused_scan_batch (B=4, over every "
+        f"lane and over a quarter of random lists) at (n, M, "
         f"d) in {shapes}, aligned and unaligned, +inf/NaN lanes and rows, "
         f"delta 0 and d_min +inf, thresholds -1/5/m/3/m, no valid lane, "
         f"every lane predicted: bitwise equal to the plain version (the "
@@ -3886,6 +3961,7 @@ def main_path_kernel_args(eng, qs):
     return dict(codes=codes, vectors=vecs, valid=lane_valid, luts=luts,
                 qs=qs, d_min=plans.cb.d_min, delta=plans.cb.delta,
                 ew_maps=plans.cb.ew_map, m=eng.m, tau_pred=plans.tau_pred,
+                lists=(probed, lay.offsets, ix.ivf.cap), n_probe=eng.n_probe,
                 spos=spos, sok=sok, plan=dict(
                     vals=est2, ok=sok, k_cb=min(eng.n_cand, est2.shape[1]),
                     m=eng.m, sqrt=True, rank=max(1, round(
@@ -3909,7 +3985,8 @@ def timing(a) -> dict:
     k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
     args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
             a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
-    est, bucket, _, _, _ = ops.fused_scan_batch(*args)
+    lists = a["lists"]
+    est, bucket, _, _, _ = ops.fused_scan_batch(*args, *lists)
     pred = a["valid"] & (bucket <= a["tau_pred"][:, None])
     lanes_probed = int(a["valid"].any(0).sum().item())
     rows_pred = int(pred.any(0).sum().item())
@@ -3918,19 +3995,34 @@ def timing(a) -> dict:
     params = 4 * b * (m_sub * k_codes + d + n_ew + 3)
     out = {}
 
-    fused_bytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
+    # the probed bound (portbench/roofline.py's fused_scan_work: 4 bits a
+    # probed lane's code, 12 B of outputs a probed pair, the probe lists)
+    # and the dense one of the design before (the (B, n) mask read and
+    # three (B, n) outputs written, a byte a code)
+    probed_bytes = (lanes_probed * m_sub // 2 + rows_pred * d * 4
+                    + 4 * b * a["n_probe"] + 12 * pairs_valid
+                    + 4 * b * (m + 2) + params)
+    dense_bytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
                    + 3 * 4 * b * n + 4 * b * (m + 2) + params)
     # ADC adds; per predicted pair a subtract, multiply and add per coordinate
     fused_ops = pairs_valid * m_sub + 3 * d * pairs_pred
+    fn = lambda: ops.fused_scan_batch(*args, *lists)  # noqa: E731
     out["fused_scan_batch"] = dict(
-        ms=cuda_ms(lambda: ops.fused_scan_batch(*args), 20),
+        ms=cuda_ms(fn, 20),
         plain_ms=cuda_ms(lambda: ref.fused_scan_batch(*args), 3, warm=1),
         library_ms=None, work={"lanes_probed": lanes_probed,
                                "rows_predicted": rows_pred,
                                "pairs_valid": pairs_valid,
-                               "pairs_predicted": pairs_pred})
-    out["fused_scan_batch"]["bound_ms"], out["fused_scan_batch"]["bound_by"] \
-        = bound(fused_bytes, fused_ops)
+                               "pairs_predicted": pairs_pred,
+                               "device_ms": device_ms(fn,
+                                                      "fused_scan_kernel")})
+    t = out["fused_scan_batch"]
+    t["bound_ms"], t["bound_by"] = bound(probed_bytes, fused_ops)
+    t["dense_bound_ms"], _ = bound(dense_bytes, fused_ops)
+    log(f"[timing] fused_scan_batch at the main path's shapes over the probed "
+        f"lists: {t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms; "
+        f"probed bound {t['bound_ms']:.4f} ms by {t['bound_by']}, dense "
+        f"bound {t['dense_bound_ms']:.4f} ms")
 
     c, lt = a["codes"], a["luts"]
     out["pq_adc_batch"] = dict(
@@ -4103,16 +4195,20 @@ def d960_pq8_scan_args(b=32, n=1_000_064, d=960, m_sub=240, k_codes=256,
     _, hist = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
                                     cb.ew_map, 128)
     tau = (torch.cumsum(hist, 1) < pred).sum(1).to(torch.int32)
+    offsets = (torch.arange(-(-n // run) + 1, device=DEV) * run).clamp(max=n)
     return dict(codes=codes, vectors=vectors, valid=valid, luts=luts, qs=qs,
                 d_min=cb.d_min, delta=cb.delta, ew_maps=cb.ew_map, m=128,
-                tau_pred=tau)
+                tau_pred=tau, lists=(lists_holding(valid, offsets, SEED + 9),
+                                     offsets, run))
 
 
 def timing_chunked(a, errs: dict) -> dict:
-    """The chunked-LUT scan at the 8-bit d960 cell's shapes: the plan takes
-    it, one launch a call, bitwise its plain version on the same card
-    tensors; then the wrapper and the kernel alone timed beside the bound
-    (``timing``'s arithmetic at one byte a code) and the plain version."""
+    """The chunked-LUT scan at the 8-bit d960 cell's shapes: given each
+    query's lists, as the searcher calls it, the plan takes it over every
+    lane, one launch a call, every output bitwise its plain version on the
+    same card tensors; then the wrapper and the kernel alone timed beside
+    the bound (``timing``'s dense arithmetic at one byte a code) and the
+    plain version."""
     import torch
     from repro_torch.kernels import ops, ref
     b, n = a["valid"].shape
@@ -4120,11 +4216,15 @@ def timing_chunked(a, errs: dict) -> dict:
     k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
     args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
             a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
-    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0))
+    lists = a["lists"]
+    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0),
+                             lists[0].shape[1], lists[2])
     check(p.chunked, f"the plan at B={b}, M={m_sub}, K={k_codes}, d={d} is "
           f"not the chunked kernel: {p}")
+    check(bool((a["valid"] & ~lanes_of(*lists[:2], n)).sum() == 0),
+          "the 8-bit shapes' lists miss a valid lane")
     before = ops.LAUNCHES["fused_scan_chunked_batch"]
-    got = ops.fused_scan_batch(*args)
+    got = ops.fused_scan_batch(*args, *lists)
     check(ops.LAUNCHES["fused_scan_chunked_batch"] == before + 1,
           "fused_scan_chunked_batch: not one launch a call")
     want = ref.fused_scan_batch(*args)
@@ -4141,7 +4241,7 @@ def timing_chunked(a, errs: dict) -> dict:
     params = 4 * b * (m_sub * k_codes + d + n_ew + 3)
     nbytes = (lanes_probed * m_sub + rows_pred * d * 4 + b * n
               + 3 * 4 * b * n + 4 * b * (m + 2) + params)
-    fn = lambda: ops.fused_scan_batch(*args)  # noqa: E731
+    fn = lambda: ops.fused_scan_batch(*args, *lists)  # noqa: E731
     t = dict(ms=cuda_ms(fn, 20),
              plain_ms=cuda_ms(lambda: ref.fused_scan_batch(*args), 3, warm=1),
              library_ms=None,
@@ -4187,20 +4287,23 @@ def deep10m_scan_args(b=32, n=10_000_000, d=96, m_sub=24, c=4096,
     _, hist = ref.bucket_hist_batch(est, valid, cb.d_min, cb.delta,
                                     cb.ew_map, 128)
     tau = (torch.cumsum(hist, 1) < pred).sum(1).to(torch.int32)
+    size = -(-n // c)
+    offsets = (torch.arange(c + 1, device=DEV) * size).clamp(max=n)
     return dict(codes=codes, vectors=vectors, valid=valid, luts=luts, qs=qs,
                 d_min=cb.d_min, delta=cb.delta, ew_maps=cb.ew_map, m=128,
-                tau_pred=tau, n_probe=n_probe)
+                tau_pred=tau, n_probe=n_probe, lists=(probed, offsets, size))
 
 
 def timing_deep10m(a, errs: dict) -> dict:
-    """The batched fused scan (#1, ``fused_scan_kernel<8>``) at the deep-10M
-    cell's shapes: one launch of the whole-LUT kernel, bitwise its plain
-    version on the same card tensors; then the wrapper and the kernel alone
-    beside two bounds: the dense one of ``timing`` (the kernel's design:
-    the (B, n) mask read, three 4-byte (B, n) outputs written, a byte a
-    code) and the probed one (``portbench/roofline.py``'s
-    ``fused_scan_work``: 4 bits a probed lane's code, 12 B of outputs a
-    probed pair, each query's probe list)."""
+    """The batched fused scan (#1, ``fused_scan_kernel``) at the deep-10M
+    cell's shapes over each query's 64 probed lists: one launch of the
+    whole-LUT kernel, bitwise its plain version on the same card tensors
+    on every walked lane (hist and nmiss whole); then the wrapper and the
+    kernel alone beside two bounds: the dense one (the design before: the
+    (B, n) mask read, three 4-byte (B, n) outputs written, a byte a code)
+    and the probed one (``portbench/roofline.py``'s ``fused_scan_work``: 4
+    bits a probed lane's code, 12 B of outputs a probed pair, each query's
+    probe list)."""
     import torch
     from repro_torch.kernels import ops, ref
     b, n = a["valid"].shape
@@ -4208,11 +4311,13 @@ def timing_deep10m(a, errs: dict) -> dict:
     k_codes, n_ew, m = a["luts"].shape[2], a["ew_maps"].shape[1], a["m"]
     args = (a["codes"], a["vectors"], a["valid"], a["luts"], a["qs"],
             a["d_min"], a["delta"], a["ew_maps"], m, a["tau_pred"])
-    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0))
-    check(not p.chunked and p.bq == 8 and p.blocks == ops.MAX_TILES,
-          f"the plan at the deep-10M shapes is not fused_scan_kernel<8>: {p}")
+    lists = a["lists"]
+    p = ops._batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m, ops._sms(0),
+                             lists[0].shape[1], lists[2])
+    check(not p.chunked,
+          f"the plan at the deep-10M shapes is not fused_scan_kernel: {p}")
     before = dict(ops.LAUNCHES)
-    got = ops.fused_scan_batch(*args)
+    got = ops.fused_scan_batch(*args, *lists)
     check(ops.LAUNCHES["fused_scan_batch"] == before["fused_scan_batch"] + 1
           and ops.LAUNCHES["fused_scan_chunked_batch"]
           == before["fused_scan_chunked_batch"],
@@ -4221,14 +4326,15 @@ def timing_deep10m(a, errs: dict) -> dict:
     want = ref.fused_scan_batch(*args)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.monotonic() - t0)
+    valid = a["valid"]                      # the lanes of the lists
     errs["fused_scan_batch"] = max(
-        errs.get("fused_scan_batch", 0.0), max_abs(got[0], want[0]),
-        max_abs(got[3], want[3]))
-    check(all(same(x, y) for x, y in zip(got, want)),
-          f"fused_scan_batch at the deep-10M shapes (B={b}, n={n}, "
-          f"M={m_sub}) not bitwise its plain version")
+        errs.get("fused_scan_batch", 0.0),
+        max_abs(got[0][valid], want[0][valid]),
+        max_abs(got[3][valid], want[3][valid]))
+    same_on(got, want, valid, f"fused_scan_batch at the deep-10M shapes "
+            f"(B={b}, n={n}, M={m_sub})")
     del want
-    valid, pred = a["valid"], torch.isfinite(got[3])
+    pred = valid & torch.isfinite(got[3])
     lanes_probed = int(valid.any(0).sum().item())
     rows_pred = int(pred.any(0).sum().item())
     pairs_valid, pairs_pred = int(valid.sum().item()), int(pred.sum().item())
@@ -4240,9 +4346,9 @@ def timing_deep10m(a, errs: dict) -> dict:
               + 4 * b * a["n_probe"] + 12 * pairs_valid + 4 * b * (m + 2)
               + params)
     del got
-    fn = lambda: ops.fused_scan_batch(*args)  # noqa: E731
+    fn = lambda: ops.fused_scan_batch(*args, *lists)  # noqa: E731
     t = dict(ms=cuda_ms(fn, 20), plain_ms=plain_ms, library_ms=None,
-             work={"B": b, "n": n, "M": m_sub, "d": d,
+             work={"B": b, "n": n, "M": m_sub, "d": d, "blocks": p.blocks,
                    "lanes_probed": lanes_probed, "rows_predicted": rows_pred,
                    "pairs_valid": pairs_valid, "pairs_predicted": pairs_pred,
                    "dense_bytes": dense, "probed_bytes": probed,
@@ -4250,7 +4356,8 @@ def timing_deep10m(a, errs: dict) -> dict:
     t["bound_ms"], t["bound_by"] = bound(dense, ops32)
     t["probed_bound_ms"], t["probed_bound_by"] = bound(probed, ops32)
     log(f"[timing] fused_scan_batch at the deep-10M shapes (B={b}, n={n}, "
-        f"M={m_sub}, d={d}, {lanes_probed} lanes probed): bitwise, "
+        f"M={m_sub}, d={d}, {lanes_probed} lanes probed, {p.blocks} blocks "
+        f"a query): bitwise on the walked lanes, "
         f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms; dense "
         f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({dense / 1e9:.3f} "
         f"GB), probed bound {t['probed_bound_ms']:.4f} ms by "
@@ -4631,28 +4738,28 @@ FUSED_B1_PR14_MS = 0.0162
 
 
 def fused_bq1(f):
-    """One call of the batched fused-scan kernel at one query (BQ = 1, a
-    (1, 1024) grid of 256-lane blocks): #9's design before the one-query
-    kernel, still the batched kernel's one-query chunk, launched here to
-    time beside it (no launch is counted).  ``f``: phase 12's arguments,
-    (1, n) validity."""
+    """One call of the batched fused-scan kernel (``fused_scan_kernel``) at
+    one query over one list of every lane, launched here to time beside
+    the one-query kernel #9 (no launch is counted).  ``f``: phase 12's
+    arguments, (1, n) validity."""
     import torch
     from repro_torch.kernels import ops
-    lib = ops._lib("fused_scan")
+    lib = ops._scan_lib()
     n, m_sub = f["codes"].shape
     d, m = f["vectors"].shape[1], f["m"]
     k_codes, n_ew = f["luts"].shape[2], f["ew_maps"].shape[1]
     est, bucket, early, hist, nmiss, counts = ops._scan_outputs(1, n, m, DEV)
-    smem = lib.fused_scan_smem_bytes(1, m_sub, k_codes, d, n_ew, m)
+    p = ops._batch_scan_plan(1, n, m_sub, k_codes, d, n_ew, m, ops._sms(0))
+    probed, offsets = ops._one_list(n, DEV)
     par = [f[k].to(dt).contiguous() for k, dt in (
         ("d_min", torch.float32), ("delta", torch.float32),
         ("ew_maps", torch.int32), ("tau_pred", torch.int32))]
     rc = lib.fused_scan_batch_launch(
         f["codes"].data_ptr(), f["vectors"].data_ptr(), f["valid"].data_ptr(),
         f["luts"].data_ptr(), f["qs"].data_ptr(), *(t.data_ptr() for t in par),
-        est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
-        counts.data_ptr(), n, m_sub, k_codes, d, 1, n_ew, m, 1, ops._tiles(n),
-        smem, ops._stream())
+        probed.data_ptr(), offsets.data_ptr(), est.data_ptr(),
+        bucket.data_ptr(), early.data_ptr(), counts.data_ptr(), n, m_sub,
+        k_codes, d, 1, n_ew, m, 1, 0, 0, p.blocks, p.smem, ops._stream())
     check(rc == 0, f"fused_scan_batch_launch at BQ=1 returned {rc}")
     return est[0], bucket[0], hist[0], early[0], nmiss[0]
 
@@ -4804,7 +4911,7 @@ def timing_single(a, errs: dict) -> dict:
     want = ref.fused_scan(*fargs)
     bq1 = fused_bq1(f)
     for form, outs in (("one-query kernel", got),
-                       ("batched kernel at BQ=1", bq1)):
+                       ("batched kernel at one query", bq1)):
         check(all(same(x_, y_) for x_, y_ in zip(outs, want)),
               f"fused_scan ({form}) at phase 12's shapes differs from the "
               f"plain version")
@@ -4832,11 +4939,11 @@ def timing_single(a, errs: dict) -> dict:
                             "fused_scan_b1_kernel")}
     for name, (fn, kernel) in calls.items():
         out[name]["work"]["device_ms"] = device_ms(fn, kernel)
-    # #9's kernel beside the design before it (the batched kernel at one
-    # query), whose reading in PR 14 was 0.0162 ms
+    # #9's kernel beside the batched kernel at one query
+    # (FUSED_B1_PR14_MS: the design before #9)
     fw = out["fused_scan"]["work"]
     fw["device_ms_batched_kernel_bq1"] = device_ms(lambda: fused_bq1(f),
-                                                   "fused_scan_kernel<1>")
+                                                   "fused_scan_kernel<")
     # what the launch costs with no predicted row (tau_pred -1) and with no
     # valid lane (only the +inf stores)
     fw["device_ms_no_predicted_row"] = device_ms(

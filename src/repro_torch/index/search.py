@@ -539,7 +539,7 @@ def ivf_pq_search_batch(index: PQIndex, stream: Stream, qs: torch.Tensor,
             est, bucket, hist, early, nmiss = ops.fused_scan_batch(
                 stream.codes, stream.vectors, lane_valid, luts, qs,
                 plans.cb.d_min, plans.cb.delta, plans.cb.ew_map, m,
-                plans.tau_pred)
+                plans.tau_pred, probed, layout.offsets, ivf.cap)
         # ``collect_batch`` by its halves (ids: the positions), so that the
         # scan's (B, n) outputs go once read: past the scan the call may
         # need no more memory than the scan, the stream being held
@@ -611,7 +611,8 @@ def _ivf_pq_predictive_batch(index, stream, qs, layout, probed, lane_valid,
     if fused:
         est, bucket, hist, early, nmiss = ops.fused_scan_batch(
             stream.codes, stream.vectors, lane_valid, luts, qs,
-            cbs.d_min, cbs.delta, cbs.ew_map, m, tau_pred)
+            cbs.d_min, cbs.delta, cbs.ew_map, m, tau_pred, probed,
+            layout.offsets, ivf.cap)
         n_early = (lane_valid.sum(1) - nmiss).to(torch.int32)
     else:
         est = _sqrt_est(ops.pq_adc_batch(stream.codes, luts), lane_valid)

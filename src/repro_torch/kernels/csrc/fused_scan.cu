@@ -12,38 +12,59 @@
 // kernel at one query).
 // Plain versions: kernels/ref.py fused_scan_batch and fused_scan.
 //
-// What bounds it on an H100: device-memory bytes.  Per call it reads the
-// uint8 code rows of the lanes some query probes, the fp32 vector rows of
-// the lanes some query predicts, the (B, n) validity mask, and writes three
-// (B, n) 4-byte outputs; the ADC adds and the exact leg's subtract,
-// multiply and add per coordinate come to far less time than the bytes at
-// 3.35 TB/s.  The exact leg is the direct sum of (x - q)^2 in the plain
-// version's order (see scan_common.cuh).  At one query (n = 1M lanes, one
-// probe mask of 64 clusters in 1024) the three outputs, 12 bytes a lane,
-// are most of the bytes, and the valid lanes (1 in 16, in runs of whole
-// clusters) carry a chain of latencies: validity, code rows, the division
-// of the bucket, the predicted rows.
+// What bounds it on an H100.  The batched kernel walks only the lanes of
+// each query's probed lists (1.5% of the (query, lane) pairs at the
+// deep-10M shapes, 6% at the 1M cells'), so the floor is the probed bytes:
+// a code row and a mask byte per probed pair, 12 bytes of outputs per
+// probed pair, the fp32 rows of the predicted lanes; at B = 32, n = 10M,
+// 64 of 4,096 lists a query, 0.260 GB, 0.0777 ms at 3.35 TB/s.  Walking
+// every lane instead (the design before: the (B, n) mask read and three
+// (B, n) outputs written) is 4.408 GB, 1.3157 ms.  Within the walk, the
+// predicted rows carry a latency chain (each row summed by its own thread,
+// the rows of the nearest lists first in every query's walk), and the
+// valid lanes one of mask byte, code row, LUT words and the bucket's
+// division.  The exact leg is the direct sum of (x - q)^2 in the plain
+// version's order (see scan_common.cuh).
 //
 // What the design does about it.
 //  Batched kernel (B > 1):
-//  * The per-query ADC tables and ew_maps sit in shared memory and are
-//    indexed directly (the Pallas kernel's one-hot MXU matmuls are a TPU
-//    stand-in for exactly this gather).  Neighbouring threads read
-//    neighbouring LUT words: no bank conflicts.
-//  * One thread owns one lane and reads that lane's code row and (only if a
-//    query predicts it) its vector row once for the BQ queries of its block.
-//    Rows are contiguous, so a warp's row reads cover contiguous memory and
-//    each 32-byte sector is used whole through L1.
-//  * blockIdx.x walks the query chunks fastest, so the chunks of one lane
-//    tile run side by side and the later ones read the tile from L2.
-//  * Lanes no query probes are written as (+inf, bucket of +inf, +inf)
-//    without reading their codes or vectors; that is what the plain version
-//    yields for them.
-//  * The histogram and the miss counts are per-block shared-memory atomics
-//    folded into the globals, which the launch function zeroes with one
-//    memset, with one atomicAdd per nonzero bin: CUDA blocks run
-//    concurrently, unlike the TPU grid the Pallas kernel's
-//    accumulate-at-program_id-0 relies on.
+//  * One query a block (blockIdx.y): its LUT (1.5 KB at M = 24, 2 KB at
+//    M = 32, 15 KB at M = 240, 4 bits a code), query row, ew_map and
+//    parameters are staged once, and its P lists' sizes are summed into a
+//    running sum in shared memory (warp 0's shuffle scan).  The lists, laid
+//    end to end nearest first, make one virtual range of W lanes; a thread
+//    maps its virtual lane to (list, offset) by a binary search of that
+//    sum, so a 256-lane tile may straddle lists, and lanes of no walked
+//    list are neither read nor written.
+//  * A block walks tile blockIdx.x, then every gridDim.x-th: consecutive
+//    tiles go to consecutive blocks, so the nearest lists, which hold the
+//    predicted rows, spread over the SMs.  The grid (ops._batch_scan_plan)
+//    is two waves of four blocks an SM split over the queries, 33 blocks a
+//    query at B = 32, bounded by the tiles of P x the largest list: it is
+//    known on the host, so the call adds no sync.
+//  * Each walked lane reads its mask byte (tombstones stay exact) and does
+//    the plain version's arithmetic: the ADC sum in ascending m from a
+//    code row read as 16- or 8-byte words where M and the row allow, the
+//    bucket, the threshold, and the predicted row's exact sum with its
+//    16-byte words loaded kRowLoads at a time before their adds, in
+//    ascending coordinates; a walked lane off the mask is written (+inf,
+//    bucket of +inf, +inf).  Every output it writes is the plain version's
+//    bit for bit; the rest of the (B, n) outputs is left unwritten, and
+//    the callers read them only on the mask.
+//  * Histogram bins below m are shared-memory atomics; bucket m and the
+//    misses are counted per warp by ballot; one atomicAdd per nonzero bin
+//    folds a block into the globals, which the launch function zeroes with
+//    one memset together with each query's walked-lane count (written by
+//    the query's first block).
+//  Tried on an H100 80GB HBM3 (B = 32, n = 10M, 64 of 4,096 lists a query,
+//  ~12,500 lanes predicted a query; kernel ms from torch.profiler): the
+//  same kernel over one list of every lane, 2.19; over the lists, 0.200,
+//  of which no predicted row 0.107 and no valid lane 0.050.  Kept: two
+//  waves of four blocks an SM (one wave 0.304, three 0.230, eight 0.218;
+//  64 registers); dropped: six blocks an SM (40 registers, 0.236-0.258)
+//  and eight (32 registers with spills, 0.215-0.252).  The row loaded 1,
+//  4 or 8 words at a time: 0.2073 / 0.2058 / 0.2005 ms here, 0.992 /
+//  0.989 / 0.912 at the d960 4-bit shapes (3.84 KB rows).
 //  One-query kernel (B = 1).  The batched kernel at B = 1 ran a (1, 1024)
 //  grid of 256-lane blocks, each staging the LUT, query and ew_map and
 //  zeroing and flushing a histogram for four tiles of work, with a serial
@@ -119,8 +140,86 @@ namespace {
 
 constexpr float kInf = __builtin_huge_valf();
 
-template <int BQ>
-__global__ void __launch_bounds__(bbc::kThreads)
+constexpr int kWarps = bbc::kThreads / 32;
+constexpr int kListBlocksPerSm = 4;                   // ops.FS_LIST_BLOCKS_PER_SM
+constexpr unsigned kFull = 0xffffffffu;
+
+// sum over m ascending of LUT[m, code[m]] for one code row of M bytes: W =
+// 16 or 8, the row read as whole words of W bytes (M a multiple of W, the
+// row on a W-byte boundary); W = 0, a byte at a time.  The adds are the
+// plain version's: fp32, from 0, in ascending m.
+template <int W>
+__device__ __forceinline__ float adc_row(const uint8_t* __restrict__ row,
+                                         int M, int K, const float* lut_s) {
+  float acc = 0.f;
+  if constexpr (W == 0) {
+    for (int mm = 0; mm < M; ++mm)
+      acc = __fadd_rn(acc, lut_s[mm * K + __ldg(row + mm)]);
+  } else {
+#pragma unroll 4
+    for (int t = 0; t < M / W; ++t) {
+      unsigned w[W / 4];
+      if constexpr (W == 16) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + t);
+        w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+      } else {
+        const uint2 x = __ldg(reinterpret_cast<const uint2*>(row) + t);
+        w[0] = x.x; w[1] = x.y;
+      }
+      const float* l = lut_s + W * t * K;
+#pragma unroll
+      for (int u = 0; u < W; ++u)
+        acc = __fadd_rn(acc, l[u * K + ((w[u >> 2] >> (8 * (u & 3))) & 0xffu)]);
+    }
+  }
+  return acc;
+}
+
+// |x - q|^2 over one vector row, bbc::sq_dists<1>'s sum (ascending
+// coordinates, no contraction), with the row's 16-byte words loaded
+// kRowLoads at a time before their adds where the row allows them.
+constexpr int kRowLoads = 8;
+
+__device__ __forceinline__ float row_sq(const float* __restrict__ xr,
+                                        const float* q_s, int d) {
+  float acc = 0.f;
+  if ((d & 3) != 0 || (reinterpret_cast<uintptr_t>(xr) & 15) != 0) {
+    bbc::sq_dists<1>(xr, q_s, d, &acc);
+    return acc;
+  }
+  const float4* x4 = reinterpret_cast<const float4*>(xr);
+  const int words = d / 4;
+  int t = 0;
+  for (; t + kRowLoads <= words; t += kRowLoads) {
+    float4 x[kRowLoads];
+#pragma unroll
+    for (int u = 0; u < kRowLoads; ++u) x[u] = __ldg(x4 + t + u);
+#pragma unroll
+    for (int u = 0; u < kRowLoads; ++u) {
+      const float* q = q_s + 4 * (t + u);
+      acc = bbc::add_sq(acc, x[u].x, q[0]);
+      acc = bbc::add_sq(acc, x[u].y, q[1]);
+      acc = bbc::add_sq(acc, x[u].z, q[2]);
+      acc = bbc::add_sq(acc, x[u].w, q[3]);
+    }
+  }
+  for (; t < words; ++t) {
+    const float4 x = __ldg(x4 + t);
+    const float* q = q_s + 4 * t;
+    acc = bbc::add_sq(acc, x.x, q[0]);
+    acc = bbc::add_sq(acc, x.y, q[1]);
+    acc = bbc::add_sq(acc, x.z, q[2]);
+    acc = bbc::add_sq(acc, x.w, q[3]);
+  }
+  return acc;
+}
+
+// One query a block (blockIdx.y); its P probed lists (cluster ids
+// probed[q * pstride + j], nearest first, lanes [offsets[c], offsets[c+1])
+// of the stream) laid end to end as a virtual range [0, W_q), walked in
+// kThreads-lane tiles: tile blockIdx.x, then every gridDim.x-th.
+template <int W>
+__global__ void __launch_bounds__(bbc::kThreads, kListBlocksPerSm)
 fused_scan_kernel(const uint8_t* __restrict__ codes,
                   const float* __restrict__ vectors,
                   const uint8_t* __restrict__ valid,
@@ -130,120 +229,121 @@ fused_scan_kernel(const uint8_t* __restrict__ codes,
                   const float* __restrict__ delta,
                   const int* __restrict__ ew_maps,
                   const int* __restrict__ tau_pred,
+                  const int64_t* __restrict__ probed,
+                  const int64_t* __restrict__ offsets,
                   float* __restrict__ est, int* __restrict__ bucket,
                   float* __restrict__ early, int* __restrict__ hist,
-                  int* __restrict__ nmiss, int n, int M, int K, int d, int B,
-                  int n_ew, int m) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, B - q0);
+                  int* __restrict__ nmiss, int* __restrict__ walked, int n,
+                  int M, int K, int d, int n_ew, int m, int P,
+                  int pstride) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = blockIdx.y;
   const int m1 = m + 1;
-  const int mk = M * K;
-  float* lut_s = smem;                                   // BQ * M * K
-  float* q_s = lut_s + BQ * mk;                          // BQ * d
-  float* par_s = q_s + BQ * d;                           // BQ * 2
-  int* ew_s = reinterpret_cast<int*>(par_s + 2 * BQ);    // BQ * n_ew
-  int* hist_s = ew_s + BQ * n_ew;                        // BQ * m1
-  int* tau_s = hist_s + BQ * m1;                         // BQ
-  int* miss_s = tau_s + BQ;                              // BQ
-  int* binf_s = miss_s + BQ;                             // BQ
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  float* lut_s = smem;                                  // M * K
+  float* q_s = lut_s + M * K;                           // d
+  int* ew_s = reinterpret_cast<int*>(q_s + d);          // n_ew
+  int* hist_s = ew_s + n_ew;                            // m1
+  int* miss_s = hist_s + m1;                            // 1
+  int* pre_s = miss_s + 1;                              // P + 1
+  int* start_s = pre_s + P + 1;                         // P
 
-  bbc::stage_rows(lut_s, luts, q0, nq, mk);
-  bbc::stage_rows(q_s, qs, q0, nq, d);
-  bbc::stage_rows(ew_s, ew_maps, q0, nq, n_ew);
-  for (int i = threadIdx.x; i < BQ * m1; i += blockDim.x) hist_s[i] = 0;
-  if (threadIdx.x < BQ) {
-    const int j = threadIdx.x;
-    const bool live = j < nq;
-    par_s[2 * j] = live ? d_min[q0 + j] : 0.f;
-    par_s[2 * j + 1] = live ? delta[q0 + j] : 1.f;
-    tau_s[j] = live ? tau_pred[q0 + j] : -1;
-    miss_s[j] = 0;
+  bbc::stage_rows(lut_s, luts, q, 1, M * K);
+  bbc::stage_rows(q_s, qs, q, 1, d);
+  bbc::stage_rows(ew_s, ew_maps, q, 1, n_ew);
+  for (int i = threadIdx.x; i < m1; i += blockDim.x) hist_s[i] = 0;
+  if (threadIdx.x == 0) miss_s[0] = 0;
+  for (int j = threadIdx.x; j < P; j += blockDim.x) {
+    const int64_t c = probed[static_cast<size_t>(q) * pstride + j];
+    const int64_t s = offsets[c];
+    start_s[j] = static_cast<int>(s);
+    pre_s[j + 1] = static_cast<int>(offsets[c + 1] - s);   // the list's size
+  }
+  const float dm = d_min[q], dl = delta[q];
+  const int tau = tau_pred[q];
+  __syncthreads();
+  if (warp == 0) {            // the sizes' running sum: pre_s[j] = Σ_{i<j}
+    int carry = 0;
+    for (int base = 0; base < P; base += 32) {
+      const int j = base + wl;
+      int x = j < P ? pre_s[j + 1] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (wl >= o) x += y;
+      }
+      if (j < P) pre_s[j + 1] = carry + x;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (wl == 0) pre_s[0] = 0;
   }
   __syncthreads();
-  if (threadIdx.x < BQ) {       // the bucket of a lane off the probe (+inf)
-    const int j = threadIdx.x;
-    const float dm = par_s[2 * j], dl = par_s[2 * j + 1];
-    binf_s[j] = bbc::bucket_of_inf(kInf, dm, dl, bbc::inf_to_m(dm, dl),
-                                   ew_s + j * n_ew, n_ew, m);
-  }
-  __syncthreads();
+  const int total = pre_s[P];
+  if (blockIdx.x == 0 && threadIdx.x == 0) walked[q] = total;
+  const int b_inf = bbc::bucket_of_inf(kInf, dm, dl, bbc::inf_to_m(dm, dl),
+                                       ew_s, n_ew, m);
+  const size_t row0 = static_cast<size_t>(q) * n;
 
-  for (int tile = blockIdx.y; tile * bbc::kThreads < n; tile += gridDim.y) {
-    const int lane = tile * bbc::kThreads + threadIdx.x;
-    if (lane >= n) continue;
-    bool v[BQ];
-    bool any_v = false;
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) {
-      v[j] = j < nq && valid[static_cast<size_t>(q0 + j) * n + lane];
-      any_v |= v[j];
-    }
-    float acc[BQ];
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) acc[j] = 0.f;
-    if (any_v) {
-      const uint8_t* crow = codes + static_cast<size_t>(lane) * M;
-      for (int mm = 0; mm < M; ++mm) {
-        const float* l = lut_s + mm * K + crow[mm];
-#pragma unroll
-        for (int j = 0; j < BQ; ++j) acc[j] += l[j * mk];
+  int n_m = 0, n_miss = 0;                 // this warp's, in every lane
+  for (int tile = blockIdx.x; tile * bbc::kThreads < total;
+       tile += gridDim.x) {
+    const int v = tile * bbc::kThreads + threadIdx.x;
+    const bool in = v < total;
+    int lane = 0;
+    if (in) {                 // the last list that starts at or before v
+      int lo = 0, hi = P - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pre_s[mid] <= v) lo = mid; else hi = mid - 1;
       }
+      lane = start_s[lo] + (v - pre_s[lo]);
     }
-    bool p[BQ];
-    bool any_p = false;
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) {
-      p[j] = false;
-      if (j >= nq) continue;
-      const size_t o = static_cast<size_t>(q0 + j) * n + lane;
-      float e = kInf;
-      int b = binf_s[j];
-      if (v[j]) {
-        e = bbc::clamp0_sqrt(acc[j]);
-        b = bbc::bucket_of(e, par_s[2 * j], par_s[2 * j + 1],
-                           ew_s + j * n_ew, n_ew, m);
-        atomicAdd(&hist_s[j * m1 + b], 1);
-        p[j] = b <= tau_s[j];
-        if (!p[j]) atomicAdd(&miss_s[j], 1);
-      }
-      est[o] = e;
-      bucket[o] = b;
-      any_p |= p[j];
+    const bool ok = in && valid[row0 + lane];
+    float e = kInf, ex = kInf;
+    int b = b_inf;
+    if (ok) {
+      e = bbc::clamp0_sqrt(adc_row<W>(codes + static_cast<size_t>(lane) * M,
+                                      M, K, lut_s));
+      b = bbc::bucket_of(e, dm, dl, ew_s, n_ew, m);
+      if (b != m) atomicAdd(&hist_s[b], 1);
     }
-    float sq[BQ];
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) sq[j] = 0.f;
-    if (any_p)
-      bbc::sq_dists<BQ>(vectors + static_cast<size_t>(lane) * d, q_s, d, sq);
-#pragma unroll
-    for (int j = 0; j < BQ; ++j) {
-      if (j >= nq) continue;
-      early[static_cast<size_t>(q0 + j) * n + lane] =
-          p[j] ? sqrtf(sq[j]) : kInf;
+    const bool p = ok && b <= tau;
+    n_m += __popc(__ballot_sync(kFull, ok && b == m));
+    n_miss += __popc(__ballot_sync(kFull, ok && !p));
+    if (p) ex = sqrtf(row_sq(vectors + static_cast<size_t>(lane) * d, q_s, d));
+    if (in) {
+      est[row0 + lane] = e;
+      bucket[row0 + lane] = b;
+      early[row0 + lane] = ex;
     }
   }
+  if (wl == 0) {              // bucket m and the misses: by ballot only
+    if (n_m) atomicAdd(&hist_s[m], n_m);
+    if (n_miss) atomicAdd(miss_s, n_miss);
+  }
   __syncthreads();
-  bbc::flush_hist(hist_s, hist, q0, nq, m1);
-  if (threadIdx.x < nq && miss_s[threadIdx.x])
-    atomicAdd(&nmiss[q0 + threadIdx.x], miss_s[threadIdx.x]);
+  bbc::flush_hist(hist_s, hist, q, 1, m1);
+  if (threadIdx.x == 0 && miss_s[0]) atomicAdd(&nmiss[q], miss_s[0]);
 }
 
-template <int BQ>
+template <int W>
 int launch(const uint8_t* codes, const float* vectors, const uint8_t* valid,
            const float* luts, const float* qs, const float* d_min,
            const float* delta, const int* ew_maps, const int* tau_pred,
-           float* est, int* bucket, float* early, int* counts, int n, int M,
-           int K, int d, int B, int n_ew, int m, int tiles, int smem,
+           const int64_t* probed, const int64_t* offsets, float* est,
+           int* bucket, float* early, int* counts, int n, int M, int K, int d,
+           int B, int n_ew, int m, int P, int pstride, int blocks, int smem,
            cudaStream_t stream) {
-  cudaError_t err = bbc::allow_smem(fused_scan_kernel<BQ>, smem);
+  cudaError_t err = bbc::allow_smem(fused_scan_kernel<W>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(counts, 0, sizeof(int) * B * (m + 2), stream);
+  err = cudaMemsetAsync(counts, 0, sizeof(int) * B * (m + 3), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + BQ - 1) / BQ, tiles);
-  fused_scan_kernel<BQ><<<grid, bbc::kThreads, smem, stream>>>(
-      codes, vectors, valid, luts, qs, d_min, delta, ew_maps, tau_pred, est,
-      bucket, early, counts, counts + B * (m + 1), n, M, K, d, B, n_ew, m);
+  const dim3 grid(blocks, B);
+  int* nmiss = counts + B * (m + 1);
+  fused_scan_kernel<W><<<grid, bbc::kThreads, smem, stream>>>(
+      codes, vectors, valid, luts, qs, d_min, delta, ew_maps, tau_pred,
+      probed, offsets, est, bucket, early, counts, nmiss, nmiss + B, n, M, K,
+      d, n_ew, m, P, pstride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,9 +352,7 @@ int launch(const uint8_t* codes, const float* vectors, const uint8_t* valid,
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 32;                             // lanes a work item
-constexpr int kWarps = bbc::kThreads / 32;
 constexpr int kBlocksPerSm = 6;                       // ops.FS_BLOCKS_PER_SM
-constexpr unsigned kFull = 0xffffffffu;
 
 // sum over m ascending of LUT[m, code[l, m]].  MC = 16, 24 or 32: the row
 // loads as MC / 16 words of 16 bytes (MC / 8 of 8 for 24), all issued
@@ -566,35 +664,52 @@ int launch_chunked(const uint8_t* codes, const float* vectors,
 
 }  // namespace
 
-// Shared-memory bytes one block of the batched kernel needs for a chunk of
-// bq queries.
+// Shared-memory bytes of one block of the chunked-LUT kernel (bq = 1, a
+// chunk of M sub-quantizers).
 extern "C" int fused_scan_smem_bytes(int bq, int M, int K, int d, int n_ew,
                                      int m) {
   return 4 * bq * (M * K + d + 2 + n_ew + (m + 1) + 3);
 }
 
-// Outputs: est, bucket, early (B, n); counts (B * (m + 2) ints: the (B,
-// m+1) histogram, then nmiss (B,)), zeroed here by one memset before the
-// launch.  Returns the CUDA error code (0 on success).
+// Shared-memory bytes of one block of the batched kernel: a query's whole
+// LUT, its row and ew_map, a histogram, a miss count, and its P lists'
+// running sizes and starts.
+extern "C" int fused_scan_batch_smem_bytes(int M, int K, int d, int n_ew,
+                                           int m, int P) {
+  return 4 * (M * K + d + n_ew + (m + 1) + 1 + 2 * P + 1);
+}
+
+extern "C" int fused_scan_batch_tile() { return bbc::kThreads; }
+
+// The batched scan over each query's probed lists: probed (B, P) int64
+// cluster ids, row q at probed + q * pstride (pstride 0: one list set for
+// every query), offsets (C + 1) int64 lane starts; the lists of a query
+// are distinct and every lane `valid` sets lies in one of them.  A
+// (blocks, B) grid of kThreads lanes a block.  Outputs: est, bucket, early
+// (B, n), written on the walked lanes only; counts (B * (m + 3) ints: the
+// (B, m+1) histogram, nmiss (B,), then each query's walked lanes (B,)),
+// zeroed here by one memset before the launch.  words: 16 or 8 to read
+// the code rows as words of that many bytes (M a multiple of it, the codes
+// on such a boundary), else 0.  Returns the CUDA error code (0 on
+// success).
 extern "C" int fused_scan_batch_launch(
     const uint8_t* codes, const float* vectors, const uint8_t* valid,
     const float* luts, const float* qs, const float* d_min,
-    const float* delta, const int* ew_maps, const int* tau_pred, float* est,
-    int* bucket, float* early, int* counts, int n, int M, int K, int d, int B,
-    int n_ew, int m, int bq, int tiles, int smem, cudaStream_t stream) {
-  switch (bq) {
-    case 8: return launch<8>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, counts, n,
-                             M, K, d, B, n_ew, m, tiles, smem, stream);
-    case 4: return launch<4>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, counts, n,
-                             M, K, d, B, n_ew, m, tiles, smem, stream);
-    case 2: return launch<2>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, counts, n,
-                             M, K, d, B, n_ew, m, tiles, smem, stream);
-    case 1: return launch<1>(codes, vectors, valid, luts, qs, d_min, delta,
-                             ew_maps, tau_pred, est, bucket, early, counts, n,
-                             M, K, d, B, n_ew, m, tiles, smem, stream);
+    const float* delta, const int* ew_maps, const int* tau_pred,
+    const int64_t* probed, const int64_t* offsets, float* est, int* bucket,
+    float* early, int* counts, int n, int M, int K, int d, int B, int n_ew,
+    int m, int P, int pstride, int words, int blocks, int smem,
+    cudaStream_t stream) {
+  switch (words) {
+#define FS_BATCH(W)                                                         \
+    case W: return launch<W>(codes, vectors, valid, luts, qs, d_min, delta, \
+                             ew_maps, tau_pred, probed, offsets, est, bucket,\
+                             early, counts, n, M, K, d, B, n_ew, m, P,      \
+                             pstride, blocks, smem, stream);
+    FS_BATCH(16)
+    FS_BATCH(8)
+    FS_BATCH(0)
+#undef FS_BATCH
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

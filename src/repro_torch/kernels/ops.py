@@ -29,10 +29,11 @@ shared memory) and ``sample_plan_sorted_batch`` (a row read sorted: a long
 row after ``torch.topk``, or a caller's top-k).  The routing's lane mask
 counts under ``probe_mask_batch`` at every B.  While a profiler records,
 the two batched fused scans also count (``spans.count``, in the wrapper
-that chooses the grid) the (query, lane) pairs their grid covers, B x n
-today, as ``scan.pairs_passed``, and the probed ones among them, the set
-bits of the lane mask that their histogram counts, as
-``scan.pairs_probed``.
+that chooses the grid) the (query, lane) pairs their grid walks, as
+``scan.pairs_passed`` (the lanes of each query's probed lists, which the
+whole-LUT PQ kernel counts itself, or B x n where a scan covers every
+lane), and the probed ones among them, the set bits of the lane mask that
+their histogram counts, as ``scan.pairs_probed``.
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -42,8 +43,8 @@ chunk count, grid and the layout of the scratch that one memset zeroes.
 The bucketize-histogram kernel's (``_hist_plan``) is its persistent grid
 over (query, chunk) items, the one-query fused scan's (``_scan_plan``) its
 persistent grid over chunks, the batched one's (``_batch_scan_plan``) its
-query chunk, grid and whether the LUT is staged whole or in chunks of
-sub-quantizers, the RaBitQ estimator's (``_est_lanes``) the
+blocks a query over the query's probed lists and whether the LUT is
+staged whole or in chunks of sub-quantizers, the RaBitQ estimator's (``_est_lanes``) the
 lanes a block holds, the sample ADC's (``_sample_plan``) its blocks a
 query and whether a query's LUT is staged, the sample's RaBitQ bounds'
 (``_sample_ub_plan``) its threads a block and shared rows, the second
@@ -111,6 +112,10 @@ BH_CHUNK, BH_BLOCKS_PER_SM = 1024, 4
 # (16-byte words; 8-byte words for 24)
 FS_TILE, FS_WARPS, FS_BLOCKS_PER_SM = 32, 8, 6
 FS_WORD_ROWS = {16: 16, 24: 8, 32: 16}
+# fused_scan.cu's batched kernel: the blocks an SM holds (its
+# __launch_bounds__) and the waves of them a launch fills, split over the
+# queries (one query a block)
+FS_LIST_BLOCKS_PER_SM, FS_LIST_WAVES = 4, 2
 # fused_scan.cu's chunked-LUT kernel: lanes a tile (its threads; one block
 # an SM, its __launch_bounds__), the waves of such blocks a launch fills,
 # and the grid's largest second axis
@@ -129,7 +134,9 @@ MASK_GROUP, MASK_LANES, MASK_BLOCKS_PER_SM = 32, 16, 4
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_scan": {
-        "fused_scan_batch_launch": [_P] * 13 + [_I] * 10 + [_P],
+        "fused_scan_batch_launch": [_P] * 15 + [_I] * 12 + [_P],
+        "fused_scan_batch_smem_bytes": [_I] * 6,
+        "fused_scan_batch_tile": [],
         "fused_scan_smem_bytes": [_I] * 6,
         "fused_scan_b1_launch": [_P] * 13 + [_I] * 11 + [_P],
         "fused_scan_b1_smem_bytes": [_I] * 5,
@@ -243,10 +250,17 @@ def _tiles(n: int) -> int:
 def _scan_smem(bq: int, m_sub: int, k_codes: int, d: int, n_ew: int,
                m: int) -> int:
     """``fused_scan_smem_bytes`` of ``fused_scan.cu``: one block of the
-    batched or the chunked-LUT scan with ``bq`` queries' LUTs of ``m_sub``
-    sub-quantizers (a chunk's, in the chunked kernel), queries, codebooks,
-    histograms and counters."""
+    chunked-LUT scan (``bq`` = 1) with a chunk of ``m_sub`` sub-quantizers
+    of its query's LUT, its query, codebook, histogram and counters."""
     return 4 * bq * (m_sub * k_codes + d + 2 + n_ew + (m + 1) + 3)
+
+
+def _batch_smem(m_sub: int, k_codes: int, d: int, n_ew: int, m: int,
+                p: int) -> int:
+    """``fused_scan_batch_smem_bytes``: one block of the batched scan (a
+    query's whole LUT, its row and ew_map, a histogram, a miss count, and
+    the running sizes and starts of its ``p`` lists)."""
+    return 4 * (m_sub * k_codes + d + n_ew + (m + 1) + 1 + 2 * p + 1)
 
 
 def _b1_smem(m_sub: int, k_codes: int, d: int, n_ew: int, m: int) -> int:
@@ -258,25 +272,40 @@ def _b1_smem(m_sub: int, k_codes: int, d: int, n_ew: int, m: int) -> int:
 class ScanPlan(NamedTuple):
     """One launch of the batched fused PQ scan."""
     chunked: bool        # fused_scan_chunked_kernel; else fused_scan_kernel
-    bq: int              # queries a block (the chunked kernel's: one)
     mc: int              # sub-quantizers a staged LUT chunk (M: the whole)
-    blocks: int          # lane-tile blocks of a query chunk (the grid's y)
+    blocks: int          # lane-tile blocks of a query (one query a block)
     smem: int            # dynamic shared memory, bytes
 
 
 @functools.lru_cache(maxsize=4096)
 def _batch_scan_plan(b: int, n: int, m_sub: int, k_codes: int, d: int,
-                     n_ew: int, m: int, sms: int = SMS) -> ScanPlan:
-    """The batched scan's launch.  Where one query's whole LUT fits a
-    block, ``fused_scan_kernel<BQ>`` as ever: the widest query chunk that
-    fits (``_pick_bq``) and up to ``MAX_TILES`` lane-tile blocks a chunk,
-    each of which stages its queries' LUTs.  Past that, the chunked-LUT
-    kernel (``_chunked_plan``)."""
-    if _scan_smem(1, m_sub, k_codes, d, n_ew, m) <= MAX_SMEM:
-        bq, smem = _pick_bq(b, lambda q: _scan_smem(q, m_sub, k_codes, d,
-                                                    n_ew, m))
-        return ScanPlan(False, bq, m_sub, _tiles(n), smem)
-    return _chunked_plan(b, n, m_sub, k_codes, d, n_ew, m, sms=sms)
+                     n_ew: int, m: int, sms: int = SMS, p: int = 1,
+                     cap: int | None = None) -> ScanPlan:
+    """The batched scan's launch over each query's ``p`` probed lists of at
+    most ``cap`` lanes each (p = 1 and no cap: one list of every lane).
+    Where one query's whole LUT fits a block beside its lists,
+    ``fused_scan_kernel``: one query a block, ``FS_LIST_WAVES`` waves of
+    ``FS_LIST_BLOCKS_PER_SM`` blocks an SM (fewer where the shared memory
+    holds fewer) split over the queries, and no more blocks a query than
+    the ``LANE_TILE``-lane tiles of p x cap lanes (of n, past it); a
+    block's tiles are every ``blocks``-th of its query's walk, so any walk
+    up to n lanes is covered.  Past that, the chunked-LUT kernel
+    (``_chunked_plan``), over every lane.  Raises where the batch outgrows
+    the grid's second axis or a lane index its int32."""
+    smem = _batch_smem(m_sub, k_codes, d, n_ew, m, p)
+    if smem > MAX_SMEM:
+        return _chunked_plan(b, n, m_sub, k_codes, d, n_ew, m, sms=sms)
+    span = n if cap is None else min(n, p * cap)
+    per_sm = max(1, min(FS_LIST_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    blocks = max(1, min(-(-span // LANE_TILE),
+                        -(-sms * per_sm * FS_LIST_WAVES // max(b, 1))))
+    if b > GRID_Y:
+        raise ValueError(f"fused_scan_batch: {b} queries, more than the "
+                         f"{GRID_Y} blocks of a grid's second axis")
+    if n + blocks * LANE_TILE >= 2 ** 31:
+        raise ValueError(f"fused_scan_batch: n={n} lanes overflow the "
+                         f"kernel's int32 lane indices")
+    return ScanPlan(False, m_sub, blocks, smem)
 
 
 def _chunked_plan(b: int, n: int, m_sub: int, k_codes: int, d: int,
@@ -304,7 +333,7 @@ def _chunked_plan(b: int, n: int, m_sub: int, k_codes: int, d: int,
                          f"than the {MAX_SMEM} a block may use")
     tiles = max(1, -(-n // FS_CHUNK_LANES))
     blocks = min(tiles, GRID_Y, max(1, sms * FS_CHUNK_WAVES // b))
-    return ScanPlan(True, 1, mc, blocks, smem)
+    return ScanPlan(True, mc, blocks, smem)
 
 
 class Plan(NamedTuple):
@@ -380,13 +409,13 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def _count_pairs(valid: torch.Tensor, hist: torch.Tensor) -> None:
+def _count_pairs(passed, hist: torch.Tensor) -> None:
     """A fused scan's work, while a profiler records: the (query, lane)
-    pairs its grid covers (``scan.pairs_passed``, every lane of ``valid``)
-    and those of them probed, the lanes ``valid`` sets, which the scan's
-    (B, m+1) histogram ``hist`` counts once each (``scan.pairs_probed``,
-    its sum, read after the window)."""
-    spans.count("scan.pairs_passed", valid.shape[0] * valid.shape[1])
+    pairs its grid walks (``scan.pairs_passed``: an int, or a tensor of
+    per-query counts summed after the window) and those of them probed,
+    the lanes the lane mask sets, which the scan's (B, m+1) histogram
+    ``hist`` counts once each (``scan.pairs_probed``, its sum)."""
+    spans.count("scan.pairs_passed", passed)
     spans.count("scan.pairs_probed", hist)
 
 
@@ -645,39 +674,75 @@ def fused_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
                      valid: torch.Tensor, luts: torch.Tensor,
                      qs: torch.Tensor, d_min: torch.Tensor,
                      delta: torch.Tensor, ew_maps: torch.Tensor, m: int,
-                     tau_pred: torch.Tensor):
+                     tau_pred: torch.Tensor,
+                     probed: torch.Tensor | None = None,
+                     offsets: torch.Tensor | None = None,
+                     cap: int | None = None):
     """Batched fused estimate + bucketize + histogram + early exact over a
     shared candidate stream.
 
     ``codes`` (n, M) uint8 and ``vectors`` (n, d) are the stream every query
     shares; ``valid`` (B, n) masks each query's probed lanes; ``luts``
     (B, M, K), ``qs`` (B, d), the codebook parameters and ``tau_pred`` (B,)
-    are per query.  Returns (est (B, n), bucket (B, n), hist (B, m+1),
-    early (B, n), nmiss (B,)); nmiss counts the valid lanes with bucket above
-    tau_pred, the lanes left to the second gather.  On the card the launch
-    function zeroes hist and nmiss (one memset) and launches the kernel:
-    the one-query kernel at B = 1 (``_fused_scan_one``), else the batched
-    one; where one query's LUT outgrows a block's shared memory, the
-    chunked-LUT kernel at any B (``_batch_scan_plan``)."""
+    are per query.  ``probed`` (B, P) int64 (each query's distinct probed
+    clusters, nearest first) and ``offsets`` (C + 1) int64 (the layout's
+    cluster starts) give each query's lists of lanes, at most ``cap``
+    lanes a list (a host bound that sizes the grid; default n); without
+    them a query's one list is every lane.  Every lane ``valid`` sets must
+    lie in one of its query's lists.
+
+    Returns (est (B, n), bucket (B, n), hist (B, m+1), early (B, n), nmiss
+    (B,)).  ``est``, ``bucket`` and ``early`` are defined on the lanes of
+    each query's lists, and unspecified elsewhere: a valid lane's estimate,
+    bucket, and exact distance where its bucket is at or below tau_pred
+    (+inf where not); an invalid lane's (+inf, the bucket of +inf, +inf).
+    ``hist`` counts the valid lanes' buckets and ``nmiss`` the valid lanes
+    above tau_pred, the lanes left to the second gather.  The plain version
+    (the CPU's) defines every lane.  On the card the launch function zeroes
+    hist and nmiss (one memset) and launches the kernel: the one-query
+    kernel at B = 1 (``_fused_scan_one``), else ``fused_scan_kernel`` over
+    the lists; where one query's LUT outgrows a block's shared memory, the
+    chunked-LUT kernel at any B over every lane (``_batch_scan_plan``).
+    While a profiler records, ``scan.pairs_passed`` counts the pairs
+    walked: the lists' lanes (B x n on the two kernels over every lane)."""
+    if (probed is None) != (offsets is None):
+        raise ValueError("fused_scan_batch: probed and offsets come together")
+    lists = () if probed is None else (probed, offsets)
+    b, n = valid.shape
     if not _on_cuda(codes, vectors, valid, luts, qs, d_min, delta, ew_maps,
-                    tau_pred):
+                    tau_pred, *lists):
         out = _ref.fused_scan_batch(codes, vectors, valid, luts, qs, d_min,
                                     delta, ew_maps, m, tau_pred)
+        passed = (b * n if not lists
+                  else (offsets[probed + 1] - offsets[probed]).sum())
     elif luts.shape[0] == 1:
         out = tuple(t[None] for t in _fused_scan_one(
             codes, vectors, valid.reshape(-1), luts[0], qs.reshape(-1),
             d_min, delta, ew_maps, m, tau_pred))
+        passed = n
     else:
-        out = _scan_batch(None, codes, vectors, valid, luts, qs, d_min,
-                          delta, ew_maps, m, tau_pred)
-    _count_pairs(valid, out[2])
+        out, passed = _scan_batch(None, codes, vectors, valid, luts, qs,
+                                  d_min, delta, ew_maps, m, tau_pred,
+                                  probed, offsets, cap)
+    _count_pairs(passed, out[2])
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _one_list(n: int, dev: torch.device):
+    """Every lane as one list: ``probed`` (1, 1) zeros, which each query
+    reads at row stride 0, and ``offsets`` [0, n]."""
+    return (torch.zeros(1, 1, dtype=torch.int64, device=dev),
+            torch.tensor([0, n], dtype=torch.int64, device=dev))
+
+
 def _scan_batch(plan: ScanPlan | None, codes, vectors, valid, luts, qs,
-                d_min, delta, ew_maps, m: int, tau_pred):
+                d_min, delta, ew_maps, m: int, tau_pred, probed=None,
+                offsets=None, cap: int | None = None):
     """``fused_scan_batch`` on CUDA tensors under ``plan`` (None: the one
-    ``_batch_scan_plan`` picks; a test may force either kernel)."""
+    ``_batch_scan_plan`` picks; a test may force either kernel).  Returns
+    the outputs and the pairs walked (a (B,) tensor of the kernel's
+    per-query counts over lists, else B x n)."""
     n, m_sub = codes.shape
     d = vectors.shape[1]
     b, _, k_codes = luts.shape
@@ -692,27 +757,43 @@ def _scan_batch(plan: ScanPlan | None, codes, vectors, valid, luts, qs,
     ew_maps = _params(ew_maps, torch.int32)
     tau_pred = _params(tau_pred, torch.int32)
     dev = codes.device
+    if probed is None:
+        (probed, offsets), pstride, cap = _one_list(n, dev), 0, None
+    else:
+        if probed.dim() != 2 or probed.shape[0] != b or offsets.dim() != 1:
+            raise ValueError(f"fused_scan_batch: probed (B={b}, P) and "
+                             f"offsets (C + 1,), got {tuple(probed.shape)} "
+                             f"and {tuple(offsets.shape)}")
+        if probed.dtype != torch.int64 or probed.stride(1) != 1:
+            probed = probed.to(torch.int64).contiguous()
+        offsets = _params(offsets, torch.int64)
+        pstride = probed.stride(0)
+    n_lists = probed.shape[1]
     est, bucket, early, hist, nmiss, counts = _scan_outputs(b, n, m, dev)
     if b == 0 or n == 0:
         counts.zero_()
-        return est, bucket, hist, early, nmiss
+        return (est, bucket, hist, early, nmiss), 0
     lib = _scan_lib()
     p = plan or _batch_scan_plan(b, n, m_sub, k_codes, d, n_ew, m,
-                                 _sms(dev.index))
+                                 _sms(dev.index), n_lists, cap)
     args = (codes.data_ptr(), vectors.data_ptr(), valid.data_ptr(),
             luts.data_ptr(), qs.data_ptr(), d_min.data_ptr(),
-            delta.data_ptr(), ew_maps.data_ptr(), tau_pred.data_ptr(),
-            est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
+            delta.data_ptr(), ew_maps.data_ptr(), tau_pred.data_ptr())
+    outs = (est.data_ptr(), bucket.data_ptr(), early.data_ptr(),
             counts.data_ptr())
     if p.chunked:
-        _launch_chunked(lib, p, args, 0, n, m_sub, k_codes, d, b, n_ew, m,
-                        codes)
-        return est, bucket, hist, early, nmiss
-    rc = lib.fused_scan_batch_launch(*args, n, m_sub, k_codes, d, b, n_ew, m,
-                                     p.bq, p.blocks, p.smem, _stream())
+        _launch_chunked(lib, p, args + outs, 0, n, m_sub, k_codes, d, b,
+                        n_ew, m, codes)
+        return (est, bucket, hist, early, nmiss), b * n
+    words = next((w for w in (16, 8) if m_sub % w == 0
+                  and codes.data_ptr() % w == 0), 0)
+    rc = lib.fused_scan_batch_launch(
+        *args, probed.data_ptr(), offsets.data_ptr(), *outs, n, m_sub,
+        k_codes, d, b, n_ew, m, n_lists, pstride, words, p.blocks, p.smem,
+        _stream())
     _check(rc, "fused_scan_batch")
     _count("fused_scan", b)
-    return est, bucket, hist, early, nmiss
+    return (est, bucket, hist, early, nmiss), counts[b * (m + 2):]
 
 
 def _launch_chunked(lib, p: ScanPlan, args: tuple, tau_val: int, n: int,
@@ -732,19 +813,24 @@ def _launch_chunked(lib, p: ScanPlan, args: tuple, tau_val: int, n: int,
 def _scan_outputs(b: int, n: int, m: int, dev):
     """(est, bucket, early) (B, n), the (B, m+1) histogram and (B,) nmiss,
     the last two views of one int32 buffer (returned last) that one memset
-    zeroes."""
+    zeroes; the buffer's last B ints are the batched kernel's per-query
+    walked lanes."""
     est = torch.empty(b, n, dtype=torch.float32, device=dev)
     bucket = torch.empty(b, n, dtype=torch.int32, device=dev)
     early = torch.empty(b, n, dtype=torch.float32, device=dev)
-    counts = torch.empty(b * (m + 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(b * (m + 3), dtype=torch.int32, device=dev)
     return (est, bucket, early, counts[:b * (m + 1)].view(b, m + 1),
-            counts[b * (m + 1):], counts)
+            counts[b * (m + 1):b * (m + 2)], counts)
 
 
 @functools.lru_cache(maxsize=None)
 def _scan_lib() -> ctypes.CDLL:
     """The fused scan's library, checked once against ``FS_TILE``."""
     lib = _lib("fused_scan")
+    if lib.fused_scan_batch_tile() != LANE_TILE:
+        raise RuntimeError(f"fused_scan.cu's batched kernel takes "
+                           f"{lib.fused_scan_batch_tile()} lanes a tile, "
+                           f"ops.LANE_TILE says {LANE_TILE}")
     if lib.fused_scan_b1_tile() != FS_TILE:
         raise RuntimeError(f"fused_scan.cu takes {lib.fused_scan_b1_tile()} "
                            f"lanes a work item, ops.FS_TILE says {FS_TILE}")
@@ -754,9 +840,12 @@ def _scan_lib() -> ctypes.CDLL:
                            f"ops.FS_CHUNK_LANES says {FS_CHUNK_LANES}")
     shape = (240, 256, 960, 256, 128)
     if (lib.fused_scan_smem_bytes(3, *shape) != _scan_smem(3, *shape)
-            or lib.fused_scan_b1_smem_bytes(*shape) != _b1_smem(*shape)):
+            or lib.fused_scan_b1_smem_bytes(*shape) != _b1_smem(*shape)
+            or lib.fused_scan_batch_smem_bytes(*shape, 64)
+            != _batch_smem(*shape, 64)):
         raise RuntimeError("fused_scan.cu's shared-memory layouts differ "
-                           "from ops._scan_smem / ops._b1_smem")
+                           "from ops._scan_smem / ops._b1_smem / "
+                           "ops._batch_smem")
     return lib
 
 
@@ -852,7 +941,7 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
         outs = _ref.fused_rabitq_scan_batch(
             codes, vectors, s2, norm_o, f_o, cl, g, qs, nq, valid, d_min,
             delta, ew_maps, m, tau_inline, eps0=eps0)
-        _count_pairs(valid, outs[5])
+        _count_pairs(valid.numel(), outs[5])
         return outs
     n, d = codes.shape
     b, c = nq.shape
@@ -882,7 +971,7 @@ def fused_rabitq_scan_batch(codes: torch.Tensor, vectors: torch.Tensor,
     nmiss = torch.zeros(b, dtype=torch.int32, device=dev)
     outs = (est, lb, ub, bucket_lb, bucket_ub, hist_lb, hist_ub, exact,
             certified, nmiss)
-    _count_pairs(valid, hist_lb)
+    _count_pairs(valid.numel(), hist_lb)
     if b == 0 or n == 0:
         return outs
     lib = _lib("rabitq_fused")

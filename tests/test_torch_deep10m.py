@@ -1,10 +1,11 @@
 """The path of the deep-10M cell (10,000,000 x 96 under IVF4096 + PQ24x4 +
 BBC, B = 32, k = 5000) at its shapes.  On the CPU: the launches its call
-plans (the whole-LUT fused scan, the sample ADC, the compaction) and the
-stream layout and lane mask at 4,096 lists.  On a card: the codebook
-sample's ADC on its byte path (M = 24 is no multiple of 16) and the batched
-fused scan (``fused_scan_kernel<8>``) bitwise their plain versions at
-B = 32 over a stream of 2M lanes in 4,096 clusters, 64 probed a query.
+plans (the whole-LUT fused scan over each query's probed lists, the sample
+ADC, the compaction) and the stream layout and lane mask at 4,096 lists.
+On a card: the codebook sample's ADC on its byte path (M = 24 is no
+multiple of 16) and the batched fused scan (``fused_scan_kernel``, over the
+lists and over every lane) bitwise their plain versions at B = 32 over a
+stream of 2M lanes in 4,096 clusters, 64 probed a query.
 
 No JAX here: ``tests/test_torch_search.py`` holds the searcher at d = 96,
 M = 24 against the JAX package."""
@@ -38,18 +39,28 @@ def cuda():
 # --------------------------------------------------------------------------
 
 def test_the_cells_scan_is_the_whole_lut_kernel():
-    """A query's 24 x 16 LUT fits a block eight times over: the cell takes
-    ``fused_scan_kernel<8>`` with 1,024 lane-tile blocks a query chunk, each
-    of which walks 39 tiles of 256 lanes; every lane index the kernel forms
-    (tile x 256 + thread, one tile past the last) and every (query, lane)
-    offset of the batch stay inside int32."""
-    p = ops._batch_scan_plan(B, N_FLAT, M_SUB, K_CODES, D, N_EW, M_BUCKETS)
-    smem = ops._scan_smem(8, M_SUB, K_CODES, D, N_EW, M_BUCKETS)
-    assert p == ops.ScanPlan(False, 8, M_SUB, ops.MAX_TILES, smem)
+    """A query's 24 x 16 LUT and its 64 lists fit a block: the cell takes
+    ``fused_scan_kernel``, one query a block, 33 blocks a query (two waves
+    of four blocks on each of the 132 SMs, over 32 queries).  A block walks
+    every 33rd 256-lane tile of its query's lists laid end to end, so the
+    grid's tiles cover the P x cap lanes a query may hold (cap as the
+    compaction test's widest); every index the kernel forms (virtual lane =
+    tile x 256 + thread, up to one grid stride past the last; a stream
+    lane below n; the list sizes' running sum) stays inside int32, and so
+    do the batch's (query, lane) and (lane, coordinate) offsets."""
+    cap = 6144
+    p = ops._batch_scan_plan(B, N_FLAT, M_SUB, K_CODES, D, N_EW, M_BUCKETS,
+                             ops.SMS, N_PROBE, cap)
+    smem = ops._batch_smem(M_SUB, K_CODES, D, N_EW, M_BUCKETS, N_PROBE)
+    assert p == ops.ScanPlan(False, M_SUB, 33, smem)
     assert smem <= ops.MAX_SMEM
-    tiles = -(-N_FLAT // ops.LANE_TILE)
-    assert -(-tiles // p.blocks) == 39
+    span = N_PROBE * cap
+    tiles = -(-span // ops.LANE_TILE)
+    per_block = -(-tiles // p.blocks)
+    assert per_block == 47
+    assert p.blocks * per_block * ops.LANE_TILE >= span
     assert (tiles + p.blocks) * ops.LANE_TILE < 2 ** 31
+    assert N_FLAT + p.blocks * ops.LANE_TILE < 2 ** 31
     assert B * N_FLAT < 2 ** 31 and N_FLAT * D < 2 ** 31
 
 
@@ -156,12 +167,15 @@ def test_cuda_sample_adc_byte_path_at_the_cells_shapes(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_fused_scan_at_the_cells_shapes(cuda):
+@pytest.mark.parametrize("mode", ["lists", "dense"])
+def test_cuda_fused_scan_at_the_cells_shapes(cuda, mode):
     """The batched fused scan over a 2M-lane stream at the cell's widths
     (B = 32, M = 24, d = 96, 64 of 4,096 clusters probed, about 12,500 lanes
-    predicted a query): one launch of ``fused_scan_kernel<8>``, every output
-    bitwise its plain version's."""
-    layout, codes, vectors, luts, qs, probed, _ = _stream(cuda, seed=96)
+    predicted a query): one launch of ``fused_scan_kernel``, bitwise its
+    plain version's: over each query's probed lists (the searcher's call)
+    on every lane of its lists, with hist and nmiss whole; over every lane
+    (no lists) on every output."""
+    layout, codes, vectors, luts, qs, probed, cap = _stream(cuda, seed=96)
     valid = ivf.probe_mask(layout, probed, C)
     assert 0.01 < float(valid.float().mean()) < 0.02
     est = torch.where(valid, torch.sqrt(ref.pq_adc_batch(codes, luts)),
@@ -172,16 +186,20 @@ def test_cuda_fused_scan_at_the_cells_shapes(cuda):
     tau = (torch.cumsum(hist, 1) < PRED).sum(1).to(torch.int32)
     args = (codes, vectors, valid, luts, qs, cb.d_min, cb.delta, cb.ew_map,
             M_BUCKETS, tau)
+    lists = (probed, layout.offsets, cap) if mode == "lists" else ()
     p = ops._batch_scan_plan(B, layout.n_flat, M_SUB, K_CODES, D, N_EW,
-                             M_BUCKETS, ops._sms(cuda.index))
-    assert not p.chunked and p.bq == 8
+                             M_BUCKETS, ops._sms(cuda.index),
+                             *((N_PROBE, cap) if lists else ()))
+    assert not p.chunked
     want = ref.fused_scan_batch(*args)
     ops.reset_launches()
-    got = ops.fused_scan_batch(*args)
+    got = ops.fused_scan_batch(*args, *lists)
     torch.cuda.synchronize()
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "fused_scan_batch": 1}
+    on = valid if lists else torch.ones_like(valid)   # the walked lanes
     for a, w in zip(got, want):
-        assert torch.equal(a, w)
-    early = torch.isfinite(got[3]).sum(1)
+        assert torch.equal(a[on] if a.shape == on.shape else a,
+                           w[on] if w.shape == on.shape else w)
+    early = torch.isfinite(torch.where(on, got[3], float("inf"))).sum(1)
     assert bool((early > 0).all()) and int(got[4].sum()) > 0

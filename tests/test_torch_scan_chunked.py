@@ -42,12 +42,15 @@ def rng():
     (32, 240, 16, 960),      # clustered1m-d960-pq.batch32
     (31, 240, 16, 960), (2, 32, 16, 128), (32, 221, 256, 960)])
 def test_whole_lut_shapes_keep_todays_kernel(b, m_sub, k_codes, d):
-    """Every shape whose query LUT fits a block keeps fused_scan_kernel<BQ>
-    with today's query chunk and its 1,024 lane-tile blocks."""
+    """Every shape whose query LUT fits a block keeps fused_scan_kernel:
+    one query a block, the waves of blocks the SMs hold split over the
+    queries (as many as the shared memory lets an SM hold, at most
+    ``FS_LIST_BLOCKS_PER_SM``)."""
     p = ops._batch_scan_plan(b, N_FLAT, m_sub, k_codes, d, N_EW, M_BUCKETS)
-    bq, smem = ops._pick_bq(b, lambda q: ops._scan_smem(
-        q, m_sub, k_codes, d, N_EW, M_BUCKETS))
-    assert p == ops.ScanPlan(False, bq, m_sub, ops.MAX_TILES, smem)
+    smem = ops._batch_smem(m_sub, k_codes, d, N_EW, M_BUCKETS, 1)
+    per_sm = min(ops.FS_LIST_BLOCKS_PER_SM, ops.SMEM_PER_SM // (smem + 1024))
+    blocks = -(-ops.SMS * per_sm * ops.FS_LIST_WAVES // b)
+    assert p == ops.ScanPlan(False, m_sub, blocks, smem)
     assert smem <= ops.MAX_SMEM
 
 
@@ -59,7 +62,7 @@ def test_past_the_limit_the_lut_is_staged_in_chunks(m_sub, chunk):
     chunks that fit (multiples of 16 where M is one), a bounded grid, and
     each query's LUT loaded once a block."""
     p = ops._batch_scan_plan(32, N_FLAT, m_sub, 256, 960, N_EW, M_BUCKETS)
-    assert p.chunked and p.bq == 1 and p.mc == chunk
+    assert p.chunked and p.mc == chunk
     assert p.smem == ops._scan_smem(1, chunk, 256, 960, N_EW, M_BUCKETS)
     assert p.smem <= ops.MAX_SMEM
     assert ops._scan_smem(1, m_sub, 256, 960, N_EW, M_BUCKETS) > ops.MAX_SMEM
@@ -80,7 +83,7 @@ def test_chunked_grid_is_bounded_by_tiles_and_waves():
     assert plan(1000, N_FLAT, *args).blocks == 1
     assert plan(32, 3000, *args).blocks == 3        # 3 tiles of 1,024
     p = plan(7, N_FLAT, *args, mc=80)
-    assert (p.bq, p.mc, p.blocks) == (1, 80, ops.SMS * ops.FS_CHUNK_WAVES
+    assert (p.mc, p.blocks) == (80, ops.SMS * ops.FS_CHUNK_WAVES
                                       // 7)
     assert p.smem == ops._scan_smem(1, 80, 256, 960, N_EW, M_BUCKETS)
     with pytest.raises(ValueError):
@@ -99,14 +102,14 @@ def test_one_query_past_the_limit_takes_the_chunked_kernel():
 
 
 @pytest.mark.parametrize("b,m_sub,k_codes,d,loads", [
-    (32, 32, 16, 128, 1024), (32, 240, 16, 960, 1024),
+    (32, 32, 16, 128, 33), (32, 240, 16, 960, 33),
     (32, 240, 256, 960, 8)])
 def test_scan_lut_bytes_follow_the_plan(b, m_sub, k_codes, d, loads):
     """Each query's (M, K) fp32 LUT is staged once in each block of its
-    query chunk, so a call stages blocks x B x M x K x 4 bytes of LUT: at
-    the 8-bit cell's shapes 8 loads a query (63 MB a call), against the
-    1,024 of the whole-LUT grid (8 GB); plain-version calls launch
-    nothing."""
+    query, so a call stages blocks x B x M x K x 4 bytes of LUT: 33 loads a
+    query at the 4-bit cells' shapes; at the 8-bit cell's 8 (63 MB a
+    call), against the 8 GB of a grid of 1,024 blocks a query; plain-version
+    calls launch nothing."""
     p = ops._batch_scan_plan(b, N_FLAT, m_sub, k_codes, d, N_EW, M_BUCKETS)
     assert p.blocks == loads
     if p.chunked:
@@ -174,7 +177,7 @@ def _chunked(args, mc=None):
                           args[1].shape[1], args[7].shape[1], args[8], mc=mc,
                           sms=ops._sms(args[0].device.index))
     before = ops.LAUNCHES["fused_scan_chunked_batch"]
-    out = ops._scan_batch(p, *args)
+    out, _ = ops._scan_batch(p, *args)
     assert ops.LAUNCHES["fused_scan_chunked_batch"] == before + 1
     return out
 

@@ -301,7 +301,9 @@ def test_scan_pairs_probed_is_the_lane_masks_bits(engines, data, kind,
                                                   tombstones):
     """``scan.pairs_probed`` resolves to the set bits of the call's own
     lane mask, on a layout with padding lanes (never probed) and under a
-    tombstone mask; ``scan.pairs_passed`` to every (query, lane) pair."""
+    tombstone mask; ``scan.pairs_passed`` to the pairs the scan walks: the
+    lanes of each query's probed lists (tombstoned ones too) in the fused
+    PQ scan, every (query, lane) pair in the RaBitQ scan."""
     eng, qs = engines[kind], data[1]
     n_clusters = eng.index.ivf.centroids.shape[0]
     assert int((eng.layout.cluster_of == n_clusters).sum()) > 0   # padding
@@ -309,11 +311,16 @@ def test_scan_pairs_probed_is_the_lane_masks_bits(engines, data, kind,
         g = torch.Generator().manual_seed(3)
         eng = eng.with_live(torch.rand(data[0].shape[0], generator=g) > 0.3)
         assert not bool(eng.live.all())
-    _, lane_valid, _ = search._routing(eng.index.ivf, eng.layout, qs,
-                                       eng.n_probe, eng.live)
+    probed, lane_valid, _ = search._routing(eng.index.ivf, eng.layout, qs,
+                                            eng.n_probe, eng.live)
     _, got = _counted(lambda: eng.search(qs))
     assert got["scan.pairs_probed"] == int(lane_valid.sum())
-    assert got["scan.pairs_passed"] == qs.shape[0] * eng.layout.n_flat
+    offsets = eng.layout.offsets
+    walked = int((offsets[probed + 1] - offsets[probed]).sum())
+    assert walked < qs.shape[0] * eng.layout.n_flat
+    assert (walked > int(lane_valid.sum())) == tombstones
+    assert got["scan.pairs_passed"] == (
+        walked if kind == "pq" else qs.shape[0] * eng.layout.n_flat)
 
 
 def _scan_inputs(b, n, m_sub, k_codes, d, m=16):
@@ -431,8 +438,10 @@ def _launches(fn):
 def test_cuda_counters_read_the_lane_mask_and_add_no_launch(data, kind,
                                                             cuda):
     """On the card: ``scan.pairs_probed`` is the lane mask's set bits in
-    the whole-LUT, chunked-LUT and RaBitQ scans, and a call launches the
-    same kernels with the recorder on as off."""
+    the whole-LUT, chunked-LUT and RaBitQ scans, ``scan.pairs_passed`` the
+    lanes the whole-LUT scan walks (each query's probed lists) and every
+    pair in the other two, and a call launches the same kernels with the
+    recorder on as off."""
     x, qs = (t.to(cuda) for t in data)
     if kind == "chunked":
         kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
@@ -453,7 +462,8 @@ def test_cuda_counters_read_the_lane_mask_and_add_no_launch(data, kind,
             ix = search.build_rabitq_index(x, 32, n_iter=4, device=cuda)
             eng = engine.SearchEngine.build(ix, k=100, n_probe=8, fused=True,
                                             device=cuda, tuned=None)
-        _, valid, _ = search._routing(ix.ivf, eng.layout, qs, eng.n_probe)
+        probed, valid, _ = search._routing(ix.ivf, eng.layout, qs,
+                                           eng.n_probe)
 
         def call():
             return eng.search(qs)
@@ -463,4 +473,5 @@ def test_cuda_counters_read_the_lane_mask_and_add_no_launch(data, kind,
     assert on == off and (kind != "chunked" or
                           off == {"fused_scan_chunked_batch": 1})
     assert got["scan.pairs_probed"] == int(valid.sum())
-    assert got["scan.pairs_passed"] == valid.numel()
+    assert got["scan.pairs_passed"] == (
+        int(valid.sum()) if kind == "pq" else valid.numel())
