@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py                 # phases 1-7, 9 and 11-21
+    python3 chip_smoke.py                 # phases 1-7, 9 and 11-22
     python3 chip_smoke.py --phases 1,2,3  # build and check the kernels only
 
 Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
-18, 19, 20, 21, 7, 8, 10):
+18, 19, 20, 21, 22, 7, 8, 10):
   1. the card's name and power limit; TF32 must be off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once);
@@ -187,6 +187,15 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      #10-#12 must launch) and ``examples/torch_distributed_search.py`` on
      the one-rank NCCL group (overlap 1.0, the reference's cost-model
      bytes; #1, #2 and #6 must launch);
+ 22. the GIST1M-width RaBitQ cell's kernels at its shapes: a 1,000,000 x
+     960 mixture as the cell's, IVF 1024 + 1-bit RaBitQ built on the card,
+     one batch of 32 through the fused engine (recall@5000 >= 0.95 on 8
+     queries); on that batch's inputs #5, the sample bounds (one warp a
+     block at d=960) and #3 over every lane (the dense straggler pass,
+     B=32 x n=1,000,000), each bitwise its plain version in one launch a
+     call, then timed (the call and the kernel alone) beside its bound,
+     its plain version and, for #3, ``torch.cdist``; the batch's band,
+     stragglers against the gather budget, and band anatomy;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments), over
      single IVF+PQ+BBC queries (phase 12) and over three train steps of
@@ -4434,37 +4443,17 @@ def timing_mask(a, errs: dict, where: str) -> dict:
     return t
 
 
-def timing_delta() -> dict:
+def timing_delta(errs: dict) -> dict:
     """#3 at one delta segment's scan (phase 14's shape: B=32 queries over
-    4096 rows of d=128): the wrapper call and the kernel alone beside the
-    bound and the fp32 issue ceiling, the plain version and
-    ``torch.cdist``, and the blocks the launch fills the card with."""
+    4096 rows of d=128), through ``timing_l2_dense``."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops, ref
     b, n, d = DELTA_SHAPES[0]
     rng = np.random.default_rng(SEED + 21)
     x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(DEV)
     q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(DEV)
-    got = ops.l2_exact_batch(x, q)
-    check(torch.equal(got, ref.l2_exact_batch(x, q)),
-          "l2 at the delta-scan shape differs from its plain version")
-    fn = lambda: ops.l2_exact_batch(x, q)  # noqa: E731
-    t = dict(ms=cuda_ms(fn, 50), plain_ms=cuda_ms(
-        lambda: ref.l2_exact_batch(x, q), 5, warm=1),
-        library_ms=cuda_ms(lambda: torch.cdist(q, x), 20),
-        ceiling_ms=1e3 * 3 * b * n * d / FP32_ISSUE_PER_S, ceiling_by="issue",
-        work={"B": b, "n": n, "d": d, "device_ms": device_ms(fn, "l2_", 50),
-              "blocks": ops._l2_plan(b, n, d).grid, "sms": ops.SMS})
-    t["bound_ms"], t["bound_by"] = bound(4 * n * d + 4 * b * d + 4 * b * n,
-                                         3 * b * n * d)
-    log(f"[timing] l2_exact_batch at the delta-scan shape {(b, n, d)}: "
-        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms (bound "
-        f"{t['bound_ms']:.4f} ms by {t['bound_by']}, issue ceiling "
-        f"{t['ceiling_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
-        f"torch.cdist {t['library_ms']:.4f} ms; {t['work']['blocks']} blocks "
-        f"on {t['work']['sms']} SMs")
-    return {"l2_exact_batch@delta": t}
+    return timing_l2_dense(x, q, errs, "l2_exact_batch@delta",
+                           "the delta-scan shape", reps=50)
 
 
 def against_row_kernel(name: str, t: dict) -> str:
@@ -4505,11 +4494,13 @@ def rabitq_kernel_args(eng, qs) -> dict:
                         lay.offsets, probed[:, :n_st], ix.ivf.cap, g, nq))
 
 
-def timing_rabitq(a, errs: dict) -> dict:
-    """The RaBitQ scan at the RaBitQ path's real inputs: checked against
-    its plain version once more, then timed beside its bound."""
+def timing_rabitq(a, errs: dict, key: str = "fused_rabitq_scan_batch",
+                  where: str = "RaBitQ path inputs B=32 n=1M d=128") -> dict:
+    """The RaBitQ scan at a RaBitQ path's real inputs: checked against its
+    plain version once more, then timed beside its bound (the whole call
+    and the kernel alone)."""
     from repro_torch.kernels import ops, ref
-    check_rabitq_kernel(a, errs, "RaBitQ path inputs B=32 n=1M d=128")
+    check_rabitq_kernel(a, errs, where)
     args = [a[k] for k in RQ_ARGS]
     valid = a["valid"]
     b, n = valid.shape
@@ -4526,27 +4517,31 @@ def timing_rabitq(a, errs: dict) -> dict:
               + 25 * b * n + 4 * b * (2 * (m + 1) + 1)
               + 4 * b * (2 * d + c + n_ew + 3))
     nops = pairs_valid * (2 * d + 20) + 3 * d * pairs_cert
-    t = dict(ms=cuda_ms(lambda: ops.fused_rabitq_scan_batch(
-                 *args, eps0=RQ_EPS0), 20),
+    fn = lambda: ops.fused_rabitq_scan_batch(*args, eps0=RQ_EPS0)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, 20),
              plain_ms=cuda_ms(lambda: ref.fused_rabitq_scan_batch(
                  *args, eps0=RQ_EPS0), 3, warm=1),
              library_ms=None,
-             work={"lanes_probed": lanes_probed, "rows_certified": rows_cert,
-                   "pairs_valid": pairs_valid,
-                   "pairs_certified": pairs_cert})
+             work={"d": d, "lanes_probed": lanes_probed,
+                   "rows_certified": rows_cert, "pairs_valid": pairs_valid,
+                   "pairs_certified": pairs_cert,
+                   "device_ms": device_ms(fn, "rabitq_fused_kernel")})
     t["bound_ms"], t["bound_by"] = bound(nbytes, nops)
-    log(f"[timing] fused_rabitq_scan_batch: {t['ms']:.4f} ms (bound "
-        f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
-        f"{t['plain_ms']:.4f} ms, library none; work {t['work']}")
-    return {"fused_rabitq_scan_batch": t}
+    log(f"[timing] {key} at the {where}: {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, library none; "
+        f"work {t['work']}")
+    return {key: t}
 
 
-def timing_rabitq_sample(a, errs: dict) -> dict:
-    """The codebook sample's RaBitQ bounds at the RaBitQ path's sample
-    (phase 9's batch): bitwise its plain version on the same card tensors,
-    one launch a call, then timed beside its bound (the sampled lanes'
-    codes and 16 B of factors read once, the (B, w) ub and ok written) and
-    the plain version."""
+def timing_rabitq_sample(a, errs: dict,
+                         key: str = "rabitq_sample_ub_batch",
+                         where: str = "the RaBitQ path's sample") -> dict:
+    """The codebook sample's RaBitQ bounds at a RaBitQ path's sample
+    (phase 9's batch, or 22's): bitwise its plain version on the same card
+    tensors, one launch a call, then timed beside its bound (the sampled
+    lanes' codes and 16 B of factors read once, the (B, w) ub and ok
+    written) and the plain version."""
     import torch
     from repro_torch.kernels import ops, ref
     args = a["sample"]
@@ -4560,8 +4555,8 @@ def timing_rabitq_sample(a, errs: dict) -> dict:
     errs["rabitq_sample_ub_batch"] = max(
         errs.get("rabitq_sample_ub_batch", 0.0), max_abs(got[0], want[0]))
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"rabitq_sample_ub_batch at the RaBitQ path's sample (B={b}, "
-          f"w={w}, d={d}) not bitwise its plain version")
+          f"rabitq_sample_ub_batch at {where} (B={b}, w={w}, d={d}) not "
+          f"bitwise its plain version")
     offs = args[5]
     lanes = int((offs[1:] - offs[:-1])[torch.unique(clusters)].clamp(
         max=cap).sum().item())              # the sampled clusters' lanes
@@ -4580,12 +4575,103 @@ def timing_rabitq_sample(a, errs: dict) -> dict:
     t["bound_ms"], t["bound_by"] = bound(
         lanes * (d + 16) + 4 * b * (d + args[9].shape[1]) + 5 * b * w,
         pairs * (2 * d + 20))
-    log(f"[timing] rabitq_sample_ub_batch at the RaBitQ path's sample (B={b},"
-        f" w={w}, d={d}; {lanes} lanes, {pairs} pairs): bitwise, "
-        f"{t['ms']:.4f} ms, kernel {t['work']['device_ms']:.4f} ms (bound "
-        f"{t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
-        f"{t['plain_ms']:.4f} ms; plan {t['work']['plan']}")
-    return {"rabitq_sample_ub_batch": t}
+    log(f"[timing] {key} at {where} (B={b}, w={w}, d={d}; {lanes} lanes, "
+        f"{pairs} pairs): bitwise, {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms; plan "
+        f"{t['work']['plan']}")
+    return {key: t}
+
+
+def timing_l2_dense(x, qs, errs: dict, key: str, where: str,
+                    reps: int = 10) -> dict:
+    """#3 over every row of ``x``, as the dense straggler pass and the
+    delta scan call it: bitwise its plain version on the same card tensors,
+    one launch a call, then the wrapper call and the kernel alone timed
+    beside the bound (each row read once, the (B, n) output written once),
+    the fp32 issue ceiling, the plain version, ``torch.cdist`` and the
+    blocks the launch fills the card with."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    (n, d), b = x.shape, qs.shape[0]
+    before = ops.LAUNCHES["l2_exact_batch"]
+    got = ops.l2_exact_batch(x, qs)
+    check(ops.LAUNCHES["l2_exact_batch"] == before + 1,
+          "l2_exact_batch: more than one launch a call")
+    want = ref.l2_exact_batch(x, qs)
+    errs["l2_exact_batch"] = max(errs.get("l2_exact_batch", 0.0),
+                                 max_abs(got, want))
+    check(torch.equal(got, want), f"l2_exact_batch at {where} (B={b}, n={n}, "
+          f"d={d}) not bitwise its plain version")
+    del got, want
+    fn = lambda: ops.l2_exact_batch(x, qs)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, reps), plain_ms=cuda_ms(
+        lambda: ref.l2_exact_batch(x, qs), 2, warm=1),
+        library_ms=cuda_ms(lambda: torch.cdist(qs, x), 5, warm=1),
+        ceiling_ms=1e3 * 3 * b * n * d / FP32_ISSUE_PER_S, ceiling_by="issue",
+        work={"B": b, "n": n, "d": d, "device_ms": device_ms(fn, "l2_", reps),
+              "plan": ops._l2_plan(b, n, d)._asdict(), "sms": ops.SMS})
+    t["bound_ms"], t["bound_by"] = bound(4 * n * d + 4 * b * d + 4 * b * n,
+                                         3 * b * n * d)
+    log(f"[timing] {key} at {where} {(b, n, d)}: bitwise, {t['ms']:.4f} ms, "
+        f"kernel {t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} "
+        f"ms by {t['bound_by']}, issue ceiling {t['ceiling_ms']:.4f} ms), "
+        f"plain {t['plain_ms']:.4f} ms, torch.cdist {t['library_ms']:.4f} "
+        f"ms; plan {t['work']['plan']}")
+    return {key: t}
+
+
+def gist_rabitq(summary: dict, errs: dict) -> dict:
+    """Phase 22: the kernels of the GIST1M-width RaBitQ cell at its shapes.
+    A 1,000,000 x 960 Gaussian mixture as the cell's (256 centres at scale
+    2.0, points at 0.5; made on the card), IVF 1024 + 1-bit RaBitQ built
+    on the card, one batch of 32 of its rows plus jitter 0.1 through the
+    fused engine (k=5000, n_probe=64, m=128, eps0=3.0; recall@k on 8 of
+    them must reach 0.95).  On that batch's inputs: #5, the sample bounds
+    and #3 over the whole stream (the dense straggler pass), each bitwise
+    its plain version in one launch a call, then timed beside its bound
+    and plain version; and the batch's band anatomy (phase 10's, cold
+    predictive gate)."""
+    import torch
+    from repro_torch.index import engine, search
+    n, d, b, c = 1_000_000, 960, 32, 1024
+    g = torch.Generator(device=DEV).manual_seed(SEED + 960)
+    centres = torch.randn(256, d, generator=g, device=DEV).mul_(2.0)
+    x = torch.randn(n, d, generator=g, device=DEV).mul_(0.5)
+    x.add_(centres[torch.randint(0, 256, (n,), generator=g, device=DEV)])
+    rows = torch.randperm(n, generator=g, device=DEV)[:b]
+    qs = x[rows] + 0.1 * torch.randn(b, d, generator=g, device=DEV)
+    del centres
+    t0 = time.monotonic()
+    index = search.build_rabitq_index(x, c, seed=SEED, device="cuda")
+    eng = engine.SearchEngine.build(index, k=RQ_K, n_probe=RQ_PROBE,
+                                    device="cuda")
+    eng.warmup((b,))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    res = eng.search(qs)
+    check_result(res, b, RQ_K, "gist rabitq bbc", ascending=False)
+    rec = recall(x, qs[:8], res.ids[:8], RQ_K)
+    check(rec >= 0.95, f"gist rabitq recall@{RQ_K} {rec} below 0.95")
+    a = rabitq_kernel_args(eng, qs)
+    times = timing_rabitq(a, errs, "fused_rabitq_scan_batch@d960",
+                          "GIST-width inputs B=32 n=1M d=960")
+    times.update(timing_rabitq_sample(a, errs, "rabitq_sample_ub_batch@d960",
+                                      "the GIST-width RaBitQ sample"))
+    times.update(timing_l2_dense(eng.stream.vectors, qs, errs,
+                                 "l2_exact_batch@d960",
+                                 "the dense straggler pass's shape"))
+    budget = ((max(2 * RQ_K, 2048) + 127) // 128) * 128
+    summary["gist_rabitq"] = {
+        "corpus": [n, d], "n_clusters": c, "build_s": build_s,
+        "recall_at_k_8q": rec,
+        "band_mean": float(res.n_reranked.float().mean().item()),
+        "stragglers_mean": float(res.n_second_pass.float().mean().item()),
+        "stragglers_max": int(res.n_second_pass.max().item()),
+        "straggler_budget": budget,
+        "band_anatomy": band_anatomy(eng, qs, eng.predictor_init())}
+    log(f"[gist-rabitq] {json.dumps(summary['gist_rabitq'])}")
+    return times
 
 
 def timing_plan(plan: dict, errs: dict, where: str) -> dict:
@@ -5044,9 +5130,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,9,11,12,13,14,15,16,17,18,19,20,"
-                            "21",
+                            "21,22",
                     help="comma-separated phases to run (default 1-7, 9 and "
-                         "11-21; 8 = torch.profiler over the batches of "
+                         "11-22; 8 = torch.profiler over the batches of "
                          "4, 9 and 11, the queries of 12 and the train "
                          "steps of 20; 10 = phase 9's band anatomy)")
     ap.add_argument("--out", default="",
@@ -5184,6 +5270,8 @@ def main(argv=None) -> int:
         l21 = phase21(summary, card)
         launches = {k: launches[k] + l21[k] for k in launches}
     times = {}
+    if 22 in phases:
+        times.update(gist_rabitq(summary, errs))
     if 7 in phases:
         check(eng is not None, "phase 7 times the kernels at the main path's "
               "shapes and needs phase 4")
@@ -5198,7 +5286,7 @@ def main(argv=None) -> int:
         times.update(timing_gather(d960_gather_args(), errs,
                                    "l2_gather_rows_batch@d960",
                                    "the d960 cell's shapes"))
-        times.update(timing_delta())
+        times.update(timing_delta(errs))
         times.update(timing_chunked(d960_pq8_scan_args(), errs))
         times.update(timing_deep10m(deep10m_scan_args(), errs))
         times["probe_mask_batch"] = timing_mask(
@@ -5221,6 +5309,7 @@ def main(argv=None) -> int:
             times.update(timing_single(
                 single_kernel_args(eng, rq_eng, main_queries[0],
                                    rq_queries[0]), errs))
+    if times:
         summary["timing"] = times
     if 8 in phases:
         check(eng is not None or rq_eng is not None or 20 in phases,
