@@ -194,8 +194,12 @@ Phases (run in the order 1, 2, 3, 4, 9, 5, 6, 12, 11, 13, 14, 15, 16, 17,
      block at d=960) and #3 over every lane (the dense straggler pass,
      B=32 x n=1,000,000), each bitwise its plain version in one launch a
      call, then timed (the call and the kernel alone) beside its bound,
-     its plain version and, for #3, ``torch.cdist``; the batch's band,
-     stragglers against the gather budget, and band anatomy;
+     its plain version and, for #3, ``torch.cdist``; the masked straggler
+     pass on the call's own straggler mask, bitwise #3 on every set pair
+     and staging exactly the tiles with a straggler, timed beside its
+     bound, the issue ceiling of the groups it computes, its plain version
+     and the dense pass; the batch's band, stragglers against the gather
+     budget, and band anatomy;
   8. (only when asked for) torch.profiler over batches of phases 4, 9, 11
      (sharded IVF+PQ) and 14 (the mutable index with its segments), over
      single IVF+PQ+BBC queries (phase 12) and over three train steps of
@@ -297,6 +301,10 @@ KERNELS = {
     # scatter, gather and AND
     "probe_mask_batch": ("src/repro_torch/kernels/csrc/lane_mask.cu",
                          "src/repro/index/ivf.py:159"),
+    # no TPU kernel: the JAX package's RaBitQ searcher reads its stragglers
+    # from the dense #3 pass over every row
+    "l2_exact_masked_batch": ("src/repro_torch/kernels/csrc/l2_rerank.cu",
+                              "src/repro/index/search.py:1200"),
 }
 RQ_K, RQ_PROBE, RQ_EPS0 = 5000, 64, 3.0
 
@@ -4621,6 +4629,91 @@ def timing_l2_dense(x, qs, errs: dict, key: str, where: str,
     return {key: t}
 
 
+def straggler_mask(eng, qs):
+    """The straggler mask the engine's call hands the masked pass (its
+    vectors, queries and (B, n) mask), taken from inside one call."""
+    from repro_torch.kernels import ops
+    real, seen = ops.l2_exact_batch_masked, []
+
+    def keep(x, q, mask):
+        seen.append((x, q, mask.clone()))
+        return real(x, q, mask)
+    ops.l2_exact_batch_masked = keep
+    try:
+        eng.search(qs)
+    finally:
+        ops.l2_exact_batch_masked = real
+    check(len(seen) == 1, f"the call ran the masked pass {len(seen)} times")
+    return seen[0]
+
+
+def timing_l2_masked(x, qs, mask, errs: dict, key: str, where: str,
+                     dense_ms: float | None = None, reps: int = 10) -> dict:
+    """The masked straggler pass on a call's own mask: bitwise the dense
+    #3 pass on every set pair, one launch a call, the tiles it staged
+    equal to the tiles with a set pair; then the wrapper call and the
+    kernel alone timed beside the bound (the rows some query needs read
+    once, the mask read once, a distance written a set pair; 3d fp32 a set
+    pair), the issue ceiling of the groups of eight it computes, the plain
+    version and the dense pass."""
+    import torch
+    from repro_torch import spans
+    from repro_torch.kernels import ops, ref
+    from torch.autograd import profiler as ap
+    (n, d), b = x.shape, qs.shape[0]
+    before = ops.LAUNCHES["l2_exact_masked_batch"]
+    spans.clear()
+    with ap.profile(use_kineto=True):
+        with spans.span("rerank.stragglers"):
+            got = ops.l2_exact_batch_masked(x, qs, mask)
+    check(ops.LAUNCHES["l2_exact_masked_batch"] == before + 1,
+          "l2_exact_batch_masked: more than one launch a call")
+    staged = [r.value for r in spans.RECORDER._records
+              if type(r) is spans.CountRecord
+              and r.name == "rerank.straggler_tiles_read"]
+    spans.clear()
+    tiles = ref.masked_tiles(mask)
+    check(len(staged) == 1 and torch.equal(staged[0], tiles),
+          f"l2_exact_batch_masked at {where}: staged tiles differ from the "
+          f"tiles with a straggler")
+    dense = ops.l2_exact_batch(x, qs)
+    errs["l2_exact_masked_batch"] = max(
+        errs.get("l2_exact_masked_batch", 0.0),
+        max_abs(got[mask], dense[mask]))
+    check(torch.equal(got[mask], dense[mask]),
+          f"l2_exact_batch_masked at {where} (B={b}, n={n}, d={d}) not "
+          f"bitwise the dense pass on the mask")
+    del got, dense
+    pairs = int(mask.sum().item())
+    rows = int(mask.any(dim=0).sum().item())
+    pad = torch.zeros(-(-b // 32) * 32, tiles.shape[1] * 128,
+                      dtype=torch.bool, device=mask.device)
+    pad[:b, :n] = mask
+    listed = pad.reshape(-1, 32, tiles.shape[1], 128).any(dim=3).sum(dim=1)
+    groups = int(((listed + 7) // 8).sum().item())
+    fn = lambda: ops.l2_exact_batch_masked(x, qs, mask)  # noqa: E731
+    t = dict(ms=cuda_ms(fn, reps), plain_ms=cuda_ms(
+        lambda: ref.l2_exact_batch_masked(x, qs, mask), 2, warm=1),
+        library_ms=None,
+        ceiling_ms=1e3 * 3 * 128 * 8 * groups * d / FP32_ISSUE_PER_S,
+        ceiling_by="issue of the groups computed", dense_ms=dense_ms,
+        work={"B": b, "n": n, "d": d, "pairs": pairs, "rows": rows,
+              "tiles_staged": int(tiles.sum().item()),
+              "tiles": tiles.numel(), "groups": groups,
+              "device_ms": device_ms(fn, "l2_masked", reps),
+              "plan": ops._masked_plan(b, n)._asdict()})
+    t["bound_ms"], t["bound_by"] = bound(
+        4 * rows * d + b * n + 4 * b * d + 4 * pairs, 3 * d * pairs)
+    log(f"[timing] {key} at {where} {(b, n, d)}: bitwise on {pairs} pairs "
+        f"({rows} rows, {t['work']['tiles_staged']} of {tiles.numel()} "
+        f"tiles, {groups} groups of 8), {t['ms']:.4f} ms, kernel "
+        f"{t['work']['device_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}, issue ceiling of its groups "
+        f"{t['ceiling_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, the "
+        f"dense pass {dense_ms} ms; plan {t['work']['plan']}")
+    return {key: t}
+
+
 def gist_rabitq(summary: dict, errs: dict) -> dict:
     """Phase 22: the kernels of the GIST1M-width RaBitQ cell at its shapes.
     A 1,000,000 x 960 Gaussian mixture as the cell's (256 centres at scale
@@ -4630,7 +4723,8 @@ def gist_rabitq(summary: dict, errs: dict) -> dict:
     them must reach 0.95).  On that batch's inputs: #5, the sample bounds
     and #3 over the whole stream (the dense straggler pass), each bitwise
     its plain version in one launch a call, then timed beside its bound
-    and plain version; and the batch's band anatomy (phase 10's, cold
+    and plain version; the masked straggler pass on the call's own mask
+    (``timing_l2_masked``); and the batch's band anatomy (phase 10's, cold
     predictive gate)."""
     import torch
     from repro_torch.index import engine, search
@@ -4661,6 +4755,12 @@ def gist_rabitq(summary: dict, errs: dict) -> dict:
     times.update(timing_l2_dense(eng.stream.vectors, qs, errs,
                                  "l2_exact_batch@d960",
                                  "the dense straggler pass's shape"))
+    sx, sq, smask = straggler_mask(eng, qs)
+    times.update(timing_l2_masked(
+        sx, sq, smask, errs, "l2_exact_masked_batch@d960",
+        "the call's own straggler mask",
+        dense_ms=times["l2_exact_batch@d960"]["ms"]))
+    del sx, sq, smask
     budget = ((max(2 * RQ_K, 2048) + 127) // 128) * 128
     summary["gist_rabitq"] = {
         "corpus": [n, d], "n_clusters": c, "build_s": build_s,

@@ -912,15 +912,18 @@ def _ivf_rabitq_fused_batch(index, stream, qs, layout, probed, lane_valid,
     # The reference gathers the stragglers in lb priority into a budget of
     # round128(max(2k, 2048)) rows and falls back to one dense exact pass
     # when any query has more; under the budget every straggler is
-    # gathered, so the port gathers them by position.  One host read
-    # decides that branch and sizes the selection below.
+    # gathered, so the port gathers them by position.  Past it the port
+    # computes the dense pass's distances at the stragglers alone, with
+    # its bits (nothing else of it is read).  One host read decides that
+    # branch and sizes the selection below.
     budget = min(n_flat, ((max(2 * k, 2048) + 127) // 128) * 128)
     with spans.span("rerank.stragglers"):
         with spans.span("wait.straggler_budget"):
             most_second, most_kept, least_kept = reads.tolist()
         spans.count("rerank.dense_stragglers", int(most_second > budget))
         if most_second > budget:
-            stragglers = ops.l2_exact_batch(stream.vectors, qs)
+            stragglers = ops.l2_exact_batch_masked(stream.vectors, qs,
+                                                   straggler)
         else:
             pos = torch.arange(n_flat, device=qs.device).expand(b, n_flat)
             stragglers = _exact_dists_rows(stream.vectors, pos, qs,

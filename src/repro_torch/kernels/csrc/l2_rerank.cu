@@ -1,7 +1,9 @@
-// Two kernels of exact distances.  `l2_exact_batch` (below) gives every
-// (query, row) pair of shared rows; `l2_gather_rows` (the second half of
+// Three kernels of exact distances.  `l2_exact_batch` (below) gives every
+// (query, row) pair of shared rows; `l2_gather_rows` (the second part of
 // this file) gives the masked (query, slot) entries of per-query id rows,
-// the re-rank's second pass.
+// the re-rank's second pass; `l2_exact_masked` (the last part) gives the
+// masked (query, row) pairs of shared rows with `l2_exact_batch`'s bits,
+// RaBitQ's straggler pass.
 //
 // Batched exact distances: shared (n, d) fp32 vectors x (B, d) queries ->
 // (B, n) Euclidean distances, the function the Pallas kernel computes as
@@ -405,5 +407,280 @@ extern "C" int l2_gather_rows_launch(const float* x, const long long* ids,
   const dim3 grid((w + kGatherTile - 1) / kGatherTile, B);
   kernel<<<grid, bbc::kThreads, smem, stream>>>(x, ids, ids_stride, qs, mask,
                                                 out, d, w, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The masked pass: shared (n, d) fp32 vectors x (B, d) queries and a (B, n)
+// bool mask -> (B, n) distances written at the set pairs alone, each with
+// `l2_exact_batch`'s bits: its ascending coordinates, add_sq's
+// __fsub_rn / __fmul_rn / __fadd_rn (no FMA) and sqrtf.  Nothing is written
+// off the mask.  Beside it, one byte a (query round, row tile): 1 where the
+// block staged the tile's rows for that round of 32 queries, else 0.
+//
+// Replaces no TPU kernel: the JAX package's RaBitQ searcher runs the dense
+// l2_batch_pallas over every row and reads its stragglers from it (plain
+// version: kernels/ref.py l2_exact_batch_masked, that pass under the mask).
+//
+// What bounds it on an H100.  RaBitQ's stragglers are the band lanes the
+// scan did not certify, all inside each query's probed lists: at the
+// GIST-width cell (B = 32, n = 1M, d = 960) ~53,000 of a query's ~57,000
+// probed lanes, 5% of the (B, n) pairs.  The dense pass computes all
+// 3·B·n·d fp32 instructions (92 G, 2.8 ms at the issue ceiling) for them.
+// Here the work is what the mask leaves: the rows some query needs, each
+// read once (4 bytes a coordinate; about half the rows at that cell, 0.59
+// ms at 3.35 TB/s), the (B, n) mask read once (32 MB), and the arithmetic
+// of the queries that need a tile.  A tile lies in one or two lists and a
+// list is probed by about 32·64/1024 = 2 queries of a batch: most tiles
+// that any query needs list one to four queries, so the arithmetic is a
+// few per cent of the dense pass's and the bytes bound the kernel.
+//
+// What the design does about it.  A block owns 128 rows, as the dense
+// kernel does; the stream is cluster-contiguous, so a tile lies in one or
+// two lists.  It reads the tile's (32, 128) slice of the mask (16 bytes a
+// thread) into shared memory and builds, by warp ballots, the list of
+// queries with a set pair in the tile and the set of rows any of them
+// needs.  A tile with no query exits after that read.  Otherwise the
+// needed rows and the listed queries go through a 3-stage cp.async ring
+// in chunks of 32 coordinates (a padded stride of 36 floats, 9 x 16 B,
+// odd: the row loads of a quarter warp are free of bank conflicts); rows
+// no query needs are not copied.  Each thread keeps one row and four
+// queries of each group of eight listed queries (rows 32·(warp % 4) +
+// lane, queries 8g + 4·(warp / 4) + j), so a group costs a 16-byte row
+// load and four broadcast query loads per 48 fp32 instructions, and only
+// the half groups that hold a listed query are computed: a tile that
+// lists at most four queries keeps warps 4-7 out of the arithmetic (G =
+// 1-4 groups, a template per count, chosen once per tile and warp half).
+// The sums stay in registers across the chunks; a warp stores 32
+// consecutive rows of one query where the mask (kept in shared memory) is
+// set.  Past 32 queries the block takes them in rounds of 32, each round
+// its own mask read and ring.  The ring's 69 KB and 80 registers a thread
+// let three blocks share an SM, which hides the short tiles' mask read
+// and ring fill; measured on the cell's own masks (H100 80GB HBM3, 700
+// W), three blocks of a 3-stage ring ran 2-10% faster than two of a
+// 4-stage one, 64-coordinate chunks no faster, one block of a 6-stage ring
+// 40-70% slower, and the coordinate loop unrolled by two 0-6% faster than
+// whole.
+namespace {
+
+constexpr int kRound = 32;        // queries whose mask slice a block reads
+constexpr int kGroupQ = 8;        // queries of a group
+constexpr int kMDc = 32;          // coordinates per staged chunk
+constexpr int kMLd = kMDc + 4;    // padded shared-memory row stride (floats)
+constexpr int kMStages = 3;       // cp.async ring depth
+
+__host__ __device__ constexpr int masked_smem_bytes() {
+  return kMStages * (kRows + kRound) * kMLd * 4;
+}
+
+// The sums of one staged chunk for G groups: this thread's row `xr` and
+// the four queries of each group at `qr` (group g at 8g rows further).
+template <int G>
+__device__ __forceinline__ void masked_chunk(float (&acc)[4][4],
+                                             const float* xr,
+                                             const float* qr) {
+#pragma unroll 2
+  for (int c = 0; c < kMDc; c += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            qr + (kGroupQ * g + j) * kMLd + c);
+        float a = acc[g][j];
+        a = bbc::add_sq(a, xv.x, qv.x);
+        a = bbc::add_sq(a, xv.y, qv.y);
+        a = bbc::add_sq(a, xv.z, qv.z);
+        a = bbc::add_sq(a, xv.w, qv.w);
+        acc[g][j] = a;
+      }
+  }
+}
+
+__global__ void __launch_bounds__(bbc::kThreads, 3)
+l2_masked_kernel(const float* __restrict__ x, const float* __restrict__ qs,
+                 const unsigned char* __restrict__ mask,
+                 float* __restrict__ out, unsigned char* __restrict__ staged,
+                 int n, int d, int B, int vec, int vec_mask) {
+  constexpr int kStage = (kRows + kRound) * kMLd;   // floats per ring stage
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ __align__(16) unsigned char m_s[kRound * kRows];
+  __shared__ unsigned q_bits[2];          // ping-pong by round
+  __shared__ unsigned row_bits[kRows / 32];
+  __shared__ int list[kRound];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x, r0 = tile * kRows;
+  const int rl = 32 * (warp & 3) + lane;  // this thread's row of the tile
+  const int qh = 4 * (warp >> 2);         // its half of each group
+  const int n_chunks = max(1, (d + kMDc - 1) / kMDc);
+  if (threadIdx.x == 0) q_bits[0] = 0;
+
+  for (int q0 = 0, round = 0; q0 < B; q0 += kRound, ++round) {
+    const int slot = round & 1;
+    __syncthreads();                      // the last round is read
+    {                                     // the (32, 128) mask slice
+      const int qi = threadIdx.x >> 3, c0 = 16 * (threadIdx.x & 7);
+      const int q = q0 + qi;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q < B) {
+        const unsigned char* src = mask + static_cast<size_t>(q) * n + r0 + c0;
+        if (vec_mask && r0 + c0 + 16 <= n) {
+          v = *reinterpret_cast<const uint4*>(src);
+        } else {
+          unsigned w[4] = {0u, 0u, 0u, 0u};
+          for (int i = 0; i < 16 && r0 + c0 + i < n; ++i)
+            w[i >> 2] |= static_cast<unsigned>(src[i] != 0) << (8 * (i & 3));
+          v = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      *reinterpret_cast<uint4*>(m_s + qi * kRows + c0) = v;
+      const unsigned bal = __ballot_sync(0xffffffffu,
+                                         (v.x | v.y | v.z | v.w) != 0u);
+      if (lane == 0 && bal) {
+        unsigned nib = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          nib |= static_cast<unsigned>(((bal >> (8 * j)) & 0xffu) != 0u) << j;
+        atomicOr(&q_bits[slot], nib << (4 * warp));
+      }
+    }
+    __syncthreads();
+    const unsigned qb = q_bits[slot];
+    if (threadIdx.x == 0) {
+      q_bits[slot ^ 1] = 0;               // read last round, before the sync
+      staged[static_cast<size_t>(round) * gridDim.x + tile] = qb != 0u;
+    }
+    if (qb == 0u) continue;               // no query needs this tile
+    if (threadIdx.x < kRound && ((qb >> threadIdx.x) & 1u))
+      list[__popc(qb & ((1u << threadIdx.x) - 1u))] = q0 + threadIdx.x;
+    if (threadIdx.x < kRows) {            // warps 0-3: the rows needed
+      bool need = false;
+      for (int qi = 0; qi < kRound; ++qi)
+        need |= m_s[qi * kRows + threadIdx.x] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, need);
+      if (lane == 0) row_bits[warp] = bal;
+    }
+    __syncthreads();
+    const int count = __popc(qb), groups = (count + kGroupQ - 1) / kGroupQ;
+    // the groups that hold a listed query in this thread's half: a warp
+    // whose half of every group lies past the list computes nothing
+    const int mine = count > qh ? (count - qh + kGroupQ - 1) / kGroupQ : 0;
+
+    // chunk s: the needed rows' and the listed queries' coordinates
+    // [32s, 32s + 32), zero past d; rows not needed and group slots past
+    // the list are not copied (their sums are never stored)
+    auto load = [&](int s) {
+      const int col0 = s * kMDc;
+      float* xs = sm + (s % kMStages) * kStage;
+      float* qs_s = xs + kRows * kMLd;
+      const int q_rows = kGroupQ * groups;
+      if (vec) {
+        constexpr int kParts = kMDc / 4;
+        for (int i = threadIdx.x; i < (kRows + q_rows) * kParts;
+             i += bbc::kThreads) {
+          const int r = i / kParts, c = 4 * (i % kParts);
+          const float* row;
+          float* dst;
+          if (r < kRows) {
+            if (!((row_bits[r >> 5] >> (r & 31)) & 1u)) continue;
+            row = x + static_cast<size_t>(r0 + r) * d;
+            dst = xs + r * kMLd + c;
+          } else {
+            const int qi = r - kRows;
+            if (qi >= count) continue;
+            row = qs + static_cast<size_t>(list[qi]) * d;
+            dst = qs_s + qi * kMLd + c;
+          }
+          const bool ok = col0 + c < d;
+          bbc::cp_async16(dst, ok ? row + col0 + c : row, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = threadIdx.x; i < (kRows + q_rows) * kMDc;
+             i += bbc::kThreads) {
+          const int r = i / kMDc, c = i % kMDc;
+          const float* row;
+          float* dst;
+          if (r < kRows) {
+            if (!((row_bits[r >> 5] >> (r & 31)) & 1u)) continue;
+            row = x + static_cast<size_t>(r0 + r) * d;
+            dst = xs + r * kMLd + c;
+          } else {
+            const int qi = r - kRows;
+            if (qi >= count) continue;
+            row = qs + static_cast<size_t>(list[qi]) * d;
+            dst = qs_s + qi * kMLd + c;
+          }
+          const bool ok = col0 + c < d;
+          bbc::cp_async4(dst, ok ? row + col0 + c : row, ok ? 4 : 0);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kMStages - 1; ++s) {
+      if (s < n_chunks) load(s);
+      bbc::cp_async_commit();
+    }
+
+    float acc[4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
+
+    for (int s = 0; s < n_chunks; ++s) {
+      bbc::cp_async_wait<kMStages - 2>();  // this thread's copies of chunk s
+      __syncthreads();                     // everyone's; chunk s-1 is read
+      if (s + kMStages - 1 < n_chunks) load(s + kMStages - 1);
+      bbc::cp_async_commit();
+      const float* stage = sm + (s % kMStages) * kStage;
+      const float* xr = stage + rl * kMLd;
+      const float* qr = stage + (kRows + qh) * kMLd;
+      switch (mine) {
+        case 0: break;
+        case 1: masked_chunk<1>(acc, xr, qr); break;
+        case 2: masked_chunk<2>(acc, xr, qr); break;
+        case 3: masked_chunk<3>(acc, xr, qr); break;
+        default: masked_chunk<4>(acc, xr, qr); break;
+      }
+    }
+    bbc::cp_async_wait<0>();
+
+    const int row = r0 + rl;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = kGroupQ * g + qh + j;
+        if (g < mine && qi < count && row < n) {
+          const int q = list[qi];
+          if (m_s[(q - q0) * kRows + rl])
+            out[static_cast<size_t>(q) * n + row] = sqrtf(acc[g][j]);
+        }
+      }
+  }
+}
+
+}  // namespace
+
+// Shared memory (bytes) of the masked kernel's ring.
+extern "C" int l2_exact_masked_smem_bytes() { return masked_smem_bytes(); }
+
+// grid = ceil(n / 128) row tiles; `staged` holds ceil(B / 32) x grid bytes.
+// `vec` allows 16-byte copies of x and qs (d % 4 == 0, aligned pointers),
+// `vec_mask` 16-byte reads of the mask (n % 16 == 0, an aligned mask).  A
+// shared-memory size below the kernel's ring is refused.
+extern "C" int l2_exact_masked_launch(const float* x, const float* qs,
+                                      const unsigned char* mask, float* out,
+                                      unsigned char* staged, int n, int d,
+                                      int B, int vec, int vec_mask, int grid,
+                                      int smem, cudaStream_t stream) {
+  if (smem < masked_smem_bytes())
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = bbc::allow_smem(l2_masked_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  l2_masked_kernel<<<grid, bbc::kThreads, smem, stream>>>(
+      x, qs, mask, out, staged, n, d, B, vec, vec_mask);
   return static_cast<int>(cudaGetLastError());
 }

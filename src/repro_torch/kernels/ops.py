@@ -27,13 +27,17 @@ the fused scan's chunked-LUT kernel, under ``fused_scan_chunked_batch``, and
 the sample plan's kernel, by mode: ``sample_plan_batch`` (the row sorted in
 shared memory) and ``sample_plan_sorted_batch`` (a row read sorted: a long
 row after ``torch.topk``, or a caller's top-k).  The routing's lane mask
-counts under ``probe_mask_batch`` at every B.  While a profiler records,
+counts under ``probe_mask_batch`` at every B, the masked exact pass
+(RaBitQ's stragglers) under ``l2_exact_masked_batch``.  While a profiler
+records,
 the two batched fused scans also count (``spans.count``, in the wrapper
 that chooses the grid) the (query, lane) pairs their grid walks, as
 ``scan.pairs_passed`` (the lanes of each query's probed lists, which the
 whole-LUT PQ kernel counts itself, or B x n where a scan covers every
 lane), and the probed ones among them, the set bits of the lane mask that
-their histogram counts, as ``scan.pairs_probed``.
+their histogram counts, as ``scan.pairs_probed``; the masked exact pass
+counts the row tiles it staged (``rerank.straggler_tiles_read``) and all
+of them (``rerank.straggler_tiles``).
 
 The launch shape of the exact-distance and ADC kernels is a plain function
 of the problem's shape (``_l2_plan``, ``_adc_plan``): how many queries a
@@ -51,7 +55,9 @@ query and whether a query's LUT is staged, the sample's RaBitQ bounds'
 pass's gather's (``_gather_plan``) its lanes a row, load width and shared
 memory, the sample plan's (``_sample_plan_launch``) whether a block sorts
 the row in shared memory, the lane mask's (``_mask_plan``) its groups of
-queries, blocks a group and where a group's bitset lives.  The CPU tests check the plans; the kernels
+queries, blocks a group and where a group's bitset lives, the masked
+exact pass's (``_masked_plan``) its rounds of queries, row tiles and ring.
+The CPU tests check the plans; the kernels
 refuse a shared-memory size below their layout's.
 """
 from __future__ import annotations
@@ -74,7 +80,8 @@ LAUNCHES = {"fused_scan_batch": 0, "pq_adc_batch": 0, "l2_exact_batch": 0,
             "bucket_hist": 0, "pq_sample_adc_batch": 0,
             "l2_gather_rows_batch": 0, "rabitq_sample_ub_batch": 0,
             "fused_scan_chunked_batch": 0, "sample_plan_batch": 0,
-            "sample_plan_sorted_batch": 0, "probe_mask_batch": 0}
+            "sample_plan_sorted_batch": 0, "probe_mask_batch": 0,
+            "l2_exact_masked_batch": 0}
 
 MAX_SMEM = 232448      # 227 KB: the most dynamic shared memory a block may use
 MAX_TILES = 1024       # lane-tile blocks per query chunk (grid-stride beyond)
@@ -85,6 +92,11 @@ SMS = 132              # SMs of an H100 SXM (the plans' default)
 # ring depth, and the padded chunk stride
 L2_ROWS, L2_CHUNK, L2_STAGES = 128, 64, 2
 L2_LD = L2_CHUNK + 4
+# l2_rerank.cu's masked layout: the queries whose mask a block reads at
+# once (a round, at most four groups of eight), coordinates per chunk, the
+# ring depth, and the padded chunk stride
+L2M_ROUND, L2M_CHUNK, L2M_STAGES = 32, 32, 3
+L2M_LD = L2M_CHUNK + 4
 # pq_adc.cu's tiled layout: code rows per tile, ring depth; the LUT bytes a
 # block may stage (two blocks per SM at B = 32, M = 32, K = 16) and the
 # blocks an SM holds at most (the kernel's __launch_bounds__)
@@ -151,7 +163,9 @@ _SIGNATURES = {
         "l2_exact_batch_launch": [_P] * 3 + [_I] * 7 + [_P],
         "l2_gather_rows_launch": [_P] * 5 + [ctypes.c_longlong]
                                  + [_I] * 6 + [_P],
-        "l2_gather_rows_smem_bytes": [_I] * 2},
+        "l2_gather_rows_smem_bytes": [_I] * 2,
+        "l2_exact_masked_launch": [_P] * 5 + [_I] * 7 + [_P],
+        "l2_exact_masked_smem_bytes": []},
     "bucket_hist": {
         "bucket_hist_batch_launch": [_P] * 7 + [_I] * 9 + [_P],
         "bucket_hist_smem_bytes": [_I] * 2,
@@ -513,6 +527,63 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         p.grid, p.smem, _stream())
     _check(rc, "l2_exact_batch")
     _count("l2_exact", b)
+    return out
+
+
+class MaskedPlan(NamedTuple):
+    """One launch of the masked exact-distance kernel."""
+    rounds: int          # rounds of ``L2M_ROUND`` queries a block takes
+    grid: int            # blocks: one per ``L2_ROWS`` rows
+    smem: int            # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def _masked_plan(b: int, n: int) -> MaskedPlan:
+    """The masked pass's launch for B queries over n rows: one block per
+    128-row tile, taking the queries in rounds of 32 (each round's mask
+    slice, list and ring of its own), and a 3-stage ring of (128 + 32)
+    rows of 32 coordinates at a stride of 36 floats, at every d: three
+    blocks an SM."""
+    return MaskedPlan(max(1, -(-b // L2M_ROUND)), max(1, -(-n // L2_ROWS)),
+                      L2M_STAGES * (L2_ROWS + L2M_ROUND) * L2M_LD * 4)
+
+
+def l2_exact_batch_masked(x: torch.Tensor, qs: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """(n, d) shared vectors x (B, d) queries under a (B, n) bool ``mask``
+    -> (B, n) exact distances, bitwise ``l2_exact_batch``'s at every set
+    pair.  Entries off the mask are not written on the card (the plain
+    version gives +inf there): a caller reads the set pairs alone.  One
+    launch (``_masked_plan``); a row tile no query needs is not read.
+
+    While a profiler records, the (rounds, tiles) bytes of the row tiles
+    the pass staged count as ``rerank.straggler_tiles_read`` (summed after
+    the window) and their number as ``rerank.straggler_tiles``."""
+    if not _on_cuda(x, qs, mask):
+        out = _ref.l2_exact_batch_masked(x, qs, mask)
+        staged = _ref.masked_tiles(mask, L2_ROWS, L2M_ROUND)
+    else:
+        n, d = x.shape
+        b = qs.shape[0]
+        _need(x, "x", torch.float32, (n, d))
+        _need(qs, "qs", torch.float32, (b, d))
+        _need(mask, "mask", torch.bool, (b, n))
+        out = torch.empty(b, n, dtype=torch.float32, device=x.device)
+        if b == 0 or n == 0:
+            return out
+        p = _masked_plan(b, n)
+        staged = torch.empty(p.rounds, p.grid, dtype=torch.uint8,
+                             device=x.device)
+        vec = d % 4 == 0 and _aligned(x, qs)        # 16-byte copies
+        vec_mask = n % 16 == 0 and _aligned(mask)   # 16-byte mask reads
+        rc = _lib("l2_rerank").l2_exact_masked_launch(
+            x.data_ptr(), qs.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            staged.data_ptr(), n, d, b, vec, vec_mask, p.grid, p.smem,
+            _stream())
+        _check(rc, "l2_exact_batch_masked")
+        LAUNCHES["l2_exact_masked_batch"] += 1
+    spans.count("rerank.straggler_tiles_read", staged)
+    spans.count("rerank.straggler_tiles", staged.numel())
     return out
 
 

@@ -167,6 +167,26 @@ def l2_exact_batch(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return numerics.exact_dist(x[None], qs[:, None])
 
 
+def l2_exact_batch_masked(x: torch.Tensor, qs: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """(n, d) shared vectors, (B, d) queries, (B, n) ``mask`` -> (B, n)
+    exact distances on the mask (``l2_exact_batch``'s), +inf off it."""
+    return torch.where(mask, l2_exact_batch(x, qs), float("inf"))
+
+
+def masked_tiles(mask: torch.Tensor, rows: int = 128,
+                 group: int = 32) -> torch.Tensor:
+    """(ceil(B / group), ceil(n / rows)) uint8: 1 where a group of queries
+    has a set pair in a tile of rows of the (B, n) ``mask``, the tiles the
+    masked pass stages."""
+    b, n = mask.shape
+    pad = torch.zeros(-(-b // group) * group, -(-n // rows) * rows,
+                      dtype=torch.bool, device=mask.device)
+    pad[:b, :n] = mask
+    return pad.reshape(pad.shape[0] // group, group, -1, rows).any(
+        dim=3).any(dim=1).to(torch.uint8)
+
+
 def l2_gather_rows(vectors: torch.Tensor, ids: torch.Tensor,
                    qs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(N, d) vectors, per-query id rows ``ids`` (B, w) (-1 allowed off

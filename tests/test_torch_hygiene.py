@@ -182,8 +182,10 @@ def test_launch_counters_cover_the_four_kernels():
     second pass's gather, which no TPU kernel computes; one for the fused
     scan's chunked-LUT form (#1 where a query's LUT outgrows a block); one
     for each mode of the sample plan's kernel (a row sorted in shared
-    memory, a row read sorted), which no TPU kernel computes either; and
-    one for the routing's lane mask, which neither does."""
+    memory, a row read sorted), which no TPU kernel computes either; one
+    for the routing's lane mask, which neither does; and one for the
+    masked exact pass (RaBitQ's stragglers past the gather budget), where
+    the TPU path runs the dense #3."""
     assert set(ops.LAUNCHES) == {"fused_scan_batch", "pq_adc_batch",
                                  "l2_exact_batch", "bucket_hist_batch",
                                  "fused_rabitq_scan_batch",
@@ -196,7 +198,8 @@ def test_launch_counters_cover_the_four_kernels():
                                  "fused_scan_chunked_batch",
                                  "sample_plan_batch",
                                  "sample_plan_sorted_batch",
-                                 "probe_mask_batch"}
+                                 "probe_mask_batch",
+                                 "l2_exact_masked_batch"}
     assert set(_build.KERNELS) == {"fused_scan", "pq_adc", "l2_rerank",
                                    "bucket_hist", "rabitq_fused",
                                    "shard_collect", "rabitq_est",
